@@ -1,0 +1,147 @@
+"""Device-side kernel times and the device's busy share during decode.
+
+    python -m gvl_tpu_torch.device_times
+
+Run from the repository root on a machine with one CUDA card.  CUDA events
+around back-to-back calls of a small kernel measure the host's launch cost
+as much as the kernel; this script reads the device's own kernel durations
+from ``torch.profiler`` (CUPTI) instead:
+
+1. each port kernel's device time per launch at the shapes the served models
+   give it (QA prefill at 4096 tokens, QA decode at 3072 live rows, one 8B
+   cache row);
+2. for greedy decode of one held-out QA prompt (seed 1234) and of the 8B
+   layer geometry at depth 4: wall time per step (host clock, no profiler),
+   device kernel time per step (profiler), their ratio (the device's busy
+   share) and the kernels that take the device time.
+
+It prints one JSON object as its last line.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from gvl_tpu_torch import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _device_us(prof) -> dict[str, float]:
+    """Device microseconds per kernel name in a finished profile."""
+    out: dict[str, float] = {}
+    for event in prof.key_averages():
+        us = getattr(event, "device_time_total", 0.0)
+        if us:
+            out[event.key] = out.get(event.key, 0.0) + us
+    return out
+
+
+def kernel_device_ms(fn, names: tuple[str, ...], iters: int = 50) -> float | None:
+    """Device ms per call of ``fn`` spent in CUDA kernels whose name holds
+    one of ``names``; None when the profiler saw no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for key, t in _device_us(prof).items() if any(n in key for n in names))
+    return us / 1e3 / iters if us else None
+
+
+def decode_profile(engine, prompt_ids, steps: int) -> dict:
+    """Wall and device time per greedy decode step after the prefill."""
+    def run(profiled: bool):
+        stream = engine.stream(prompt_ids, max_new_tokens=steps, temperature=0.0)
+        next(stream)                       # prefill and the first token
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                n = 1 + sum(1 for _ in stream)
+                torch.cuda.synchronize()
+            return n, prof
+        n = 1 + sum(1 for _ in stream)
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - start
+
+    run(False)                             # warm-up
+    n, wall = run(False)
+    _, prof = run(True)
+    per_kernel = _device_us(prof)
+    device_ms = sum(per_kernel.values()) / 1e3 / n
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "steps": n,
+        "wall_ms_per_step": 1e3 * wall / n,
+        "device_ms_per_step": device_ms,
+        "busy_share": device_ms / (1e3 * wall / n),
+        "top_kernels_ms_per_step": {k[:80]: v / 1e3 / n for k, v in top},
+    }
+
+
+def main() -> dict:
+    from gvl_tpu_torch.agent.core import create_qa_backend
+    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
+    from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.ops.cache_update import cache_append
+    from gvl_tpu_torch.ops.decode_attention import decode_attention
+    from gvl_tpu_torch.training.qa_lm_train import encode_sample, generate_qa_sample
+
+    dev = resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = randn(1, 10, 4096, 64), randn(1, 5, 4096, 64), randn(1, 5, 4096, 64)
+    qd = randn(1, 10, 64)
+    kc = randn(1, 5, 4608, 64, dtype=torch.bfloat16)
+    vc = randn(1, 5, 4608, 64, dtype=torch.bfloat16)
+    lengths = torch.tensor([3072], dtype=torch.int32, device=dev)
+    cache = randn(1, 8, 1024, 128, dtype=torch.bfloat16)
+    row = randn(1, 8, 128, dtype=torch.bfloat16)
+    pos = torch.tensor([517], dtype=torch.int32, device=dev)
+    kernels = {
+        "flash_attention": kernel_device_ms(
+            lambda: flash_attention(q, k, v, causal=True), ("flash_attention_kernel",), 20),
+        "decode_attention": kernel_device_ms(
+            lambda: decode_attention(qd, kc, vc, lengths),
+            ("decode_partial_kernel", "decode_combine_kernel")),
+        "cache_append": kernel_device_ms(
+            lambda: cache_append(cache, row, pos), ("cache_append_kernel",)),
+    }
+    print(f"device ms per launch: {kernels}", flush=True)
+
+    backend = create_qa_backend(REPO / "outputs" / "qa_lm", device=dev)
+    sample = generate_qa_sample(np.random.default_rng(1234))
+    tokens, _, prompt_len = encode_sample(sample, ByteTokenizer(), 3072)
+    backend.engine.eos_token_id = -1      # decode all 48 steps
+    qa = decode_profile(backend.engine, [int(t) for t in tokens[:prompt_len]], 48)
+    qa["prompt_tokens"] = int(prompt_len)
+    print(f"QA decode: {qa}", flush=True)
+    del backend
+
+    cfg = Qwen3Config(hidden_size=4096, num_layers=4, num_heads=32, num_kv_heads=8,
+                      head_dim=128, intermediate_size=12288, vocab_size=151936,
+                      max_cache_length=1024)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    engine = Qwen3Engine(cfg, params, eos_token_id=-1, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (128,),
+                           generator=torch.Generator().manual_seed(0)).tolist()
+    big = decode_profile(engine, prompt, 16)
+    print(f"8B decode: {big}", flush=True)
+    return {"device": torch.cuda.get_device_name(0), "kernel_device_ms": kernels,
+            "qa_decode": qa, "decode_8b": big}
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))

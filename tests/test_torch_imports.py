@@ -1,0 +1,141 @@
+"""gvl_tpu_torch stands alone: no JAX, no gvl_tpu, no library attention.
+
+Also: entry points refuse to run without a card unless the CPU is asked
+for, and chip_smoke.py fails (printing no result) without one.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "gvl_tpu_torch"
+QA_CKPT = REPO / "outputs" / "qa_lm"
+
+_BLOCKED_IMPORT = r"""
+import importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "gvl_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import gvl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(gvl_tpu_torch.__path__, "gvl_tpu_torch.")]
+for name in names:
+    __import__(name)
+import chip_smoke
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not bad, bad
+print(len(names), "modules")
+"""
+
+
+def test_package_and_chip_smoke_import_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[0]) >= 14
+
+
+def _source_files():
+    return [p for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")
+            and "_build" not in p.parts]
+
+
+@pytest.mark.parametrize("needle", ["cpp_extension", "scaled_dot_product_attention",
+                                    "torch.compile", "import jax", "from jax",
+                                    "flax", "optax", "from gvl_tpu.",
+                                    "import gvl_tpu."])
+def test_forbidden_calls_absent_from_package(needle):
+    hits = [str(p.relative_to(REPO)) for p in _source_files()
+            if needle in p.read_text()]
+    assert not hits
+
+
+def test_chip_smoke_uses_library_attention_only_as_yardstick():
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "cpp_extension" not in source and "torch.compile" not in source
+    tree = ast.parse(source)
+    uses = []
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef):
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Attribute)
+                        and node.attr == "scaled_dot_product_attention"):
+                    uses.append(fn.name)
+    assert uses and all(name.startswith("library_") for name in uses)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ""])
+            assert not any(m.split(".")[0] in ("jax", "flax", "gvl_tpu") for m in mods)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.agent.core import create_qa_backend
+    from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, Qwen3Engine, init_params
+    from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm, load_qa_lm
+
+    cfg = Qwen3Config.tiny()
+    state = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    calls = [
+        lambda: resolve_device(),
+        lambda: create_qa_backend(QA_CKPT),
+        lambda: load_qa_lm(QA_CKPT),
+        lambda: Qwen3Engine(cfg, state),
+        lambda: KVCache.zeros(cfg, 1),
+        lambda: init_params(cfg, torch.Generator()),
+        lambda: evaluate_qa_lm(state, cfg, n_samples=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert Qwen3Engine(cfg, state, device="cpu").device.type == "cpu"
+
+
+def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():
+    from gvl_tpu_torch.ops import attention, cache_update, decode_attention
+
+    for module, kernel, plain in [
+        (attention, "flash_attention", "attention_reference"),
+        (decode_attention, "decode_attention", "decode_attention_reference"),
+        (cache_update, "cache_append", "cache_append_reference"),
+    ]:
+        assert isinstance(getattr(module, kernel).launches, int)
+        assert callable(getattr(module, plain))
+
+
+def _run_chip_smoke(cwd, env_extra):
+    env = {**os.environ, **env_extra}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_chip_smoke(REPO, {"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_chip_smoke(tmp_path, {"PYTHONPATH": ""})
+    assert proc.returncode != 0
+    assert "gvl_tpu_torch" in proc.stderr and '"ok"' not in proc.stdout
