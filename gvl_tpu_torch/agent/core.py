@@ -3,8 +3,7 @@
 Counterpart of ``gvl_tpu.agent.core.Qwen3ChatBackend`` and
 ``messages_to_plain_text``, plus :func:`create_qa_backend`, the port's
 form of the QA-model branch of ``gvl_tpu.agent.core.create_reasoning_core``.
-Speculative engines, prefix-cached sessions and LoRA adapters are not
-ported yet.
+LoRA adapters are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,11 +36,21 @@ class Qwen3ChatBackend:
     ``stream(messages, config)`` yields text pieces as they decode;
     ``config`` carries ``max_new_tokens``, ``temperature``, ``top_p`` and
     ``top_k`` (e.g. :class:`gvl_tpu_torch.agent.config.GenerationConfig`).
+
+    With ``spec_engine`` (a :class:`~gvl_tpu_torch.models.speculative.
+    SpeculativeEngine` or ``PromptLookupEngine``), text-only turns decode
+    speculatively; with ``session`` (a :class:`~gvl_tpu_torch.models.
+    session.Qwen3ChatSession`), text-only turns reuse the conversation's KV
+    cache and prefill only the transcript delta.  Turns with an embedding
+    prefix always take the plain engine.  Priority: spec_engine > session >
+    engine.
     """
 
-    def __init__(self, engine, tokenizer):
+    def __init__(self, engine, tokenizer, spec_engine=None, session=None):
         self.engine = engine
         self.tokenizer = tokenizer
+        self.spec_engine = spec_engine
+        self.session = session
 
     def _render(self, messages: list[dict]) -> list[int]:
         plain = messages_to_plain_text(messages)
@@ -81,13 +90,20 @@ class Qwen3ChatBackend:
                 ids = ids[:head] + ids[-(keep - head):]
         produced: list[int] = []
         emitted = 0
-        for token in self.engine.stream(
+        if inputs_embeds_prefix is None and self.spec_engine is not None:
+            engine, kwargs = self.spec_engine, {}
+        elif inputs_embeds_prefix is None and self.session is not None:
+            engine, kwargs = self.session, {}
+        else:
+            engine = self.engine
+            kwargs = {"inputs_embeds_prefix": inputs_embeds_prefix}
+        for token in engine.stream(
             ids,
             max_new_tokens=config.max_new_tokens,
             temperature=config.temperature,
             top_p=config.top_p,
             top_k=config.top_k,
-            inputs_embeds_prefix=inputs_embeds_prefix,
+            **kwargs,
         ):
             produced.append(token)
             text = self.tokenizer.decode(produced, skip_special_tokens=True)

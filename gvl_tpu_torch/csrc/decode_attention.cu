@@ -2,10 +2,14 @@
 // Hopper (sm_90a): f32 or bf16 query, head_dim 64 or 128, up to 8 query heads
 // per KV head.
 //
-// Replaces the TPU kernel gvl_tpu/ops/decode_attention.py:decode_attention
-// (Pallas body _decode_kernel): out[b, h] = softmax(q[b, h] . k[b, h/G, :len])
+// Replaces the TPU kernels gvl_tpu/ops/decode_attention.py:decode_attention
+// (Pallas body _decode_kernel) and :decode_attention_stacked (body
+// _decode_kernel_stacked): out[b, h] = softmax(q[b, h] . k[b, h/G, :len])
 // v[b, h/G, :len] with len = lengths[b]; keys at or past len are neither read
-// nor computed.
+// nor computed.  The stacked form reads layer `layer` of an [L, B, Hkv, S_max,
+// D] cache: the kernel adds the layer's offset to the cache pointers itself,
+// so no layer is sliced out or copied (the TPU kernel's scalar-prefetched
+// layer index in its block index map).
 //
 // Design.  The TPU kernel walks a (slot, KV head)'s blocks one after another.
 // On Hopper that would leave most of the 132 SMs idle at batch 1, so the live
@@ -38,7 +42,8 @@ decode_partial_kernel(const TQ* __restrict__ q,
                       const __nv_bfloat16* __restrict__ vc,
                       const int* __restrict__ lengths,
                       float* __restrict__ part_acc, float* __restrict__ part_ml,
-                      int hq, int hkv, int s_max, int n_chunks, float scale) {
+                      int layer, int hq, int hkv, int s_max, int n_chunks,
+                      float scale) {
   constexpr int kPerLane = D / kLanesPerKey;
   constexpr int kKeysPerPass = kThreads / kLanesPerKey;
   __shared__ float qs[kMaxGroup][D];
@@ -57,7 +62,9 @@ decode_partial_kernel(const TQ* __restrict__ q,
     qs[i / D][i % D] = to_float(q[head0 * D + i]);
   __syncthreads();
 
-  const size_t row0 = ((size_t)b * hkv + h) * s_max + k0;
+  // layer `layer` of a cache stacked over layers (0 for one layer's cache);
+  // the grid's z extent is the batch
+  const size_t row0 = (((size_t)layer * gridDim.z + b) * hkv + h) * s_max + k0;
   const __nv_bfloat16* kbase = kc + row0 * D;
   const __nv_bfloat16* vbase = vc + row0 * D;
 
@@ -154,21 +161,41 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
 template <typename TQ, int D>
 int launch(const void* q, const void* k_cache, const void* v_cache,
            const void* lengths, void* out, void* part_acc, void* part_ml,
-           int batch, int hq, int hkv, int s_max, float scale,
+           int layer, int batch, int hq, int hkv, int s_max, float scale,
            cudaStream_t stream) {
   const int n_chunks = (s_max + kChunk - 1) / kChunk;
   const int* lens = static_cast<const int*>(lengths);
   decode_partial_kernel<TQ, D><<<dim3(n_chunks, hkv, batch), kThreads, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const __nv_bfloat16*>(k_cache),
       static_cast<const __nv_bfloat16*>(v_cache), lens,
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), hq, hkv,
-      s_max, n_chunks, scale);
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), layer, hq,
+      hkv, s_max, n_chunks, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<TQ><<<dim3(hq, batch), D, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       lens, static_cast<TQ*>(out), hq, s_max, n_chunks, D);
   return (int)cudaGetLastError();
+}
+
+// Validates the shapes and dispatches on the query type and head size.
+int dispatch(const void* q, const void* k_cache, const void* v_cache,
+             const void* lengths, void* out, void* part_acc, void* part_ml,
+             int n_layers, int layer, int batch, int hq, int hkv, int s_max,
+             int head_dim, float scale, int q_dtype, void* stream) {
+  if (batch <= 0 || hkv <= 0 || hq % hkv || hq / hkv > kMaxGroup ||
+      hq / hkv < 1 || s_max <= 0 || layer < 0 || layer >= n_layers)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32 && head_dim == 64)
+    return launch<float, 64>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, layer, batch, hq, hkv, s_max, scale, s);
+  if (q_dtype == kF32 && head_dim == 128)
+    return launch<float, 128>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, layer, batch, hq, hkv, s_max, scale, s);
+  if (q_dtype == kBF16 && head_dim == 64)
+    return launch<__nv_bfloat16, 64>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, layer, batch, hq, hkv, s_max, scale, s);
+  if (q_dtype == kBF16 && head_dim == 128)
+    return launch<__nv_bfloat16, 128>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, layer, batch, hq, hkv, s_max, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -188,18 +215,19 @@ extern "C" int gvl_decode_attention(const void* q, const void* k_cache,
                                     int batch, int hq, int hkv, int s_max,
                                     int head_dim, float scale, int q_dtype,
                                     void* stream) {
-  using namespace gvl;
-  if (batch <= 0 || hkv <= 0 || hq % hkv || hq / hkv > kMaxGroup ||
-      hq / hkv < 1 || s_max <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32 && head_dim == 64)
-    return launch<float, 64>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, batch, hq, hkv, s_max, scale, s);
-  if (q_dtype == kF32 && head_dim == 128)
-    return launch<float, 128>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, batch, hq, hkv, s_max, scale, s);
-  if (q_dtype == kBF16 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, batch, hq, hkv, s_max, scale, s);
-  if (q_dtype == kBF16 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k_cache, v_cache, lengths, out, part_acc, part_ml, batch, hq, hkv, s_max, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return gvl::dispatch(q, k_cache, v_cache, lengths, out, part_acc, part_ml,
+                       1, 0, batch, hq, hkv, s_max, head_dim, scale, q_dtype,
+                       stream);
+}
+
+// As gvl_decode_attention, reading layer `layer` (0 <= layer < n_layers) of
+// k/v caches stacked over layers, [n_layers, B, Hkv, S_max, D] bf16.
+extern "C" int gvl_decode_attention_stacked(
+    const void* q, const void* k_all, const void* v_all, const void* lengths,
+    void* out, void* part_acc, void* part_ml, int n_layers, int layer,
+    int batch, int hq, int hkv, int s_max, int head_dim, float scale,
+    int q_dtype, void* stream) {
+  return gvl::dispatch(q, k_all, v_all, lengths, out, part_acc, part_ml,
+                       n_layers, layer, batch, hq, hkv, s_max, head_dim, scale,
+                       q_dtype, stream);
 }

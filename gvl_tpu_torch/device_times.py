@@ -9,17 +9,22 @@ from ``torch.profiler`` (CUPTI) instead:
 
 1. each port kernel's device time per launch at the shapes the served models
    give it (QA prefill at 4096 tokens, QA decode at 3072 live rows, one 8B
-   cache row);
+   cache row, a QA admission chunk of 2048 tokens, the 8B scan-layers decode
+   of 4 slots);
 2. for greedy decode of one held-out QA prompt (seed 1234) and of the 8B
    layer geometry at depth 4: wall time per step (host clock, no profiler),
    device kernel time per step (profiler), their ratio (the device's busy
-   share) and the kernels that take the device time.
+   share) and the kernels that take the device time;
+3. the same for a batched decode step of ``ContinuousBatchingEngine`` with
+   4 slots: the QA model on 4 held-out prompts, and the 8B geometry with
+   ``scan_layers`` on 4 random prompts.
 
 It prints one JSON object as its last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -87,13 +92,59 @@ def decode_profile(engine, prompt_ids, steps: int) -> dict:
     }
 
 
+def batch_decode_profile(engine, prompts, steps: int) -> dict:
+    """Wall and device time per batched decode step once every slot is live
+    (``engine.eos_token_id`` must be -1, so that all slots run ``steps``)."""
+    def run(profiled: bool):
+        for prompt in prompts:
+            engine.submit(prompt, steps + 1)
+        engine.step()                      # admissions and the first step
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        n = 0
+        if profiled:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                while engine.has_work:
+                    engine.step()
+                    n += 1
+                torch.cuda.synchronize()
+            return n, prof
+        while engine.has_work:
+            engine.step()
+            n += 1
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - start
+
+    run(False)                             # warm-up
+    n, wall = run(False)
+    _, prof = run(True)
+    per_kernel = _device_us(prof)
+    device_ms = sum(per_kernel.values()) / 1e3 / n
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "slots": len(prompts),
+        "steps": n,
+        "wall_ms_per_step": 1e3 * wall / n,
+        "tokens_per_s": len(prompts) * n / wall,
+        "device_ms_per_step": device_ms,
+        "busy_share": device_ms / (1e3 * wall / n),
+        "top_kernels_ms_per_step": {k[:80]: v / 1e3 / n for k, v in top},
+    }
+
+
 def main() -> dict:
     from gvl_tpu_torch.agent.core import create_qa_backend
     from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
     from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
     from gvl_tpu_torch.ops.attention import flash_attention
-    from gvl_tpu_torch.ops.cache_update import cache_append
-    from gvl_tpu_torch.ops.decode_attention import decode_attention
+    from gvl_tpu_torch.models.qwen3 import stack_layers
+    from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_stacked
+    from gvl_tpu_torch.ops.decode_attention import (
+        chunk_attention,
+        decode_attention,
+        decode_attention_stacked,
+    )
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
     from gvl_tpu_torch.training.qa_lm_train import encode_sample, generate_qa_sample
 
     dev = resolve_device("cuda")
@@ -110,6 +161,13 @@ def main() -> dict:
     cache = randn(1, 8, 1024, 128, dtype=torch.bfloat16)
     row = randn(1, 8, 128, dtype=torch.bfloat16)
     pos = torch.tensor([517], dtype=torch.int32, device=dev)
+    qc = randn(1, 10, 2048, 64)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    k_all = randn(4, 4, 8, 1024, 128, dtype=torch.bfloat16)
+    v_all = randn(4, 4, 8, 1024, 128, dtype=torch.bfloat16)
+    q4 = randn(4, 32, 128, dtype=torch.bfloat16)
+    lens4 = torch.tensor([129, 134, 140, 144], dtype=torch.int32, device=dev)
+    rows4 = randn(4, 8, 128, dtype=torch.bfloat16)
     kernels = {
         "flash_attention": kernel_device_ms(
             lambda: flash_attention(q, k, v, causal=True), ("flash_attention_kernel",), 20),
@@ -118,17 +176,34 @@ def main() -> dict:
             ("decode_partial_kernel", "decode_combine_kernel")),
         "cache_append": kernel_device_ms(
             lambda: cache_append(cache, row, pos), ("cache_append_kernel",)),
+        "chunk_attention": kernel_device_ms(
+            lambda: chunk_attention(qc, kc, vc, start), ("chunk_attention_kernel",), 20),
+        "decode_attention_stacked": kernel_device_ms(
+            lambda: decode_attention_stacked(q4, k_all, v_all, lens4, 2),
+            ("decode_partial_kernel", "decode_combine_kernel")),
+        "cache_append_stacked": kernel_device_ms(
+            lambda: cache_append_stacked(k_all, rows4, lens4 - 1, 2),
+            ("cache_append_kernel",)),
     }
     print(f"device ms per launch: {kernels}", flush=True)
 
     backend = create_qa_backend(REPO / "outputs" / "qa_lm", device=dev)
-    sample = generate_qa_sample(np.random.default_rng(1234))
-    tokens, _, prompt_len = encode_sample(sample, ByteTokenizer(), 3072)
+    rng = np.random.default_rng(1234)
+    qa_prompts = []
+    for _ in range(4):
+        tokens, _, prompt_len = encode_sample(generate_qa_sample(rng), ByteTokenizer(),
+                                              3072)
+        qa_prompts.append([int(t) for t in tokens[:prompt_len]])
     backend.engine.eos_token_id = -1      # decode all 48 steps
-    qa = decode_profile(backend.engine, [int(t) for t in tokens[:prompt_len]], 48)
-    qa["prompt_tokens"] = int(prompt_len)
+    qa = decode_profile(backend.engine, qa_prompts[0], 48)
+    qa["prompt_tokens"] = len(qa_prompts[0])
     print(f"QA decode: {qa}", flush=True)
-    del backend
+    batch = ContinuousBatchingEngine(backend.engine.config,
+                                     backend.engine.model.state_dict(),
+                                     eos_token_id=-1, num_slots=4, device=dev)
+    qa_batch = batch_decode_profile(batch, qa_prompts, 48)
+    print(f"QA batched decode: {qa_batch}", flush=True)
+    del backend, batch
 
     cfg = Qwen3Config(hidden_size=4096, num_layers=4, num_heads=32, num_kv_heads=8,
                       head_dim=128, intermediate_size=12288, vocab_size=151936,
@@ -139,8 +214,18 @@ def main() -> dict:
                            generator=torch.Generator().manual_seed(0)).tolist()
     big = decode_profile(engine, prompt, 16)
     print(f"8B decode: {big}", flush=True)
+    del engine
+    scan = ContinuousBatchingEngine(
+        dataclasses.replace(cfg, scan_layers=True), stack_layers(params, cfg),
+        eos_token_id=-1, num_slots=4, device=dev)
+    gen_cpu = torch.Generator().manual_seed(1)
+    scan_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen_cpu).tolist()
+                    for n in (128, 100, 77, 128)]
+    big_batch = batch_decode_profile(scan, scan_prompts, 16)
+    print(f"8B scan batched decode: {big_batch}", flush=True)
     return {"device": torch.cuda.get_device_name(0), "kernel_device_ms": kernels,
-            "qa_decode": qa, "decode_8b": big}
+            "qa_decode": qa, "qa_batch_decode": qa_batch, "decode_8b": big,
+            "scan_8b_batch_decode": big_batch}
 
 
 if __name__ == "__main__":

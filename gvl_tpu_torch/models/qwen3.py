@@ -1,25 +1,35 @@
 """Qwen3-class decoder and its serving engine, in PyTorch.
 
-Counterpart of :mod:`gvl_tpu.models.qwen3` for the unrolled, full-precision
-model: GQA attention with per-head q/k RMSNorm and RoPE, SwiGLU MLP, a
-per-layer KV cache, and :class:`Qwen3Engine` (bucketed prefill, then one
-token per step).  Attention goes through the port's kernels on CUDA
-tensors (``ops.attention.flash_attention`` for prefill,
-``ops.decode_attention.decode_attention`` for each decode step,
-``ops.cache_update.cache_append`` for the cache write when head_dim is a
-multiple of 128) and through their plain versions on CPU tensors.
-The config's ``use_*_kernel`` flags send a CUDA model down the plain
-versions instead, which is how the kernel path is checked on the card.
+Counterpart of :mod:`gvl_tpu.models.qwen3` for the full-precision model:
+GQA attention with per-head q/k RMSNorm and RoPE, SwiGLU MLP, a KV cache
+with per-slot lengths, and :class:`Qwen3Engine` (bucketed prefill, then one
+token per step).  Attention goes through the port's kernels on CUDA tensors
+and through their plain versions on CPU tensors:
 
-Not ported yet: ``scan_layers``, int8 weights, LoRA, chunked speculative
-verification, DeepStack/mrope inputs and tensor-parallel meshes; a config
-that asks for one of them raises.
+- ``ops.attention.flash_attention``: prefill into an empty cache;
+- ``ops.decode_attention.chunk_attention``: every chunk of a
+  ``chunk_verify`` model (speculative verify, session delta ingest, batch
+  admission), whatever its length;
+- ``ops.decode_attention.decode_attention``: each decode step, and
+  ``decode_attention_stacked`` for a ``scan_layers`` model's stacked cache;
+- ``ops.cache_update.cache_append`` / ``cache_append_stacked``: the decode
+  step's cache write when head_dim is a multiple of 128.
+
+``scan_layers`` keeps the JAX layout: every layer weight stacked over a
+leading layer axis (``layers.self_attn.q_proj.weight`` is ``[L, out, in]``)
+and one ``[L, B, Hkv, S_max, D]`` cache per side; each layer reads its
+weights and cache as views.  The config's ``use_*_kernel`` flags send a
+CUDA model down the plain versions instead, which is how the kernel path is
+checked on the card.
+
+Not ported yet: int8 weights, LoRA, DeepStack/mrope inputs and
+tensor-parallel meshes; a config that asks for int8 or LoRA raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,10 +39,14 @@ from torch import nn
 from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.nn.layers import RMSNorm
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
-from gvl_tpu_torch.ops.cache_update import cache_append
+from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_stacked
 from gvl_tpu_torch.ops.decode_attention import (
+    chunk_attention,
+    chunk_attention_reference,
     decode_attention,
     decode_attention_reference,
+    decode_attention_stacked,
+    decode_attention_stacked_reference,
 )
 from gvl_tpu_torch.ops.rope import rope_angles, rotate_half
 
@@ -82,8 +96,7 @@ class Qwen3Config:
 
 
 def _check_supported(cfg: Qwen3Config) -> None:
-    unsupported = [name for name in ("scan_layers", "quant_int8", "chunk_verify")
-                   if getattr(cfg, name)]
+    unsupported = ["quant_int8"] if cfg.quant_int8 else []
     if cfg.lora_rank:
         unsupported.append("lora_rank")
     if unsupported:
@@ -92,12 +105,54 @@ def _check_supported(cfg: Qwen3Config) -> None:
 
 
 class KVCache:
-    """Per-layer static-shape cache, updated in place; ``length`` is the
-    live prefix size (a Python int, so no step waits on the device)."""
+    """Static-shape KV cache, written in place.
 
-    def __init__(self, k: list[torch.Tensor], v: list[torch.Tensor],
-                 length: int = 0):
-        self.k, self.v, self.length = k, v, length
+    ``k`` and ``v`` hold one ``[B, Hkv, S_max, D]`` tensor per layer, or,
+    for a ``scan_layers`` model, one ``[L, B, Hkv, S_max, D]`` tensor each.
+    ``lengths`` is each slot's live prefix size, kept on the host as ints so
+    that no step waits on the device; the model copies it to the device
+    once per forward.  ``length`` reads and sets all slots at once.
+    """
+
+    def __init__(self, k, v, lengths: int | Sequence[int] = 0):
+        self.k, self.v = k, v
+        batch = k.shape[1] if self.stacked else k[0].shape[0]
+        self.lengths = ([int(lengths)] * batch if isinstance(lengths, int)
+                        else [int(n) for n in lengths])
+
+    @property
+    def stacked(self) -> bool:
+        return isinstance(self.k, torch.Tensor)
+
+    @property
+    def max_length(self) -> int:
+        return self.k[0].shape[-2]
+
+    @property
+    def length(self) -> int:
+        """The live length shared by every slot."""
+        if len(set(self.lengths)) != 1:
+            raise ValueError(f"slots hold different lengths {self.lengths}")
+        return self.lengths[0]
+
+    @length.setter
+    def length(self, value: int) -> None:
+        self.lengths = [int(value)] * len(self.lengths)
+
+    def lengths_tensor(self, device: torch.device) -> torch.Tensor:
+        """``lengths`` as an int32 tensor on ``device`` (a host-to-device
+        copy that does not wait for the device)."""
+        host = torch.tensor(self.lengths, dtype=torch.int32)
+        return host if device.type == "cpu" else host.to(device, non_blocking=True)
+
+    def slot(self, index: int) -> "KVCache":
+        """Slot ``index`` as a batch-1 cache whose tensors are views of this
+        one's: what is written into it lands in this cache."""
+        pick = slice(index, index + 1)
+        if self.stacked:
+            return KVCache(self.k[:, pick], self.v[:, pick], [self.lengths[index]])
+        return KVCache([t[pick] for t in self.k], [t[pick] for t in self.v],
+                       [self.lengths[index]])
 
     @classmethod
     def zeros(cls, config: Qwen3Config, batch: int,
@@ -106,32 +161,62 @@ class KVCache:
         device = resolve_device(device)
         shape = (batch, config.num_kv_heads, config.max_cache_length,
                  config.head_dim)
+        if config.scan_layers:
+            stacked = (config.num_layers, *shape)
+            return cls(torch.zeros(stacked, dtype=dtype, device=device),
+                       torch.zeros(stacked, dtype=dtype, device=device))
         return cls([torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(config.num_layers)],
                    [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(config.num_layers)])
 
 
+class Linear(nn.Module):
+    """Bias-free projection ``x @ W^T`` (``nn.Linear``'s ``weight`` layout);
+    with ``stack=(L,)`` the weight is ``[L, out, in]`` and ``index`` picks
+    the layer."""
+
+    def __init__(self, n_in: int, n_out: int, stack: tuple = ()):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(*stack, n_out, n_in))
+
+    def forward(self, x: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
+        return F.linear(x, self.weight if index is None else self.weight[index])
+
+
+def _write_back(result: torch.Tensor, cache: torch.Tensor) -> None:
+    """Keep a cache write in place: the kernels write where the cache lies,
+    the plain versions (CPU) return a new tensor, copied back here."""
+    if result is not cache:
+        cache.copy_(result)
+
+
 class Qwen3Attention(nn.Module):
-    def __init__(self, cfg: Qwen3Config):
+    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
         super().__init__()
         self.config = cfg
         hidden, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = nn.Linear(hidden, cfg.num_heads * d, bias=False)
-        self.k_proj = nn.Linear(hidden, cfg.num_kv_heads * d, bias=False)
-        self.v_proj = nn.Linear(hidden, cfg.num_kv_heads * d, bias=False)
-        self.o_proj = nn.Linear(cfg.num_heads * d, hidden, bias=False)
-        self.q_norm = RMSNorm(d, cfg.rms_norm_eps)
-        self.k_norm = RMSNorm(d, cfg.rms_norm_eps)
+        self.q_proj = Linear(hidden, cfg.num_heads * d, stack)
+        self.k_proj = Linear(hidden, cfg.num_kv_heads * d, stack)
+        self.v_proj = Linear(hidden, cfg.num_kv_heads * d, stack)
+        self.o_proj = Linear(cfg.num_heads * d, hidden, stack)
+        self.q_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
+        self.k_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                layer: int, cache: Optional[KVCache]) -> torch.Tensor:
+                layer: int, cache: Optional[KVCache],
+                cache_len: Optional[torch.Tensor], index: Optional[int] = None,
+                stacked_decode: bool = False) -> torch.Tensor:
+        """``cache_len``: the slots' live lengths before this call, [B]
+        int32 on x's device; ``index``: the weights' layer when they are
+        stacked; ``stacked_decode``: one token per slot written into and
+        read from the stacked cache by the stacked kernels."""
         cfg = self.config
         batch, seq, _ = x.shape
         n_q, n_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.q_norm(self.q_proj(x).view(batch, seq, n_q, d))
-        k = self.k_norm(self.k_proj(x).view(batch, seq, n_kv, d))
-        v = self.v_proj(x).view(batch, seq, n_kv, d)
+        q = self.q_norm(self.q_proj(x, index).view(batch, seq, n_q, d), index)
+        k = self.k_norm(self.k_proj(x, index).view(batch, seq, n_kv, d), index)
+        v = self.v_proj(x, index).view(batch, seq, n_kv, d)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         q = (q * cos + rotate_half(q) * sin).to(q.dtype).contiguous()
         k = (k * cos + rotate_half(k) * sin).to(k.dtype).contiguous()
@@ -141,68 +226,98 @@ class Qwen3Attention(nn.Module):
         if cache is None:
             # teacher-forced path: causal over the sequence
             out = attend(q, k, v, causal=True)
+        elif stacked_decode:
+            # scan-layers decode: this layer's row goes into the stacked
+            # cache in place and is read back by the layer-indexed kernel
+            k_all, v_all = cache.k, cache.v
+            _write_back(cache_append_stacked(
+                k_all, k[:, :, 0].to(k_all.dtype).contiguous(), cache_len, layer), k_all)
+            _write_back(cache_append_stacked(
+                v_all, v[:, :, 0].to(v_all.dtype).contiguous(), cache_len, layer), v_all)
+            decode = (decode_attention_stacked if cfg.use_decode_kernel
+                      else decode_attention_stacked_reference)
+            out = decode(q[:, :, 0], k_all, v_all, cache_len + 1, layer)[:, :, None, :]
         else:
-            start = cache.length
-            if start + seq > cfg.max_cache_length:
-                raise ValueError(
-                    f"KV cache full: {start} + {seq} tokens exceed "
-                    f"max_cache_length={cfg.max_cache_length}")
             ck, cv = cache.k[layer], cache.v[layer]
             if seq == 1 and cfg.use_cache_append_kernel and d % 128 == 0:
                 # one row per slot, written in place by the kernel
-                pos = torch.full((batch,), start, dtype=torch.int32,
-                                 device=x.device)
-                ck = cache_append(ck, k[:, :, 0].to(ck.dtype).contiguous(), pos)
-                cv = cache_append(cv, v[:, :, 0].to(cv.dtype).contiguous(), pos)
-                cache.k[layer], cache.v[layer] = ck, cv
+                _write_back(cache_append(
+                    ck, k[:, :, 0].to(ck.dtype).contiguous(), cache_len), ck)
+                _write_back(cache_append(
+                    cv, v[:, :, 0].to(cv.dtype).contiguous(), cache_len), cv)
+            elif seq == 1:
+                # per-slot scatter of one row
+                slot = torch.arange(batch, device=x.device)
+                pos = cache_len.long()
+                ck[slot, :, pos, :] = k[:, :, 0].to(ck.dtype)
+                cv[slot, :, pos, :] = v[:, :, 0].to(cv.dtype)
             else:
-                # plain slice write (dynamic_update_slice in the JAX model)
-                ck[:, :, start:start + seq] = k.to(ck.dtype)
-                cv[:, :, start:start + seq] = v.to(cv.dtype)
-            if seq > 1:
+                # the chunk at each slot's offset (dynamic_update_slice in
+                # the JAX model; the model has checked that it fits)
+                starts = cache.lengths
+                if len(set(starts)) == 1:
+                    ck[:, :, starts[0]:starts[0] + seq] = k.to(ck.dtype)
+                    cv[:, :, starts[0]:starts[0] + seq] = v.to(cv.dtype)
+                else:
+                    for b, start in enumerate(starts):
+                        ck[b, :, start:start + seq] = k[b].to(ck.dtype)
+                        cv[b, :, start:start + seq] = v[b].to(cv.dtype)
+            if seq > 1 and cfg.chunk_verify:
+                # the chunk sits at offset cache_len: each row attends over
+                # the cached prefix plus its causal part of the chunk
+                chunk = (chunk_attention if cfg.use_decode_kernel
+                         else chunk_attention_reference)
+                out = chunk(q, ck, cv, cache_len)
+            elif seq > 1:
                 # prefill into an empty cache: causal over the prompt only
                 out = attend(q, k, v, causal=True)
             else:
-                lengths = torch.full((batch,), start + 1, dtype=torch.int32,
-                                     device=x.device)
                 decode = (decode_attention if cfg.use_decode_kernel
                           else decode_attention_reference)
-                out = decode(q[:, :, 0], ck, cv, lengths)[:, :, None, :]
+                out = decode(q[:, :, 0], ck, cv, cache_len + 1)[:, :, None, :]
 
         out = out.transpose(1, 2).reshape(batch, seq, n_q * d)
-        return self.o_proj(out)
+        return self.o_proj(out, index)
 
 
 class Qwen3Mlp(nn.Module):
-    def __init__(self, cfg: Qwen3Config):
+    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.gate_proj = Linear(cfg.hidden_size, cfg.intermediate_size, stack)
+        self.up_proj = Linear(cfg.hidden_size, cfg.intermediate_size, stack)
+        self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size, stack)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
+        gate = F.silu(self.gate_proj(x, index)) * self.up_proj(x, index)
+        return self.down_proj(gate, index)
 
 
 class Qwen3Layer(nn.Module):
-    def __init__(self, cfg: Qwen3Config):
-        super().__init__()
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = Qwen3Attention(cfg)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = Qwen3Mlp(cfg)
+    """One decoder layer, or (``stack=(L,)``) all L layers' weights stacked
+    for a ``scan_layers`` model, which runs it once per layer index."""
 
-    def forward(self, x, cos, sin, layer: int, cache: Optional[KVCache]):
-        x = x + self.self_attn(self.input_norm(x), cos, sin, layer, cache)
-        return x + self.mlp(self.post_attn_norm(x))
+    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
+        super().__init__()
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, stack)
+        self.self_attn = Qwen3Attention(cfg, stack)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, stack)
+        self.mlp = Qwen3Mlp(cfg, stack)
+
+    def forward(self, x, cos, sin, layer: int, cache: Optional[KVCache],
+                cache_len: Optional[torch.Tensor], index: Optional[int] = None,
+                stacked_decode: bool = False):
+        x = x + self.self_attn(self.input_norm(x, index), cos, sin, layer, cache,
+                               cache_len, index, stacked_decode)
+        return x + self.mlp(self.post_attn_norm(x, index), index)
 
 
 class Qwen3Model(nn.Module):
-    """Unrolled decoder stack with an optional KV cache.
+    """Decoder stack with an optional KV cache.
 
     ``forward`` returns ``(logits, cache)``; with a cache, the new tokens'
-    K/V are written into it in place and ``cache.length`` advances by the
-    sequence length.
+    K/V are written into it in place at each slot's offset and every slot's
+    length advances by the sequence length.  A write past
+    ``max_cache_length`` raises (the JAX model's writes clamp instead).
     """
 
     def __init__(self, config: Qwen3Config):
@@ -210,18 +325,21 @@ class Qwen3Model(nn.Module):
         _check_supported(config)
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
-        self.layers = nn.ModuleList(Qwen3Layer(config)
-                                    for _ in range(config.num_layers))
+        if config.scan_layers:
+            self.layers = Qwen3Layer(config, stack=(config.num_layers,))
+        else:
+            self.layers = nn.ModuleList(Qwen3Layer(config)
+                                        for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.lm_head = (None if config.tie_word_embeddings else
-                        nn.Linear(config.hidden_size, config.vocab_size, bias=False))
+                        Linear(config.hidden_size, config.vocab_size))
 
     def forward(
         self,
         tokens: Optional[torch.Tensor] = None,          # [B, S] int
         *,
         inputs_embeds: Optional[torch.Tensor] = None,   # [B, S, D]
-        positions: Optional[torch.Tensor] = None,       # [S]
+        positions: Optional[torch.Tensor] = None,       # [S] or [B, S]
         cache: Optional[KVCache] = None,
     ) -> tuple[torch.Tensor, Optional[KVCache]]:
         cfg = self.config
@@ -230,16 +348,55 @@ class Qwen3Model(nn.Module):
         if positions is None:
             positions = torch.arange(seq, device=x.device)
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, i, cache)
+        if positions.dim() == 2:        # per-slot positions: [B, 1, S, D]
+            cos, sin = cos[:, None], sin[:, None]
+        cache_len = None
+        if cache is not None:
+            full = [n for n in cache.lengths if n + seq > cache.max_length]
+            if full:
+                raise ValueError(
+                    f"KV cache full: {full[0]} + {seq} tokens exceed "
+                    f"max_cache_length={cache.max_length}")
+            cache_len = cache.lengths_tensor(x.device)
+        stacked_decode = (cfg.scan_layers and cache is not None and seq == 1
+                          and cfg.use_cache_append_kernel
+                          and cfg.head_dim % 128 == 0)
+        for i in range(cfg.num_layers):
+            if cfg.scan_layers:
+                x = self.layers(x, cos, sin, i, cache, cache_len, i, stacked_decode)
+            else:
+                x = self.layers[i](x, cos, sin, i, cache, cache_len)
         x = self.final_norm(x)
         if cfg.tie_word_embeddings:
             logits = x @ self.embed_tokens.weight.T
         else:
             logits = self.lm_head(x)
         if cache is not None:
-            cache.length += seq
+            cache.lengths = [n + seq for n in cache.lengths]
         return logits, cache
+
+
+def load_model(config: Qwen3Config, state_dict: dict[str, torch.Tensor],
+               device: str | torch.device = "cuda") -> Qwen3Model:
+    """A :class:`Qwen3Model` in eval mode on ``device`` whose parameters are
+    the state dict's tensors (shared, not copied, when already there)."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = Qwen3Model(config)
+    model.load_state_dict(state_dict, assign=True)
+    return model.to(device).eval()
+
+
+def stack_layers(state_dict: dict[str, torch.Tensor],
+                 config: Qwen3Config) -> dict[str, torch.Tensor]:
+    """An unrolled model's state dict in the ``scan_layers`` layout: each
+    ``layers.{i}.<name>`` stacked into ``layers.<name>`` ([L, ...])."""
+    out = {k: v for k, v in state_dict.items() if not k.startswith("layers.")}
+    names = [k[len("layers.0."):] for k in state_dict if k.startswith("layers.0.")]
+    for name in names:
+        out[f"layers.{name}"] = torch.stack(
+            [state_dict[f"layers.{i}.{name}"] for i in range(config.num_layers)])
+    return out
 
 
 def init_params(config: Qwen3Config, generator: torch.Generator,
@@ -302,10 +459,7 @@ class Qwen3Engine:
         self.eos_token_id = eos_token_id
         self.dtype = dtype
         self.device = resolve_device(device)
-        with torch.device("meta"):
-            model = Qwen3Model(config)
-        model.load_state_dict(state_dict, assign=True)
-        self.model = model.to(self.device).eval()
+        self.model = load_model(config, state_dict, self.device)
 
     def _bucket(self, n: int) -> int:
         for b in self.PROMPT_BUCKETS:

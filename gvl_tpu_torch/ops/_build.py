@@ -42,7 +42,10 @@ _SIGNATURES = {
     "gvl_flash_attention": [_VOID_P] * 4 + [_INT] * 8 + [_FLOAT, _INT, _VOID_P],
     "gvl_decode_attention": [_VOID_P] * 7 + [_INT] * 5 + [_FLOAT, _INT, _VOID_P],
     "gvl_decode_attention_chunk": [],
+    "gvl_decode_attention_stacked": [_VOID_P] * 7 + [_INT] * 7 + [_FLOAT, _INT, _VOID_P],
+    "gvl_chunk_attention": [_VOID_P] * 5 + [_INT] * 6 + [_FLOAT, _INT, _VOID_P],
     "gvl_cache_append": [_VOID_P] * 3 + [_INT] * 4 + [_VOID_P],
+    "gvl_cache_append_stacked": [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P],
 }
 
 

@@ -39,7 +39,8 @@ def test_one_nvcc_command_for_sm90a_with_timeout(build_dir, monkeypatch):
         assert flag in cmd
     sources = sorted(str(p) for p in (REPO / "gvl_tpu_torch" / "csrc").glob("*.cu"))
     assert cmd[-len(sources):] == sources
-    assert {"flash_attention.cu", "decode_attention.cu", "cache_append.cu"} <= {
+    assert {"flash_attention.cu", "decode_attention.cu", "cache_append.cu",
+            "chunk_attention.cu"} <= {
         Path(s).name for s in sources}
     assert kw["timeout"] == _build.BUILD_TIMEOUT_S <= 300
     assert result.path == build_dir / _build.source_hash() / _build.LIB_NAME

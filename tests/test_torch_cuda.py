@@ -15,10 +15,19 @@ import torch
 
 from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
-from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_reference
+from gvl_tpu_torch.ops.cache_update import (
+    cache_append,
+    cache_append_reference,
+    cache_append_stacked,
+    cache_append_stacked_reference,
+)
 from gvl_tpu_torch.ops.decode_attention import (
+    chunk_attention,
+    chunk_attention_reference,
     decode_attention,
     decode_attention_reference,
+    decode_attention_stacked,
+    decode_attention_stacked_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +102,96 @@ def test_cache_append_in_place(dev, dtype):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 10, 5), (128, 32, 8)])
+@pytest.mark.parametrize("layer", [0, 2])
+def test_decode_attention_stacked_matches_plain(dev, qdtype, d, hq, hkv, layer):
+    s_max = 700
+    lengths = torch.tensor([1, 256, 513, s_max], dtype=torch.int32, device=dev)
+    q = _randn(dev, 4, hq, d, dtype=qdtype, seed=12)
+    k_all = _randn(dev, 3, 4, hkv, s_max, d, dtype=torch.bfloat16, seed=13)
+    v_all = _randn(dev, 3, 4, hkv, s_max, d, dtype=torch.bfloat16, seed=14)
+    before = decode_attention_stacked.launches
+    got = decode_attention_stacked(q, k_all, v_all, lengths, layer)
+    want = decode_attention_stacked_reference(q, k_all, v_all, lengths, layer)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert decode_attention_stacked.launches == before + 1 and got.dtype == qdtype
+    # the same numbers as the one-layer kernel on that layer
+    assert torch.equal(got, decode_attention(q, k_all[layer].contiguous(),
+                                             v_all[layer].contiguous(), lengths))
+
+
+def test_decode_attention_stacked_reads_only_its_layer(dev):
+    q = _randn(dev, 2, 8, 128, dtype=torch.bfloat16, seed=15)
+    k_all = _randn(dev, 4, 2, 2, 256, 128, dtype=torch.bfloat16, seed=16)
+    v_all = _randn(dev, 4, 2, 2, 256, 128, dtype=torch.bfloat16, seed=17)
+    lengths = torch.tensor([100, 256], dtype=torch.int32, device=dev)
+    first = decode_attention_stacked(q, k_all, v_all, lengths, 1)
+    for other in (0, 2, 3):
+        k_all[other] = float("nan")
+        v_all[other] = float("nan")
+    assert torch.equal(decode_attention_stacked(q, k_all, v_all, lengths, 1), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cache_append_stacked_in_place(dev, dtype):
+    cache = _randn(dev, 3, 4, 8, 64, 128, dtype=dtype, seed=18)
+    new = _randn(dev, 4, 8, 128, dtype=dtype, seed=19)
+    pos = torch.tensor([0, 17, 63, 64], dtype=torch.int32, device=dev)  # 64: dropped
+    want = cache_append_stacked_reference(cache, new, pos, 2)
+    ptr = cache.data_ptr()
+    before = cache_append_stacked.launches
+    got = cache_append_stacked(cache, new, pos, 2)
+    assert got is cache and got.data_ptr() == ptr
+    assert torch.equal(got, want)
+    assert cache_append_stacked.launches == before + 1
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 10, 5), (128, 32, 8), (64, 8, 1)])
+@pytest.mark.parametrize("seq,starts,s_max", [
+    (5, [0, 3, 200, 695], 700),        # a speculative verify, mixed offsets
+    (37, [0, 1, 250, 663], 700),       # rows not a multiple of the tile
+    (128, [1200, 0], 1536),            # a session delta at an offset
+])
+def test_chunk_attention_matches_plain(dev, qdtype, d, hq, hkv, seq, starts, s_max):
+    batch = len(starts)
+    q = _randn(dev, batch, hq, seq, d, dtype=qdtype, seed=20)
+    kc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=21)
+    vc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=22)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = chunk_attention.launches
+    got = chunk_attention(q, kc, vc, start)
+    want = chunk_attention_reference(q, kc, vc, start)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    assert chunk_attention.launches == before + 1 and got.dtype == qdtype
+
+
+def test_chunk_attention_start_zero_is_causal_flash(dev):
+    """A fresh admission: a 2048-token f32 chunk at offset 0 is causal
+    attention over the chunk (S * G = 4096 rows, past the TPU's 512)."""
+    q = _randn(dev, 1, 10, 2048, 64, seed=23)
+    kc = _randn(dev, 1, 5, 4608, 64, dtype=torch.bfloat16, seed=24)
+    vc = _randn(dev, 1, 5, 4608, 64, dtype=torch.bfloat16, seed=25)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = chunk_attention(q, kc, vc, start)
+    want = attention_reference(q, kc[:, :, :2048].float(), vc[:, :, :2048].float(),
+                               causal=True)
+    torch.testing.assert_close(got, want, **BF16_TOL)
+
+
+def test_chunk_attention_reads_only_live_keys(dev):
+    q = _randn(dev, 2, 4, 9, 128, dtype=torch.bfloat16, seed=26)
+    kc = _randn(dev, 2, 2, 512, 128, dtype=torch.bfloat16, seed=27)
+    vc = _randn(dev, 2, 2, 512, 128, dtype=torch.bfloat16, seed=28)
+    start = torch.tensor([10, 300], dtype=torch.int32, device=dev)
+    first = chunk_attention(q, kc, vc, start)
+    for b, s in enumerate((10, 300)):
+        kc[b, :, s + 9:] = float("nan")
+        vc[b, :, s + 9:] = float("nan")
+    assert torch.equal(chunk_attention(q, kc, vc, start), first)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = _randn(dev, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="head_dim"):
@@ -106,6 +205,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                      torch.zeros(1, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3), q, q)
+    kc = _randn(dev, 1, 2, 16, 64, dtype=torch.bfloat16)
+    q4 = _randn(dev, 1, 4, 3, 64)
+    with pytest.raises(ValueError, match="int32"):
+        chunk_attention(q4, kc, kc, torch.zeros(1, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="bf16"):
+        chunk_attention(q4, kc.float(), kc.float(),
+                        torch.zeros(1, dtype=torch.int32, device=dev))
+    k_all = kc[None].repeat(2, 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="layer"):
+        decode_attention_stacked(q4[:, :, 0].contiguous(), k_all, k_all,
+                                 torch.ones(1, dtype=torch.int32, device=dev), 2)
+    with pytest.raises(ValueError, match="layer"):
+        cache_append_stacked(k_all, kc[:, :, 0].contiguous(),
+                             torch.zeros(1, dtype=torch.int32, device=dev), -1)
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])
@@ -120,3 +233,43 @@ def test_tiny_engine_kernel_path_matches_plain_path(dev, head_dim):
     want = Qwen3Engine(cfg.plain(), params, eos_token_id=-1, device=dev).generate(
         prompt, max_new_tokens=12, temperature=0.0)
     assert got == want
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_tiny_serving_kernel_path_matches_plain_path(dev, head_dim):
+    """The batching engine (scan_layers: stacked append and decode at head_dim
+    128), a session's second turn and prompt lookup, kernels against plain."""
+    from gvl_tpu_torch.models.qwen3 import stack_layers
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
+    from gvl_tpu_torch.models.speculative import PromptLookupEngine
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+
+    cfg = Qwen3Config.tiny(head_dim=head_dim, hidden_size=128, max_cache_length=256)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    params = {k: v if k.endswith("norm.weight") else 5 * v for k, v in params.items()}
+    prompts = [list(range(3, 40)), list(range(50, 60)), [7, 7, 7]]
+    scan = Qwen3Config.tiny(head_dim=head_dim, hidden_size=128, max_cache_length=256,
+                            scan_layers=True)
+    stacked = stack_layers(params, cfg)
+    counts = (decode_attention_stacked.launches, cache_append_stacked.launches,
+              chunk_attention.launches)
+    got = ContinuousBatchingEngine(scan, stacked, eos_token_id=-1, num_slots=2,
+                                   device=dev).generate_many(prompts, 8)
+    want = ContinuousBatchingEngine(scan.plain(), stacked, eos_token_id=-1,
+                                    num_slots=2, device=dev).generate_many(prompts, 8)
+    assert got == want
+    assert chunk_attention.launches > counts[2]
+    if head_dim == 128:
+        assert decode_attention_stacked.launches > counts[0]
+        assert cache_append_stacked.launches > counts[1]
+
+    session = Qwen3ChatSession(cfg, params, eos_token_id=-1, device=dev)
+    first = session.generate(prompts[0], max_new_tokens=6, temperature=0.0)
+    transcript = prompts[0] + first + [90, 91, 92]
+    second = session.generate(transcript, max_new_tokens=6, temperature=0.0)
+    plain = Qwen3Engine(cfg.plain(), params, eos_token_id=-1, device=dev)
+    assert second == plain.generate(transcript, max_new_tokens=6, temperature=0.0)
+    lookup = PromptLookupEngine(cfg, params, gamma=4, eos_token_id=-1, device=dev)
+    assert (lookup.generate(prompts[0], max_new_tokens=12, temperature=0.0)
+            == plain.generate(prompts[0], max_new_tokens=12, temperature=0.0))

@@ -34,6 +34,10 @@ import gvl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gvl_tpu_torch.__path__, "gvl_tpu_torch.")]
 for name in names:
     __import__(name)
+for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
+             "gvl_tpu_torch.serving.batch_engine", "gvl_tpu_torch.serving.engine_server",
+             "gvl_tpu_torch.serving.api"):
+    assert name in names, name
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
@@ -45,7 +49,7 @@ def test_package_and_chip_smoke_import_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 14
+    assert int(proc.stdout.split()[0]) >= 21
 
 
 def _source_files():
@@ -91,6 +95,9 @@ def test_entry_points_raise_without_a_card(no_card):
     from gvl_tpu_torch import resolve_device
     from gvl_tpu_torch.agent.core import create_qa_backend
     from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, Qwen3Engine, init_params
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
+    from gvl_tpu_torch.models.speculative import PromptLookupEngine, SpeculativeEngine
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
     from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm, load_qa_lm
 
     cfg = Qwen3Config.tiny()
@@ -103,6 +110,10 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: KVCache.zeros(cfg, 1),
         lambda: init_params(cfg, torch.Generator()),
         lambda: evaluate_qa_lm(state, cfg, n_samples=1),
+        lambda: Qwen3ChatSession(cfg, state),
+        lambda: SpeculativeEngine(cfg, state, cfg, state),
+        lambda: PromptLookupEngine(cfg, state),
+        lambda: ContinuousBatchingEngine(cfg, state),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -117,6 +128,10 @@ def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():
         (attention, "flash_attention", "attention_reference"),
         (decode_attention, "decode_attention", "decode_attention_reference"),
         (cache_update, "cache_append", "cache_append_reference"),
+        (decode_attention, "decode_attention_stacked",
+         "decode_attention_stacked_reference"),
+        (decode_attention, "chunk_attention", "chunk_attention_reference"),
+        (cache_update, "cache_append_stacked", "cache_append_stacked_reference"),
     ]:
         assert isinstance(getattr(module, kernel).launches, int)
         assert callable(getattr(module, plain))

@@ -148,9 +148,12 @@ def test_sampling_keeps_top_k():
 
 
 def test_unported_options_raise():
-    for kw in ({"scan_layers": True}, {"quant_int8": True}, {"lora_rank": 4}):
+    for kw in ({"quant_int8": True}, {"lora_rank": 4}):
         with pytest.raises(NotImplementedError):
             port.Qwen3Model(port.Qwen3Config.tiny(**kw))
+    # scan_layers and chunk_verify are ported
+    for kw in ({"scan_layers": True}, {"chunk_verify": True}):
+        port.Qwen3Model(port.Qwen3Config.tiny(**kw))
 
 
 @pytest.fixture(scope="module")
