@@ -7,7 +7,8 @@ Run from the root of the repository, on a machine with one CUDA card and
 ``nvcc``.  Phases, each printing its elapsed time:
 
 0. device: the card's name and power limit (``nvidia-smi``), PyTorch's version;
-1. build: one ``nvcc`` command compiles ``gvl_tpu_torch/csrc/*.cu``;
+1. build: one ``nvcc`` per ``gvl_tpu_torch/csrc/*.cu``, started together,
+   then one link;
 2. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the served models give it, with the tolerance stated; then each
    kernel's time, its plain version's, one PyTorch library call's that
@@ -31,11 +32,21 @@ Run from the root of the repository, on a machine with one CUDA card and
    prompts against a fresh ``Qwen3Engine``;
 8. the 8B geometry with ``scan_layers`` (weights stacked from phase 4's):
    kernel path against plain path and an f32 evaluation, then 4 slots x 16
-   greedy steps through the batching engine against the unrolled engine.
+   greedy steps through the batching engine against the unrolled engine;
+9. the region semantic encoder on the fused W8A8 SigLIP so400m tower
+   (random weights, seed 0): ``SigLIPSemanticEncoder.encode_images_batch``
+   on 8 seeded 384 x 384 frames and ``encode_masked_regions`` on one frame
+   with 16 masks (128 canvas), each against the plain path of the same
+   fused tree and against the bf16 ``TorchSigLIPBackend`` on the same
+   weights (pooled cosine), with images/s and regions/s; then regions of
+   three more seeded frames and mask layouts against the bf16 tower;
+10. the packed-head variant of the fused tower against the padded one.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 8) and read just after it; each run must have launched
-every kernel of its path.  The last two lines are a
+path of phases 3 to 10) and read just after it; each run must have launched
+every kernel of its path.  ``quant_static`` and ``attention_qkv_packed``
+lie on no served path (as in the JAX package): phase 2 alone checks them.
+The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.  Any
 failed check raises, so the exit code is not 0; a watchdog turns a hang
 into a traceback and an exit.  No JAX and nothing of ``gvl_tpu`` is used.
@@ -56,7 +67,8 @@ REPO = Path(__file__).resolve().parent
 QA_CKPT = REPO / "outputs" / "qa_lm"
 WATCHDOG_S = 1100        # below the 1200 s the run is allowed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12,
+              "torch.int8": 1979e12}   # dense tensor-core peaks
 QA_SEED, QA_SAMPLES = 1234, 40
 QA_ACCURACY_SLACK = 0.075  # 3 of 40 answers
 QA_MIN_AGREE = 38          # kernel vs plain path answers, of 40
@@ -71,6 +83,18 @@ BF16_TOL = (2e-2, 2e-2)    # a few units of bf16's 2**-8 relative precision
 # 8B logits: the bf16 kernel path may stray from an f32 evaluation of the
 # same weights by at most this multiple of the bf16 plain path's own error
 BF16_ERR_RATIO = 1.5
+# int8 outputs: at most one step apart, on at most this share of elements
+# (exp2, rsqrt and f32 sums in another order move values across a boundary)
+INT8_FLIP_SHARE = 1e-3
+SEMANTIC_SEED, SEMANTIC_FRAMES, SEMANTIC_MASKS = 0, 8, 16
+REGION_SEEDS = (1, 2, 3)    # more frames and mask layouts, fused vs bf16
+# pooled cosine: kernel path against the plain path of the same fused
+# tree; fused tower against the bf16 tower on the same weights (the JAX
+# package records >= 0.9998 there, bench.py:66-68); packed heads against
+# padded heads
+COS_KERNEL_PLAIN, COS_FUSED_BF16, COS_PACKED_PADDED = 0.9995, 0.999, 0.999
+# fused kernels per forward of the 27-layer tower
+FUSED_LAUNCHES = {"w8a8_matmul": 4 * 27, "ln_quant": 2 * 27}
 
 _T0 = time.perf_counter()
 
@@ -408,6 +432,198 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def library_int_mm(x, w, scale, bias, epilogue, out_inv=None, residual=None):
+    """Yardstick only: PyTorch's int8 product (cuBLASLt) and the epilogue in
+    torch."""
+    import torch
+
+    y = torch._int_mm(x, w.t()).float() * scale + bias
+    if epilogue == "gelu_quant":
+        y = torch.clamp(torch.round(
+            torch.nn.functional.gelu(y, approximate="tanh") * out_inv), -127, 127)
+        return y.to(torch.int8)
+    if epilogue == "residual":
+        y = y + residual.float()
+    return y.to(torch.bfloat16)
+
+
+def library_layer_norm_quant(x, g, b, inv):
+    """Yardstick only: PyTorch's LayerNorm, then the quantize in torch."""
+    import torch
+    import torch.nn.functional as F
+
+    y = F.layer_norm(x.float(), x.shape[-1:], g, b, 1e-6)
+    return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+
+
+def library_quant(x, inv):
+    """Yardstick only: the static quantize in torch."""
+    import torch
+
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
+
+
+def library_encoder_attention(qkv, batch, seq_pad, heads, dh, mask):
+    """Yardstick only: PyTorch's fused attention on the q/k/v heads of the
+    packed projection (strided views), keys masked past kv_len."""
+    import torch.nn.functional as F
+
+    q, k, v = qkv.view(batch, seq_pad, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def check_quant_kernels(dev) -> list[dict]:
+    """B7-B12 against their plain versions at the so400m tower's shapes (a
+    batch of 8 frames at the 384 canvas: M 5888, Sp 736, kv_len 729; the
+    region bucket of 16 at the 128 canvas: M 1536, Sp 96, kv_len 81)."""
+    import torch
+
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def int8_close(what, got, want) -> float:
+        diff = (got.int() - want.int()).abs()
+        share = (diff > 0).float().mean().item()
+        ok = diff.max().item() <= 1 and share <= INT8_FLIP_SHARE
+        log("kernels", f"{what}: int8 max diff {diff.max().item()}, share differing "
+            f"{share:.2e} (limit 1 step on {INT8_FLIP_SHARE:.0e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{what}: kernel disagrees with its plain version")
+        return float(diff.max().item())
+
+    rows, errs = [], {}
+    # B7: the four products of a layer; y spreads about +-3 (+-60 for quant)
+    m = 5888
+    cases = [("qkv", 1152, 6144, "none"), ("o", 2048, 1152, "residual"),
+             ("fc1", 1152, 4352, "gelu_quant"), ("fc2", 4352, 1152, "residual"),
+             ("regions qkv", 1152, 6144, "none")]
+    mm_in = None
+    for name, k, n, epilogue in cases:
+        mi = 1536 if name.startswith("regions") else m
+        x, w = int8(mi, k), int8(n, k)
+        scale = (randn(n).abs() + 0.5) * (3.0 / (5376 * k ** 0.5))
+        bias = randn(n) * 0.1
+        res = randn(mi, n, dtype=torch.bfloat16)
+        kw = dict(epilogue=epilogue, out_scale_inv=37.5 if epilogue == "gelu_quant" else None,
+                  residual=res if epilogue == "residual" else None)
+        got = qm.w8a8_matmul(x, w, scale, bias, **kw)
+        want = qm.w8a8_matmul_reference(x, w, scale, bias, **kw)
+        torch.cuda.synchronize()
+        what = f"w8a8_matmul {name} [{mi},{k}]x[{n},{k}] {epilogue}"
+        if epilogue == "gelu_quant":
+            errs[what] = int8_close(what, got, want)
+        else:
+            errs[what] = assert_close(what, got, want, BF16_TOL)
+        if name == "qkv":
+            mm_in = (x, w, scale, bias)
+    x, w, scale, bias = mm_in
+    mm_bound = bound_ms(x.nbytes + w.nbytes + 8 * w.shape[0] + 2 * m * w.shape[0],
+                        2.0 * m * x.shape[1] * w.shape[0], torch.int8)
+    rows.append(dict(
+        name="w8a8_matmul", route="cuda", source="gvl_tpu_torch/csrc/w8a8_matmul.cu",
+        replaces="gvl_tpu/ops/quant_matmul.py:135",
+        shape="so400m qkv, batch 8: int8 [5888,1152] x [6144,1152], bf16 out",
+        max_abs_err=max(errs.values()),
+        ms=time_ms(lambda: qm.w8a8_matmul(x, w, scale, bias)),
+        plain_ms=time_ms(lambda: qm.w8a8_matmul_reference(x, w, scale, bias), 5),
+        bound_ms=mm_bound[0], bound_by=mm_bound[1],
+        library_ms=time_ms(lambda: library_int_mm(x, w, scale, bias, "none"))))
+
+    # B8 and B11: the residual stream of a batch of 8 (and of the regions)
+    for mi in (5888, 1536):
+        xs = randn(mi, 1152, dtype=torch.bfloat16) * 2.0
+        g, b = randn(1152).abs() + 0.5, randn(1152) * 0.1
+        errs_ln = int8_close(f"ln_quant [{mi},1152] bf16", qm.ln_quant(xs, g, b, 40.0),
+                             qm.ln_quant_reference(xs, g, b, 40.0))
+        errs_q = int8_close(f"quant_static [{mi},1152] bf16", qm.quant_static(xs, 20.0),
+                            qm.quant_static_reference(xs, 20.0))
+        if mi == 5888:
+            x_ln, ln_err, q_err = (xs, g, b), errs_ln, errs_q
+    xs, g, b = x_ln
+    ln_bound = bound_ms(xs.nbytes + 8 * 1152 + xs.numel(), 9.0 * xs.numel(), torch.float32)
+    rows.append(dict(
+        name="ln_quant", route="cuda", source="gvl_tpu_torch/csrc/ln_quant.cu",
+        replaces="gvl_tpu/ops/quant_matmul.py:694",
+        shape="so400m residual stream, batch 8: bf16 [5888,1152] -> int8",
+        max_abs_err=ln_err, ms=time_ms(lambda: qm.ln_quant(xs, g, b, 40.0), 100),
+        plain_ms=time_ms(lambda: qm.ln_quant_reference(xs, g, b, 40.0), 20),
+        bound_ms=ln_bound[0], bound_by=ln_bound[1],
+        library_ms=time_ms(lambda: library_layer_norm_quant(xs, g, b, 40.0), 100)))
+    q_bound = bound_ms(xs.nbytes + xs.numel(), 3.0 * xs.numel(), torch.float32)
+    rows.append(dict(
+        name="quant_static", route="cuda", source="gvl_tpu_torch/csrc/ln_quant.cu",
+        replaces="gvl_tpu/ops/quant_matmul.py:745",
+        shape="bf16 [5888,1152] -> int8 (on no served path)",
+        max_abs_err=q_err, ms=time_ms(lambda: qm.quant_static(xs, 20.0), 100),
+        plain_ms=time_ms(lambda: qm.quant_static_reference(xs, 20.0), 20),
+        bound_ms=q_bound[0], bound_by=q_bound[1],
+        library_ms=time_ms(lambda: library_quant(xs, 20.0), 100)))
+
+    # B9, B10, B12: the attention of a layer, frames and regions
+    att = {}
+    for label, batch, sp, kv_len in (("frames", 8, 736, 729), ("regions", 16, 96, 81)):
+        qkv = randn(batch * sp, 3 * 16 * 128, dtype=torch.bfloat16)
+        qkv.view(batch * sp, 48, 128)[..., 72:] = 0      # heads padded as served
+        packed = randn(batch * sp, 3 * 16 * 72, dtype=torch.bfloat16)
+        kw = dict(batch=batch, seq_pad=sp, kv_len=kv_len, num_heads=16,
+                  sm_scale=1.0 / math.sqrt(72.0))
+        for int8_scores in (False, True):
+            what = f"attention_fused_qkv {label} [{batch * sp},6144] int8_scores={int8_scores}"
+            e = int8_close(what, qm.attention_fused_qkv(
+                qkv, dh_pad=128, int8_scores=int8_scores, out_scale_inv=40.0, **kw),
+                qm.attention_fused_qkv_reference(
+                    qkv, dh_pad=128, int8_scores=int8_scores, out_scale_inv=40.0, **kw))
+            att[("fused", label)] = max(att.get(("fused", label), 0.0), e)
+        att[("packed", label)] = int8_close(
+            f"attention_packed_multihead {label} [{batch * sp},3456]",
+            qm.attention_packed_multihead(packed, head_dim=72, out_scale_inv=40.0, **kw),
+            qm.attention_packed_multihead_reference(packed, head_dim=72,
+                                                    out_scale_inv=40.0, **kw))
+        att[("qkv_packed", label)] = assert_close(
+            f"attention_qkv_packed {label} [{batch * sp},3456]",
+            qm.attention_qkv_packed(packed, head_dim=72, **kw),
+            qm.attention_qkv_packed_reference(packed, head_dim=72, **kw), BF16_TOL)
+        if label == "frames":
+            frames = (qkv, packed, kw)
+    qkv, packed, kw = frames
+    pairs = 8 * 16 * 736 * 729
+    mask = (torch.arange(736, device=dev) < 729)[None, None, None, :]
+    for name, key, buf, dh, line, extra, shape in (
+            ("attention_fused_qkv", "fused", qkv, 128, 596,
+             dict(dh_pad=128, out_scale_inv=40.0),
+             "so400m layer, batch 8: bf16 [5888,3x16x128] (heads padded) -> int8"),
+            ("attention_packed_multihead", "packed", packed, 72, 437,
+             dict(head_dim=72, out_scale_inv=40.0),
+             "so400m layer, batch 8: bf16 [5888,3x16x72] -> int8 (packed variant)"),
+            ("attention_qkv_packed", "qkv_packed", packed, 72, 354, dict(head_dim=72),
+             "bf16 [5888,3x16x72] -> bf16, exp (on no served path)")):
+        fn = getattr(qm, name)
+        plain = getattr(qm, name + "_reference")
+        out_bytes = buf.nbytes // 3 // (1 if name == "attention_qkv_packed" else 2)
+        bnd = bound_ms(buf.nbytes + out_bytes, 4.0 * dh * pairs, torch.bfloat16)
+        rows.append(dict(
+            name=name, route="cuda", source="gvl_tpu_torch/csrc/encoder_attention.cu",
+            replaces=f"gvl_tpu/ops/quant_matmul.py:{line}", shape=shape,
+            max_abs_err=max(att[(key, "frames")], att[(key, "regions")]),
+            ms=time_ms(lambda: fn(buf, **kw, **extra)),
+            plain_ms=time_ms(lambda: plain(buf, **kw, **extra), 5),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=time_ms(lambda: library_encoder_attention(buf, 8, 736, 16, dh, mask))))
+    for row in rows:
+        log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
+            f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
+            f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phases 3 and 4: the served models
 # --------------------------------------------------------------------------
@@ -449,12 +665,19 @@ class TimedEngine:
 
 
 def kernel_wrappers() -> tuple:
-    from gvl_tpu_torch.ops import attention, cache_update, decode_attention
+    from gvl_tpu_torch.ops import attention, cache_update, decode_attention, quant_matmul
 
     return (attention.flash_attention, decode_attention.decode_attention,
             cache_update.cache_append, decode_attention.chunk_attention,
             decode_attention.decode_attention_stacked,
-            cache_update.cache_append_stacked)
+            cache_update.cache_append_stacked, quant_matmul.w8a8_matmul,
+            quant_matmul.ln_quant, quant_matmul.attention_fused_qkv,
+            quant_matmul.attention_packed_multihead, quant_matmul.quant_static,
+            quant_matmul.attention_qkv_packed)
+
+
+# kernels that lie on no served path, as in the JAX package (phase 2 only)
+UNSERVED = ("quant_static", "attention_qkv_packed")
 
 
 def kernel_launches() -> dict[str, int]:
@@ -906,6 +1129,183 @@ def run_8b_scan(dev, cfg, params):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phases 9 and 10: the region semantic encoder on the fused SigLIP tower
+# --------------------------------------------------------------------------
+
+def cosines(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def check_cosine(phase: str, what: str, got, want, limit: float) -> float:
+    import numpy as np
+
+    cos = cosines(got, want)
+    ok = bool(np.isfinite(got).all()) and got.shape == want.shape and cos.min() >= limit
+    log(phase, f"{what}: pooled cosine min {cos.min():.6f} mean {cos.mean():.6f} "
+        f"(limit {limit}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{phase}: {what}: pooled cosine {cos.min()} < {limit}")
+    return float(cos.min())
+
+
+def semantic_inputs():
+    """8 seeded 384 x 384 frames; one frame with its masks."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEMANTIC_SEED)
+    frames = [rng.integers(0, 256, (384, 384, 3), dtype=np.uint8)
+              for _ in range(SEMANTIC_FRAMES)]
+    return (frames, *region_inputs(rng))
+
+
+def region_inputs(rng):
+    """One 720 x 1280 frame with 16 rectangular masks (30-200 px a side)."""
+    import numpy as np
+
+    frame = rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    masks = []
+    for i in range(SEMANTIC_MASKS):
+        h, w = rng.integers(30, 200, 2)
+        y, x = rng.integers(0, 720 - h), rng.integers(0, 1280 - w)
+        mask = np.zeros((720, 1280), bool)
+        mask[y:y + h, x:x + w] = True
+        masks.append((f"entity_{i}", mask))
+    return frame, masks
+
+
+def timed_encode(fn, repeats: int = 3) -> tuple:
+    """(result of the last call, seconds per call) on the host clock."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(repeats):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) / repeats
+
+
+def plain_pooled(backend, batch):
+    """The plain path of the backend's fused tree on the same batch."""
+    import torch
+
+    from gvl_tpu_torch.models.siglip_fused import siglip_fused_apply
+
+    with torch.inference_mode():
+        out = siglip_fused_apply(backend.fused, backend.normalize(batch, torch.bfloat16),
+                                 backend.config, pool=False, kernels=False)
+    return backend.pooled(out)
+
+
+def run_semantic(dev):
+    """Phase 9: SigLIPSemanticEncoder on the fused so400m tower."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.perception.semantic import (
+        NaFlexConfig,
+        SigLIPSemanticEncoder,
+        TorchSigLIPBackend,
+    )
+
+    start = time.perf_counter()
+    config = NaFlexConfig(quant_fused=True)
+    encoder = SigLIPSemanticEncoder.with_random_tower(config, device=dev,
+                                                      seed=SEMANTIC_SEED)
+    fused = encoder.backend
+    torch.cuda.synchronize()
+    cfg = fused.config
+    log("semantic", f"so400m tower (hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads, FFN {cfg.intermediate_size}), random bf16 weights seed "
+        f"{SEMANTIC_SEED}, quantized, calibrated and fused in "
+        f"{time.perf_counter() - start:.1f} s")
+    frames, frame, masks = semantic_inputs()
+    prepared = np.stack([encoder.region_extractor.prepare(f)[0] for f in frames])
+    regions = np.stack(encoder.prepare_regions(frame, masks)[0])
+    companion = TorchSigLIPBackend(fused.tower, config.dtype,
+                                   pool_strategy=config.pool_strategy)
+    launches, rates = {}, {}
+    for label, run, batch, n in (
+            ("images", lambda: encoder.encode_images_batch(frames), prepared, len(frames)),
+            ("regions", lambda: np.stack([e.embedding for e in
+                                          encoder.encode_masked_regions(frame, masks)]),
+             regions, len(masks))):
+        reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        counts = served_launches("semantic", ("w8a8_matmul", "ln_quant",
+                                              "attention_fused_qkv"))
+        want_counts = dict(FUSED_LAUNCHES, attention_fused_qkv=cfg.num_layers)
+        if any(counts[k] != v for k, v in want_counts.items()):
+            raise AssertionError(f"semantic {label}: launches {counts}, one forward "
+                                 f"launches {want_counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if got.shape != (n, cfg.hidden_size):
+            raise AssertionError(f"semantic {label}: embeddings {got.shape}")
+        check_cosine("semantic", f"{label} ({n}): kernel path vs plain path", got,
+                     plain_pooled(fused, batch), COS_KERNEL_PLAIN)
+        with uncounted():
+            _, bf16 = companion(batch)
+            check_cosine("semantic", f"{label} ({n}): fused W8A8 vs bf16 tower", got,
+                         bf16, COS_FUSED_BF16)
+            _, s_fused = timed_encode(run)
+            _, s_bf16 = timed_encode(lambda: companion(batch))
+        rates[label] = (n / s_fused, n / s_bf16)
+        log("semantic", f"{label}: fused {n / s_fused:.1f}/s ({1e3 * s_fused:.1f} ms per "
+            f"call), bf16 tower {n / s_bf16:.1f}/s ({1e3 * s_bf16:.1f} ms); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    log("semantic", f"images/s fused {rates['images'][0]:.1f} bf16 {rates['images'][1]:.1f};"
+        f" regions/s fused {rates['regions'][0]:.1f} bf16 {rates['regions'][1]:.1f}")
+    with uncounted():     # every seed is logged before a shortfall raises
+        worst = []
+        for seed in REGION_SEEDS:
+            frame, masks = region_inputs(np.random.default_rng(seed))
+            got = np.stack([e.embedding for e in encoder.encode_masked_regions(frame, masks)])
+            _, bf16 = companion(np.stack(encoder.prepare_regions(frame, masks)[0]))
+            cos = cosines(got, bf16)
+            worst.append(float(cos.min()) if np.isfinite(got).all() else float("nan"))
+            log("semantic", f"regions ({len(masks)}), seed {seed}: fused W8A8 vs bf16 tower "
+                f"pooled cosine min {cos.min():.6f} mean {cos.mean():.6f}")
+    if not all(w >= COS_FUSED_BF16 for w in worst):
+        raise AssertionError(f"semantic: regions fused vs bf16 cosine minima {worst} "
+                             f"(seeds {REGION_SEEDS}), limit {COS_FUSED_BF16}")
+    return launches, encoder, prepared
+
+
+def run_packed(dev, encoder, prepared):
+    """Phase 10: the packed-head fused tower (B10) against the padded one."""
+    import torch
+
+    from gvl_tpu_torch.perception.semantic import FusedSigLIPBackend, calibration_pixels
+
+    padded = encoder.backend
+    calib = calibration_pixels(encoder.config, padded.config.image_size, dev)
+    packed = FusedSigLIPBackend(padded.tower, pool_strategy=padded.pool_strategy,
+                                calib_pixels=calib, packed_attention=True)
+    reset_launches()
+    _, got = packed(prepared)
+    torch.cuda.synchronize()
+    counts = served_launches("packed", ("w8a8_matmul", "ln_quant",
+                                        "attention_packed_multihead"))
+    want_counts = dict(FUSED_LAUNCHES, attention_packed_multihead=padded.config.num_layers)
+    if any(counts[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"packed: launches {counts}, one forward launches {want_counts}")
+    with uncounted():
+        _, want = padded(prepared)
+        check_cosine("packed", f"images ({len(prepared)}): packed vs padded heads", got,
+                     want, COS_PACKED_PADDED)
+        _, s_packed = timed_encode(lambda: packed(prepared))
+    log("packed", f"packed heads {len(prepared) / s_packed:.1f} images/s "
+        f"({1e3 * s_packed:.1f} ms per batch of {len(prepared)})")
+    return counts
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -926,10 +1326,11 @@ def main() -> int:
 
     build = _build.build()
     _build.library()
-    log("build", f"nvcc {build.seconds:.1f} s, one command: {' '.join(build.command)}"
+    log("build", f"nvcc {build.seconds:.1f} s: {len(build.compiles)} compiles started "
+        f"together, then {' '.join(build.command)}"
         if build.command else f"library already built at {build.path}")
 
-    rows = check_kernels(dev)
+    rows = check_kernels(dev) + check_quant_kernels(dev)
     served = []
     qa_launches, backend, answers, prompts = run_qa(dev)
     served.append(qa_launches)
@@ -942,9 +1343,14 @@ def main() -> int:
     served.append(run_session_lookup(dev, backend, prompts))
     del backend
     served.append(run_8b_scan(dev, cfg_8b, params_8b))
-    launches = {name: sum(run[name] for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-8): {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    del params_8b
+    torch.cuda.empty_cache()
+    semantic_launches, encoder, prepared = run_semantic(dev)
+    served.append(semantic_launches)
+    served.append(run_packed(dev, encoder, prepared))
+    launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
+    log("launches", f"served paths (phases 3-10): {launches}")
+    missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")
     for row in rows:

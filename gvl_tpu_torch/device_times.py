@@ -1,6 +1,7 @@
-"""Device-side kernel times and the device's busy share during decode.
+"""Device-side kernel times and the device's busy share during decode and
+during the fused SigLIP tower's forward.
 
-    python -m gvl_tpu_torch.device_times
+    python -m gvl_tpu_torch.device_times [--only semantic]
 
 Run from the repository root on a machine with one CUDA card.  CUDA events
 around back-to-back calls of a small kernel measure the host's launch cost
@@ -17,9 +18,15 @@ from ``torch.profiler`` (CUPTI) instead:
    share) and the kernels that take the device time;
 3. the same for a batched decode step of ``ContinuousBatchingEngine`` with
    4 slots: the QA model on 4 held-out prompts, and the 8B geometry with
-   ``scan_layers`` on 4 random prompts.
+   ``scan_layers`` on 4 random prompts;
+4. the region semantic encoder's so400m fused W8A8 tower (random weights,
+   seed 0): the device time per launch of the six fused kernels at its
+   shapes, and for one forward at batch 8 (384 canvas) and at the region
+   bucket of 16 (128 canvas), wall and device ms per batch, the busy share
+   and the top device kernels; the bf16 tower beside it.
 
-It prints one JSON object as its last line.
+``--only semantic`` runs part 4 alone.  It prints one JSON object as its
+last line.
 """
 
 from __future__ import annotations
@@ -132,6 +139,88 @@ def batch_decode_profile(engine, prompts, steps: int) -> dict:
     }
 
 
+def forward_profile(fn, images: int, repeats: int = 5) -> dict:
+    """Wall (host clock, no profiler) and device ms per call of ``fn``, one
+    forward of a batch of ``images``."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - start) / repeats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = _device_us(prof)
+    device_ms = sum(per_kernel.values()) / 1e3 / repeats
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "images": images,
+        "wall_ms_per_batch": 1e3 * wall,
+        "images_per_s": images / wall,
+        "device_ms_per_batch": device_ms,
+        "busy_share": device_ms / (1e3 * wall),
+        "top_kernels_ms_per_batch": {k[:80]: v / 1e3 / repeats for k, v in top},
+    }
+
+
+def semantic_profile(dev) -> dict:
+    """Part 4: the fused so400m tower's kernels and forwards."""
+    from gvl_tpu_torch.ops import quant_matmul as qm
+    from gvl_tpu_torch.perception.semantic import (
+        NaFlexConfig,
+        SigLIPSemanticEncoder,
+        TorchSigLIPBackend,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-127, 128, (5888, 1152), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (6144, 1152), generator=gen, device=dev, dtype=torch.int8)
+    scale, bias = torch.full((6144,), 1e-4, device=dev), torch.zeros(6144, device=dev)
+    h = torch.randn(5888, 1152, generator=gen, device=dev).to(torch.bfloat16)
+    g, b = torch.ones(1152, device=dev), torch.zeros(1152, device=dev)
+    qkv = torch.randn(5888, 6144, generator=gen, device=dev).to(torch.bfloat16)
+    packed = torch.randn(5888, 3456, generator=gen, device=dev).to(torch.bfloat16)
+    att = dict(batch=8, seq_pad=736, kv_len=729, num_heads=16, sm_scale=72 ** -0.5)
+    kernels = {
+        "w8a8_matmul": kernel_device_ms(lambda: qm.w8a8_matmul(x, w, scale, bias),
+                                        ("w8a8_matmul_kernel",), 20),
+        "ln_quant": kernel_device_ms(lambda: qm.ln_quant(h, g, b, 40.0),
+                                     ("ln_quant_kernel",)),
+        "quant_static": kernel_device_ms(lambda: qm.quant_static(h, 40.0),
+                                         ("quant_static_kernel",)),
+        "attention_fused_qkv": kernel_device_ms(
+            lambda: qm.attention_fused_qkv(qkv, dh_pad=128, out_scale_inv=40.0, **att),
+            ("encoder_attention_kernel",), 5),
+        "attention_packed_multihead": kernel_device_ms(
+            lambda: qm.attention_packed_multihead(packed, head_dim=72, out_scale_inv=40.0,
+                                                  **att),
+            ("encoder_attention_kernel",), 5),
+        "attention_qkv_packed": kernel_device_ms(
+            lambda: qm.attention_qkv_packed(packed, head_dim=72, **att),
+            ("encoder_attention_kernel",), 5),
+    }
+    print(f"fused kernels, device ms per launch: {kernels}", flush=True)
+    del x, w, h, qkv, packed
+
+    encoder = SigLIPSemanticEncoder.with_random_tower(NaFlexConfig(quant_fused=True),
+                                                      device=dev, seed=0)
+    fused = encoder.backend
+    bf16 = TorchSigLIPBackend(fused.tower)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (8, 384, 384, 3), dtype=np.uint8)
+    regions = rng.integers(0, 256, (16, 128, 128, 3), dtype=np.uint8)
+    out = {"kernel_device_ms": kernels}
+    for label, batch in (("frames_b8", frames), ("regions_b16", regions)):
+        out[f"fused_{label}"] = forward_profile(lambda: fused(batch), len(batch))
+        out[f"bf16_{label}"] = forward_profile(lambda: bf16(batch), len(batch))
+        print(f"{label}: fused {out[f'fused_{label}']}\n  bf16 {out[f'bf16_{label}']}",
+              flush=True)
+    return out
+
+
 def main() -> dict:
     from gvl_tpu_torch.agent.core import create_qa_backend
     from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
@@ -223,10 +312,19 @@ def main() -> dict:
                     for n in (128, 100, 77, 128)]
     big_batch = batch_decode_profile(scan, scan_prompts, 16)
     print(f"8B scan batched decode: {big_batch}", flush=True)
+    del scan, params
+    torch.cuda.empty_cache()
     return {"device": torch.cuda.get_device_name(0), "kernel_device_ms": kernels,
             "qa_decode": qa, "qa_batch_decode": qa_batch, "decode_8b": big,
-            "scan_8b_batch_decode": big_batch}
+            "scan_8b_batch_decode": big_batch, "semantic": semantic_profile(dev)}
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    import sys
+
+    if sys.argv[1:] == ["--only", "semantic"]:
+        dev = resolve_device("cuda")
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "semantic": semantic_profile(dev)}))
+    else:
+        print(json.dumps(main()))

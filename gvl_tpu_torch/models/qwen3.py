@@ -478,7 +478,12 @@ class Qwen3Engine:
         generator: Optional[torch.Generator] = None,
         inputs_embeds_prefix: Optional[np.ndarray] = None,
     ) -> Iterator[int]:
-        """Yield generated token ids one at a time (greedy if T=0)."""
+        """Yield generated token ids one at a time (greedy if T=0).
+
+        The stream ends early, without raising, once the cache is full: the
+        last token yielded is the one whose logits came from the last cache
+        row.  (The JAX engine goes on decoding with its write start clamped
+        onto the last row, over a corrupted cache.)"""
         dev = self.device
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)[None]
         n_prefix = 0 if inputs_embeds_prefix is None else len(inputs_embeds_prefix)
@@ -511,6 +516,8 @@ class Qwen3Engine:
             if tok == self.eos_token_id:
                 return
             yield tok
+            if cache.length >= self.config.max_cache_length:
+                return
             positions = torch.arange(cache.length, cache.length + 1, device=dev)
             logits, cache = self.model(token[:, None].long(), positions=positions,
                                        cache=cache)

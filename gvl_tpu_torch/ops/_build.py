@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``gvl_tpu_torch/csrc``.
 
-One ``nvcc`` command compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, which :func:`library` loads with
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+the sources for ``sm_90a``; one more links the objects into a shared
+library with a plain C interface, which :func:`library` loads with
 ``ctypes``.  No source includes PyTorch's headers, so the build takes
-seconds.
+seconds: about as long as the slowest source.
 
 The library goes to ``gvl_tpu_torch/_build/<hash of the sources and
 flags>/`` at first use.  It is written under a temporary name and renamed
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -31,7 +33,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libgvl_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 300
 
 # element types as the C entry points number them (csrc/common.cuh)
@@ -46,6 +48,11 @@ _SIGNATURES = {
     "gvl_chunk_attention": [_VOID_P] * 5 + [_INT] * 6 + [_FLOAT, _INT, _VOID_P],
     "gvl_cache_append": [_VOID_P] * 3 + [_INT] * 4 + [_VOID_P],
     "gvl_cache_append_stacked": [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P],
+    "gvl_w8a8_matmul": [_VOID_P] * 6 + [_INT] * 4 + [_FLOAT, _INT, _VOID_P],
+    "gvl_ln_quant": [_VOID_P] * 4 + [_INT] * 2 + [_FLOAT] * 2 + [_INT, _VOID_P],
+    "gvl_quant_static": [_VOID_P] * 2 + [ctypes.c_long, _FLOAT, _INT, _VOID_P],
+    "gvl_encoder_attention": [_VOID_P] * 3 + [_INT] * 5 + [_FLOAT, _INT, _INT, _FLOAT]
+                             + [_INT] * 3 + [_VOID_P],
 }
 
 
@@ -53,7 +60,8 @@ _SIGNATURES = {
 class BuildResult:
     path: Path
     seconds: float        # nvcc wall time; 0.0 when the library was there
-    command: tuple        # the nvcc command line, empty when cached
+    command: tuple        # the link command line, empty when cached
+    compiles: tuple = ()  # one compile command line per source
 
 
 def sources() -> list[Path]:
@@ -81,33 +89,72 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> BuildResult:
-    """The kernel library for the current sources, compiling it if needed."""
-    out_dir = BUILD_DIR / source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.is_file():
-        return BuildResult(lib, 0.0, ())
-    out_dir.mkdir(parents=True, exist_ok=True)
-    partial = out_dir / f"{LIB_NAME}.partial-{os.getpid()}"
-    cmd = (find_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-           *(str(p) for p in sources()))
-    start = time.perf_counter()
+def _nvcc(cmd: tuple, outputs: list[Path]) -> None:
+    """Run one nvcc command; raise with its output if it fails or passes
+    the time limit, removing what it may have half written."""
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired as exc:
-        partial.unlink(missing_ok=True)
+        for path in outputs:
+            path.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc did not finish in {BUILD_TIMEOUT_S} s:\n{exc.stderr or ''}"
-        ) from exc
-    seconds = time.perf_counter() - start
+            f"nvcc did not finish in {BUILD_TIMEOUT_S} s:\n{exc.stderr or ''}") from exc
     if proc.returncode != 0:
-        partial.unlink(missing_ok=True)
+        for path in outputs:
+            path.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}")
+
+
+def build(root: Path | None = None) -> BuildResult:
+    """The kernel library for the current sources, compiling it under
+    ``root`` (default :data:`BUILD_DIR`) if it is not there yet."""
+    out_dir = (root or BUILD_DIR) / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return BuildResult(lib, 0.0, ())
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"partial-{os.getpid()}"
+    nvcc = find_nvcc()
+    objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]   # nvcc wants .o
+    compiles = tuple((nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src))
+                     for src, obj in zip(sources(), objects))
+    partial = out_dir / f"{LIB_NAME}.{tag}"
+    link = (nvcc, *NVCC_FLAGS, "-shared", "-o", str(partial), *(str(o) for o in objects))
+    start = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            for done in [pool.submit(_nvcc, cmd, [obj])
+                         for cmd, obj in zip(compiles, objects)]:
+                done.result()
+        _nvcc(link, [partial])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - start
     os.replace(partial, lib)
-    return BuildResult(lib, seconds, cmd)
+    return BuildResult(lib, seconds, link, compiles)
+
+
+def compare_builds() -> dict:
+    """Wall seconds of a build with one nvcc command for every source and
+    of :func:`build`'s (one per source, started together, then a link),
+    each into a fresh directory under :data:`BUILD_DIR`."""
+    import tempfile
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as single_dir, \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as split_dir:
+        lib = Path(single_dir) / LIB_NAME
+        start = time.perf_counter()
+        _nvcc((find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
+               *(str(src) for src in sources())), [lib])
+        single = time.perf_counter() - start
+        split = build(Path(split_dir)).seconds
+    return {"sources": len(sources()), "one_command_s": single,
+            "per_source_then_link_s": split}
 
 
 @functools.cache
@@ -145,3 +192,10 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+if __name__ == "__main__":
+    # python -m gvl_tpu_torch.ops._build: time both ways of building, as JSON
+    import json
+
+    print(json.dumps(compare_builds()))

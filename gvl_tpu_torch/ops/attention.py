@@ -15,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from gvl_tpu_torch.ops import _build
 
@@ -70,8 +71,11 @@ def flash_attention(
     version on CPU tensors.  Arguments as :func:`attention_reference`.
 
     The kernel takes f32 or bf16 (one type for q, k and v), head_dim 64 or
-    128 and contiguous tensors; anything else raises.  Each launch adds one
-    to ``flash_attention.launches``.
+    128 and contiguous tensors; anything else raises.  A smaller head_dim
+    (72 in SigLIP so400m) is zero-padded to the next of those and the
+    output sliced back, as the JAX package pads heads to 128 lanes; the
+    softmax scale stays at the true head_dim.  Each launch adds one to
+    ``flash_attention.launches``.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale,
@@ -82,12 +86,19 @@ def flash_attention(
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must share f32 or bf16, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
+    padded = next((d for d in HEAD_DIMS if d >= head_dim), head_dim)
+    if padded != head_dim and k.shape[-1] == head_dim and v.shape == k.shape:
+        pad = padded - head_dim
+        out = flash_attention(F.pad(q, (0, pad)), F.pad(k, (0, pad)),
+                              F.pad(v, (0, pad)), causal=causal, sm_scale=scale,
+                              kv_len=kv_len)
+        return out[..., :head_dim]
     if head_dim not in HEAD_DIMS or k.shape[-1] != head_dim or v.shape != k.shape:
         raise ValueError(f"flash_attention: head_dim must be one of {HEAD_DIMS}"
                          f" and k, v alike; got {q.shape}, {k.shape}, {v.shape}")
     if k.shape[0] != batch or num_q_heads % num_kv_heads or min(q.shape) == 0:
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
     valid = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
     out = torch.empty_like(q)
     err = _build.library().gvl_flash_attention(

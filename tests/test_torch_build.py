@@ -28,24 +28,32 @@ def _fake_nvcc(calls, returncode=0, stderr=""):
 
 
 def test_one_nvcc_command_for_sm90a_with_timeout(build_dir, monkeypatch):
+    """One nvcc compile per source (run together), then one link command."""
     calls = []
     monkeypatch.setattr(subprocess, "run", _fake_nvcc(calls))
     result = _build.build()
-    assert len(calls) == 1
-    cmd, kw = calls[0]
-    assert cmd[0] == "fake-nvcc"
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"):
-        assert flag in cmd
     sources = sorted(str(p) for p in (REPO / "gvl_tpu_torch" / "csrc").glob("*.cu"))
-    assert cmd[-len(sources):] == sources
+    assert len(calls) == len(sources) + 1
+    compiles, (link, link_kw) = calls[:-1], calls[-1]
+    assert sorted(cmd[-1] for cmd, _ in compiles) == sources
+    for cmd, kw in calls:
+        assert cmd[0] == "fake-nvcc"
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-Xcompiler", "-fPIC"):
+            assert flag in cmd
+        assert kw["timeout"] == _build.BUILD_TIMEOUT_S <= 300
+    assert all("-c" in cmd for cmd, _ in compiles) and "-shared" in link
+    objects = [cmd[cmd.index("-o") + 1] for cmd, _ in compiles]
+    assert all(obj.endswith(".o") for obj in objects)      # nvcc goes by suffix
+    assert link[-len(objects):] == objects
     assert {"flash_attention.cu", "decode_attention.cu", "cache_append.cu",
-            "chunk_attention.cu"} <= {
+            "chunk_attention.cu", "w8a8_matmul.cu", "ln_quant.cu",
+            "encoder_attention.cu"} <= {
         Path(s).name for s in sources}
-    assert kw["timeout"] == _build.BUILD_TIMEOUT_S <= 300
     assert result.path == build_dir / _build.source_hash() / _build.LIB_NAME
-    assert result.path.is_file() and result.command == tuple(cmd)
-    assert not list(result.path.parent.glob("*.partial-*"))
+    assert result.path.is_file() and result.command == tuple(link)
+    assert result.compiles == tuple(tuple(cmd) for cmd, _ in compiles)
+    assert not list(result.path.parent.glob("*partial-*"))
 
 
 def test_finished_library_is_reused(build_dir, monkeypatch):
@@ -53,7 +61,7 @@ def test_finished_library_is_reused(build_dir, monkeypatch):
     monkeypatch.setattr(subprocess, "run", _fake_nvcc(calls))
     first = _build.build()
     again = _build.build()
-    assert len(calls) == 1
+    assert len(calls) == len(_build.sources()) + 1
     assert again.path == first.path and again.seconds == 0.0 and again.command == ()
 
 
@@ -66,7 +74,8 @@ def test_stale_partial_file_is_not_taken_for_a_library(build_dir, monkeypatch):
     calls = []
     monkeypatch.setattr(subprocess, "run", _fake_nvcc(calls))
     result = _build.build()
-    assert len(calls) == 1 and result.path.read_bytes() == b"\x7fELF"
+    assert len(calls) == len(_build.sources()) + 1
+    assert result.path.read_bytes() == b"\x7fELF"
 
 
 def test_failed_build_raises_with_nvcc_output(build_dir, monkeypatch):
@@ -75,6 +84,7 @@ def test_failed_build_raises_with_nvcc_output(build_dir, monkeypatch):
     with pytest.raises(RuntimeError, match="bad kernel"):
         _build.build()
     assert not list(build_dir.rglob(_build.LIB_NAME))
+    assert not list(build_dir.rglob("*.o"))
 
 
 def test_timed_out_build_raises(build_dir, monkeypatch):
@@ -109,3 +119,16 @@ def test_sources_use_plain_c_interface():
     text = "".join(p.read_text() for p in (REPO / "gvl_tpu_torch" / "csrc").glob("*.cu"))
     for name in names:
         assert f'extern "C" int {name}(' in text
+
+
+def test_compare_builds_times_one_command_and_per_source(build_dir, monkeypatch):
+    calls = []
+    monkeypatch.setattr(subprocess, "run", _fake_nvcc(calls))
+    times = _build.compare_builds()
+    n = len(_build.sources())
+    assert times["sources"] == n and len(calls) == 1 + n + 1
+    single = calls[0][0]
+    assert "-shared" in single and "-c" not in single
+    assert single[-n:] == [str(s) for s in _build.sources()]
+    assert times["one_command_s"] >= 0 and times["per_source_then_link_s"] > 0
+    assert list(build_dir.iterdir()) == []      # both builds were thrown away

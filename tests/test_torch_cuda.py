@@ -193,9 +193,10 @@ def test_chunk_attention_reads_only_live_keys(dev):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
-    q = _randn(dev, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(q, q, q)
+        wide = _randn(dev, 1, 2, 8, 256)
+        flash_attention(wide, wide, wide)
+    q = _randn(dev, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="bf16"):
         decode_attention(q[:, :, 0].contiguous(), q, q,
                          torch.ones(1, dtype=torch.int32, device=dev))
@@ -273,3 +274,169 @@ def test_tiny_serving_kernel_path_matches_plain_path(dev, head_dim):
     lookup = PromptLookupEngine(cfg, params, gamma=4, eos_token_id=-1, device=dev)
     assert (lookup.generate(prompts[0], max_new_tokens=12, temperature=0.0)
             == plain.generate(prompts[0], max_new_tokens=12, temperature=0.0))
+
+
+# ------------------------------------------------- fused W8A8 kernels (B7-B12)
+
+def _int8(dev, *shape, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+
+def _int8_close(got, want):
+    """At most one step apart on at most 0.1 % of the elements (exp2,
+    rsqrt and f32 sums in another order)."""
+    diff = (got.int() - want.int()).abs()
+    assert got.dtype == want.dtype == torch.int8
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("epilogue", ["none", "residual", "gelu_quant", "quant"])
+@pytest.mark.parametrize("m,k,n,bias", [(64, 128, 256, True), (96, 128, 384, False),
+                                        (200, 1152, 384, True), (1536, 2048, 1152, True)])
+def test_w8a8_matmul_matches_plain(dev, epilogue, m, k, n, bias):
+    from gvl_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_matmul_reference
+
+    x, w = _int8(dev, m, k, seed=1), _int8(dev, n, k, seed=2)
+    # acc has a spread of about 5376 sqrt(K): y lands around +-60 for quant,
+    # +-3 for the GELU requantize at 37.5
+    unit = 1.0 / (5376 * k ** 0.5)
+    scale = (_randn(dev, n, seed=3).abs() + 0.5) * unit * (60 if epilogue == "quant" else 3)
+    b = _randn(dev, n, seed=4) * 0.1 if bias else None
+    res = _randn(dev, m, n, seed=5, dtype=torch.bfloat16)
+    kw = dict(epilogue=epilogue, out_scale_inv=37.5 if epilogue == "gelu_quant" else None,
+              residual=res if epilogue == "residual" else None)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(x, w, scale, b, **kw)
+    want = w8a8_matmul_reference(x, w, scale, b, **kw)
+    torch.cuda.synchronize()
+    assert w8a8_matmul.launches == before + 1
+    if epilogue in ("gelu_quant", "quant"):
+        _int8_close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_w8a8_matmul_integer_sum_is_exact(dev):
+    """scale 1, no bias, f32 out: the output is the int32 sum itself."""
+    from gvl_tpu_torch.ops.quant_matmul import int_matmul, w8a8_matmul
+
+    x, w = _int8(dev, 128, 4352, seed=6), _int8(dev, 256, 4352, seed=7)
+    got = w8a8_matmul(x, w, torch.ones(256, device=dev), out_dtype=torch.float32)
+    assert torch.equal(got, int_matmul(x, w.T).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 256), (5888, 1152), (100, 4352)])
+def test_ln_quant_and_quant_static_match_plain(dev, dtype, rows, d):
+    from gvl_tpu_torch.ops.quant_matmul import (
+        ln_quant,
+        ln_quant_reference,
+        quant_static,
+        quant_static_reference,
+    )
+
+    x = _randn(dev, rows, d, seed=8, dtype=dtype) * 2.0
+    g = _randn(dev, d, seed=9).abs() + 0.5
+    b = _randn(dev, d, seed=10) * 0.1
+    _int8_close(ln_quant(x, g, b, 40.0), ln_quant_reference(x, g, b, 40.0))
+    _int8_close(quant_static(x, 20.0), quant_static_reference(x, 20.0))
+
+
+def test_ln_quant_and_quant_static_reject_misaligned_rows(dev):
+    """A contiguous view at an odd offset would fault the kernels' 16-byte
+    loads: the wrappers refuse it."""
+    from gvl_tpu_torch.ops.quant_matmul import ln_quant, quant_static
+
+    flat = _randn(dev, 4 * 1152 + 1, seed=8, dtype=torch.bfloat16)
+    x = flat[1:].view(4, 1152)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    g, b = torch.ones(1152, device=dev), torch.zeros(1152, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        ln_quant(x, g, b, 40.0)
+    with pytest.raises(ValueError, match="aligned"):
+        quant_static(x, 20.0)
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,sp,kv_len,h,block_q", [(2, 64, 57, 4, 1024), (1, 96, 81, 2, 32),
+                                                   (2, 736, 729, 16, 1024)])
+def test_attention_fused_qkv_matches_plain(dev, int8_scores, quant, b, sp, kv_len, h,
+                                           block_q):
+    from gvl_tpu_torch.ops.quant_matmul import (
+        attention_fused_qkv,
+        attention_fused_qkv_reference,
+    )
+
+    qkv = _randn(dev, b * sp, 3 * h * 128, seed=11, dtype=torch.bfloat16)
+    qkv.view(b * sp, 3 * h, 128)[..., 72:] = 0      # padded heads, as served
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=128,
+              sm_scale=1.0 / 72 ** 0.5, int8_scores=int8_scores, block_q=block_q,
+              out_scale_inv=40.0 if quant else None)
+    before = attention_fused_qkv.launches
+    got = attention_fused_qkv(qkv, **kw)
+    want = attention_fused_qkv_reference(qkv, **kw)
+    torch.cuda.synchronize()
+    assert attention_fused_qkv.launches == before + 1
+    if quant:
+        _int8_close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sp,kv_len,h,dh,quant", [
+    (2, 64, 57, 8, 48, False), (1, 32, 32, 4, 96, True), (2, 96, 81, 16, 72, True),
+    (1, 64, 60, 2, 128, False), (2, 736, 729, 16, 72, True)])
+def test_packed_attention_matches_plain(dev, dtype, b, sp, kv_len, h, dh, quant):
+    from gvl_tpu_torch.ops.quant_matmul import (
+        attention_packed_multihead,
+        attention_packed_multihead_reference,
+        attention_qkv_packed,
+        attention_qkv_packed_reference,
+    )
+
+    qkv = _randn(dev, b * sp, 3 * h * dh, seed=12, dtype=dtype)
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, head_dim=dh,
+              sm_scale=1.0 / dh ** 0.5)
+    inv = 40.0 if quant else None
+    got = attention_packed_multihead(qkv, out_scale_inv=inv, **kw)
+    want = attention_packed_multihead_reference(qkv, out_scale_inv=inv, **kw)
+    got12 = attention_qkv_packed(qkv, **kw)
+    want12 = attention_qkv_packed_reference(qkv, **kw)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if quant:
+        _int8_close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got12.float(), want12.float(), **tol)
+
+
+def test_flash_attention_pads_head_dim_72(dev):
+    q = _randn(dev, 2, 16, 100, 72, seed=13, dtype=torch.bfloat16)
+    k = _randn(dev, 2, 16, 100, 72, seed=14, dtype=torch.bfloat16)
+    got = flash_attention(q, k, k, kv_len=90)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), attention_reference(q, k, k, kv_len=90).float(),
+                               **BF16_TOL)
+
+
+def test_tiny_fused_tower_kernel_path_matches_plain_path(dev):
+    """The fused tower (padded and packed heads) on the card against the
+    same fused tree on the CPU's plain versions: pooled cosine."""
+    from gvl_tpu_torch.models.siglip import SigLIPVisionConfig, init_tower_params
+    from gvl_tpu_torch.models.siglip_fused import prepare_fused_siglip, siglip_fused_apply
+
+    cfg = SigLIPVisionConfig(hidden_size=128, intermediate_size=192, num_layers=2,
+                             num_heads=4, image_size=56)
+    state = init_tower_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    pix = _randn(dev, 3, 56, 56, 3, seed=15) * 0.5
+    for packed in (False, True):
+        fused = prepare_fused_siglip(state, cfg, pix, packed_attention=packed)
+        got = siglip_fused_apply(fused, pix, cfg)["pooled"].float()
+        want = siglip_fused_apply(fused, pix, cfg, kernels=False)["pooled"].float()
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert cos.min().item() >= 0.9995, cos

@@ -21,7 +21,7 @@ QA_CKPT = REPO / "outputs" / "qa_lm"
 _BLOCKED_IMPORT = r"""
 import importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "gvl_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "gvl_tpu", "PIL")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -36,7 +36,10 @@ for name in names:
     __import__(name)
 for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.serving.batch_engine", "gvl_tpu_torch.serving.engine_server",
-             "gvl_tpu_torch.serving.api"):
+             "gvl_tpu_torch.serving.api", "gvl_tpu_torch.ops.quant_matmul",
+             "gvl_tpu_torch.nn.quant", "gvl_tpu_torch.models.siglip",
+             "gvl_tpu_torch.models.siglip_fused", "gvl_tpu_torch.runtime.resize",
+             "gvl_tpu_torch.perception.semantic"):
     assert name in names, name
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -49,7 +52,7 @@ def test_package_and_chip_smoke_import_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 21
+    assert int(proc.stdout.split()[0]) >= 30
 
 
 def _source_files():
@@ -60,7 +63,8 @@ def _source_files():
 @pytest.mark.parametrize("needle", ["cpp_extension", "scaled_dot_product_attention",
                                     "torch.compile", "import jax", "from jax",
                                     "flax", "optax", "from gvl_tpu.",
-                                    "import gvl_tpu."])
+                                    "import gvl_tpu.", "_int_mm", "import PIL",
+                                    "from PIL"])
 def test_forbidden_calls_absent_from_package(needle):
     hits = [str(p.relative_to(REPO)) for p in _source_files()
             if needle in p.read_text()]
@@ -79,6 +83,10 @@ def test_chip_smoke_uses_library_attention_only_as_yardstick():
                         and node.attr == "scaled_dot_product_attention"):
                     uses.append(fn.name)
     assert uses and all(name.startswith("library_") for name in uses)
+    int_mm = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+              for node in ast.walk(fn)
+              if isinstance(node, ast.Attribute) and node.attr == "_int_mm"]
+    assert int_mm and all(name.startswith("library_") for name in int_mm)
     for node in ast.walk(tree):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
@@ -99,6 +107,8 @@ def test_entry_points_raise_without_a_card(no_card):
     from gvl_tpu_torch.models.speculative import PromptLookupEngine, SpeculativeEngine
     from gvl_tpu_torch.serving import ContinuousBatchingEngine
     from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm, load_qa_lm
+    from gvl_tpu_torch.models.siglip import SigLIPVisionConfig, init_tower_params, load_tower
+    from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
 
     cfg = Qwen3Config.tiny()
     state = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -114,6 +124,9 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: SpeculativeEngine(cfg, state, cfg, state),
         lambda: PromptLookupEngine(cfg, state),
         lambda: ContinuousBatchingEngine(cfg, state),
+        lambda: SigLIPSemanticEncoder.with_random_tower(NaFlexConfig(quant_fused=True)),
+        lambda: init_tower_params(SigLIPVisionConfig.tiny(), torch.Generator()),
+        lambda: load_tower(SigLIPVisionConfig.tiny(), {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -122,7 +135,7 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():
-    from gvl_tpu_torch.ops import attention, cache_update, decode_attention
+    from gvl_tpu_torch.ops import attention, cache_update, decode_attention, quant_matmul
 
     for module, kernel, plain in [
         (attention, "flash_attention", "attention_reference"),
@@ -132,6 +145,13 @@ def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():
          "decode_attention_stacked_reference"),
         (decode_attention, "chunk_attention", "chunk_attention_reference"),
         (cache_update, "cache_append_stacked", "cache_append_stacked_reference"),
+        (quant_matmul, "w8a8_matmul", "w8a8_matmul_reference"),
+        (quant_matmul, "ln_quant", "ln_quant_reference"),
+        (quant_matmul, "quant_static", "quant_static_reference"),
+        (quant_matmul, "attention_fused_qkv", "attention_fused_qkv_reference"),
+        (quant_matmul, "attention_packed_multihead",
+         "attention_packed_multihead_reference"),
+        (quant_matmul, "attention_qkv_packed", "attention_qkv_packed_reference"),
     ]:
         assert isinstance(getattr(module, kernel).launches, int)
         assert callable(getattr(module, plain))

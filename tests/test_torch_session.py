@@ -249,3 +249,77 @@ def test_speculative_streams_end_with_eos_as_jax(spec_models):
                                               temperature=0.0)
     lookup = PromptLookupEngine(t_cfg, t_state, gamma=3, eos_token_id=eos, **F32)
     assert lookup.generate(PROMPT, max_new_tokens=12, temperature=0.0) == want
+
+
+# ------------------------------------------------------------- cache end
+
+def _cache_end_models():
+    return _model(0, num_layers=4)
+
+
+def test_engine_stream_ends_cleanly_at_the_cache_end():
+    """120 prompt tokens + 20 asked for on a 128-row cache: the port yields
+    the 9 tokens that fit, equal to JAX's first 9, and does not raise.
+    JAX's tokens 10-20 come from writes clamped onto the last cache row."""
+    jcfg, tcfg, params, state = _cache_end_models()
+    prompt = np.random.default_rng(3).integers(1, 500, 120).tolist()
+    want = JaxEngine(jcfg, params, eos_token_id=-1, dtype=jnp.float32).generate(
+        prompt, max_new_tokens=20, temperature=0.0)
+    got = _port_greedy(tcfg, state, prompt, 20)
+    assert len(want) == 20
+    assert len(got) == tcfg.max_cache_length - len(prompt) + 1 == 9
+    assert got == want[:9]
+
+
+def test_chat_backend_stream_ends_cleanly_at_the_cache_end():
+    """The same through Qwen3ChatBackend: with max_new_tokens above half
+    the cache the backend keeps limit // 2 prompt tokens, so prompt +
+    answer pass the cache; the stream ends where the cache does."""
+    from gvl_tpu_torch.agent.config import GenerationConfig
+    from gvl_tpu_torch.agent.core import Qwen3ChatBackend
+    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
+
+    jcfg, tcfg, params, state = _cache_end_models()
+    engine = port.Qwen3Engine(tcfg, state, eos_token_id=-1, **F32)
+    seen = {}
+
+    class Recording:
+        config = engine.config
+
+        def stream(self, ids, **kw):
+            seen["ids"], seen["tokens"] = list(ids), []
+            for token in engine.stream(ids, **kw):
+                seen["tokens"].append(token)
+                yield token
+
+    messages = [{"role": "user", "content": "".join(
+        f"[{i:02d}:00] enemy detected\n" for i in range(12))}]
+    backend = Qwen3ChatBackend(Recording(), ByteTokenizer())
+    list(backend.stream(messages, GenerationConfig(max_new_tokens=100,
+                                                   temperature=0.0)))
+    assert len(seen["ids"]) == tcfg.max_cache_length // 2
+    want = JaxEngine(jcfg, params, eos_token_id=-1, dtype=jnp.float32).generate(
+        seen["ids"], max_new_tokens=100, temperature=0.0)
+    n_fit = tcfg.max_cache_length - len(seen["ids"]) + 1
+    assert len(seen["tokens"]) == n_fit and seen["tokens"] == want[:n_fit]
+
+
+def test_speculative_gamma_1_at_the_cache_end_accepts_every_draft():
+    """Draft = target, gamma 1, 100 + 26 tokens on a 128-row cache: the
+    port pads its catch-up chunk only up to the cache end, so it accepts
+    every draft (JAX accepts 12 of 14: its padded catch-up write clamps
+    onto cached draft rows).  Tokens equal JAX's and the target's greedy
+    decode."""
+    jcfg, tcfg, params, state = _model(0, num_layers=2)
+    prompt = np.random.default_rng(0).integers(1, 500, 100).tolist()
+    engine = SpeculativeEngine(tcfg, state, tcfg, state, gamma=1,
+                               eos_token_id=-1, **F32)
+    got = engine.generate(prompt, max_new_tokens=26, temperature=0.0)
+    jax_engine = JaxSpeculative(jcfg, params, jcfg, params, gamma=1,
+                                eos_token_id=-1, dtype=jnp.float32)
+    want = jax_engine.generate(prompt, max_new_tokens=26, temperature=0.0)
+    assert got == want == _port_greedy(tcfg, state, prompt, 26)
+    assert len(got) == 26
+    stats = engine.last_stats
+    assert stats["drafted"] > 0 and stats["accepted"] == stats["drafted"]
+    assert stats["acceptance_rate"] == 1.0
