@@ -13,7 +13,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    shapes the served models give it, with the tolerance stated; then each
    kernel's time, its plain version's, one PyTorch library call's that
    computes the same function (a yardstick only) and the least time the card
-   could take (bytes over 3.35 TB/s or operations over the type's peak);
+   could take (bytes over 3.35 TB/s or operations over the peak of the units
+   the kernel computes on, named in ``bound_peak``);
 3. the in-repo QA model (``outputs/qa_lm``, real weights) behind
    ``create_qa_backend``: held-out accuracy through ``evaluate_qa_lm`` (n 40,
    seed 1234) against ``outputs/qa_lm/metrics.json``, the same 40 samples
@@ -69,6 +70,9 @@ WATCHDOG_S = 1100        # below the 1200 s the run is allowed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12,
               "torch.int8": 1979e12}   # dense tensor-core peaks
+PEAK_NAMES = {"torch.float32": "f32 CUDA cores 67 TFLOP/s",
+              "torch.bfloat16": "bf16 tensor cores 989 TFLOP/s",
+              "torch.int8": "int8 tensor cores 1979 TOP/s"}
 QA_SEED, QA_SAMPLES = 1234, 40
 QA_ACCURACY_SLACK = 0.075  # 3 of 40 answers
 QA_MIN_AGREE = 38          # kernel vs plain path answers, of 40
@@ -141,10 +145,15 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str, str]:
+    """The least time for the work: (ms, what bounds it, the peak it is
+    taken at), the operations at the peak of ``dtype``'s units (f32: CUDA
+    cores; bf16, int8: tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(dtype)]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", f"HBM {HBM_BYTES_PER_S / 1e12:g} TB/s"
+    return t_ops * 1e3, "operations", PEAK_NAMES[str(dtype)]
 
 
 def attention_pairs(seq_q: int, seq_k: int, causal: bool, kv_len) -> int:
@@ -317,7 +326,7 @@ def check_kernels(dev) -> list[dict]:
         max_abs_err=flash_err,
         ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
         plain_ms=time_ms(lambda: attention_reference(q, k, v, causal=True), 5),
-        bound_ms=flash_bound[0], bound_by=flash_bound[1],
+        bound_ms=flash_bound[0], bound_by=flash_bound[1], bound_peak=flash_bound[2],
         library_ms=time_ms(lambda: library_flash(q, k, v, True)),
     )
 
@@ -340,7 +349,7 @@ def check_kernels(dev) -> list[dict]:
         max_abs_err=dec_err,
         ms=time_ms(lambda: decode_attention(q, kc, vc, lengths), 100),
         plain_ms=time_ms(lambda: decode_attention_reference(q, kc, vc, lengths), 100),
-        bound_ms=dec_bound[0], bound_by=dec_bound[1],
+        bound_ms=dec_bound[0], bound_by=dec_bound[1], bound_peak=dec_bound[2],
         library_ms=time_ms(lambda: library_decode(q4, k_live, v_live), 100),
     )
 
@@ -358,15 +367,17 @@ def check_kernels(dev) -> list[dict]:
         max_abs_err=append_err,
         ms=time_ms(lambda: cache_append(cache, new, pos), 100),
         plain_ms=time_ms(lambda: cache_append_reference(cache, new, pos), 100),
-        bound_ms=app_bound[0], bound_by=app_bound[1],
+        bound_ms=app_bound[0], bound_by=app_bound[1], bound_peak=app_bound[2],
         library_ms=time_ms(lambda: cache.index_copy_(2, pos_long, new3), 100),
     )
     # chunk_attention at a QA admission (a 2048-token bucket at offset 0)
     q, kc, vc, start = chunk_in
     seq, live = q.shape[2], int(start[0]) + q.shape[2]
     pairs = sum(int(start[0]) + r + 1 for r in range(seq))
+    # the kernel runs q k^T and P V on bf16 tensor cores (the f32 query split
+    # into bf16 hi + lo): the bound is taken at their peak
     chunk_bound = bound_ms(2 * q.nbytes + 2 * kc[:, :, :live].nbytes + start.nbytes,
-                           4.0 * q.shape[1] * q.shape[3] * pairs, q.dtype)
+                           4.0 * q.shape[1] * q.shape[3] * pairs, torch.bfloat16)
     q16 = q.to(torch.bfloat16)
     k_live, v_live = kc[:, :, :live].contiguous(), vc[:, :, :live].contiguous()
     chunk_mask = (torch.arange(live, device=dev)[None, :]
@@ -379,7 +390,7 @@ def check_kernels(dev) -> list[dict]:
         max_abs_err=chunk_err,
         ms=time_ms(lambda: chunk_attention(q, kc, vc, start)),
         plain_ms=time_ms(lambda: chunk_attention_reference(q, kc, vc, start), 5),
-        bound_ms=chunk_bound[0], bound_by=chunk_bound[1],
+        bound_ms=chunk_bound[0], bound_by=chunk_bound[1], bound_peak=chunk_bound[2],
         library_ms=time_ms(lambda: library_masked(q16, k_live, v_live, chunk_mask)),
     )
 
@@ -402,7 +413,7 @@ def check_kernels(dev) -> list[dict]:
         ms=time_ms(lambda: decode_attention_stacked(q, k_all, v_all, lengths, 2), 100),
         plain_ms=time_ms(lambda: decode_attention_stacked_reference(
             q, k_all, v_all, lengths, 2), 100),
-        bound_ms=st_bound[0], bound_by=st_bound[1],
+        bound_ms=st_bound[0], bound_by=st_bound[1], bound_peak=st_bound[2],
         library_ms=time_ms(lambda: library_masked(q4, k_all[2], v_all[2], st_mask), 100),
     )
 
@@ -421,7 +432,7 @@ def check_kernels(dev) -> list[dict]:
         max_abs_err=0.0,
         ms=time_ms(lambda: cache_append_stacked(k_all, new, pos, 2), 100),
         plain_ms=time_ms(lambda: cache_append_stacked_reference(k_all, new, pos, 2), 20),
-        bound_ms=ap_bound[0], bound_by=ap_bound[1],
+        bound_ms=ap_bound[0], bound_by=ap_bound[1], bound_peak=ap_bound[2],
         library_ms=time_ms(lambda: layer_rows.index_copy_(0, flat_rows, new_rows), 100),
     )
     rows = [flash, decode, append, chunk, stacked, append_stacked]
@@ -534,7 +545,7 @@ def check_quant_kernels(dev) -> list[dict]:
         max_abs_err=max(errs.values()),
         ms=time_ms(lambda: qm.w8a8_matmul(x, w, scale, bias)),
         plain_ms=time_ms(lambda: qm.w8a8_matmul_reference(x, w, scale, bias), 5),
-        bound_ms=mm_bound[0], bound_by=mm_bound[1],
+        bound_ms=mm_bound[0], bound_by=mm_bound[1], bound_peak=mm_bound[2],
         library_ms=time_ms(lambda: library_int_mm(x, w, scale, bias, "none"))))
 
     # B8 and B11: the residual stream of a batch of 8 (and of the regions)
@@ -555,7 +566,7 @@ def check_quant_kernels(dev) -> list[dict]:
         shape="so400m residual stream, batch 8: bf16 [5888,1152] -> int8",
         max_abs_err=ln_err, ms=time_ms(lambda: qm.ln_quant(xs, g, b, 40.0), 100),
         plain_ms=time_ms(lambda: qm.ln_quant_reference(xs, g, b, 40.0), 20),
-        bound_ms=ln_bound[0], bound_by=ln_bound[1],
+        bound_ms=ln_bound[0], bound_by=ln_bound[1], bound_peak=ln_bound[2],
         library_ms=time_ms(lambda: library_layer_norm_quant(xs, g, b, 40.0), 100)))
     q_bound = bound_ms(xs.nbytes + xs.numel(), 3.0 * xs.numel(), torch.float32)
     rows.append(dict(
@@ -564,7 +575,7 @@ def check_quant_kernels(dev) -> list[dict]:
         shape="bf16 [5888,1152] -> int8 (on no served path)",
         max_abs_err=q_err, ms=time_ms(lambda: qm.quant_static(xs, 20.0), 100),
         plain_ms=time_ms(lambda: qm.quant_static_reference(xs, 20.0), 20),
-        bound_ms=q_bound[0], bound_by=q_bound[1],
+        bound_ms=q_bound[0], bound_by=q_bound[1], bound_peak=q_bound[2],
         library_ms=time_ms(lambda: library_quant(xs, 20.0), 100)))
 
     # B9, B10, B12: the attention of a layer, frames and regions
@@ -594,6 +605,21 @@ def check_quant_kernels(dev) -> list[dict]:
         if label == "frames":
             frames = (qkv, packed, kw)
     qkv, packed, kw = frames
+    # keys past kv_len are never read: NaN in the k and v columns of the
+    # padded rows (729 .. 735 of every frame) changes no output bit
+    for name, buf, extra in (
+            ("attention_fused_qkv", qkv, dict(dh_pad=128, out_scale_inv=40.0)),
+            ("attention_packed_multihead", packed, dict(head_dim=72, out_scale_inv=40.0)),
+            ("attention_qkv_packed", packed, dict(head_dim=72))):
+        fn = getattr(qm, name)
+        clean = fn(buf, **kw, **extra)
+        poisoned = buf.clone()
+        poisoned.view(8, 736, 3, -1)[:, 729:, 1:] = float("nan")
+        same = torch.equal(fn(poisoned, **kw, **extra), clean)
+        log("kernels", f"{name} frames, NaN in k and v past kv_len 729: output "
+            f"{'bit-identical: ok' if same else 'CHANGED'}")
+        if not same:
+            raise AssertionError(f"{name}: keys past kv_len reach the output")
     pairs = 8 * 16 * 736 * 729
     mask = (torch.arange(736, device=dev) < 729)[None, None, None, :]
     for name, key, buf, dh, line, extra, shape in (
@@ -615,7 +641,7 @@ def check_quant_kernels(dev) -> list[dict]:
             max_abs_err=max(att[(key, "frames")], att[(key, "regions")]),
             ms=time_ms(lambda: fn(buf, **kw, **extra)),
             plain_ms=time_ms(lambda: plain(buf, **kw, **extra), 5),
-            bound_ms=bnd[0], bound_by=bnd[1],
+            bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2],
             library_ms=time_ms(lambda: library_encoder_attention(buf, 8, 736, 16, dh, mask))))
     for row in rows:
         log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
@@ -1359,7 +1385,7 @@ def main() -> int:
     faulthandler.cancel_dump_traceback_later()
     print(nvidia_smi(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "plain_ms", "bound_ms", "bound_by", "bound_peak", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ from ``torch.profiler`` (CUPTI) instead:
    device kernel time per step (profiler), their ratio (the device's busy
    share) and the kernels that take the device time;
 3. the same for a batched decode step of ``ContinuousBatchingEngine`` with
-   4 slots: the QA model on 4 held-out prompts, and the 8B geometry with
+   4 slots, and for the step that admits the 4 prompts (chunk prefills):
+   the QA model on 4 held-out prompts, and the 8B geometry with
    ``scan_layers`` on 4 random prompts;
 4. the region semantic encoder's so400m fused W8A8 tower (random weights,
    seed 0): the device time per launch of the six fused kernels at its
@@ -31,6 +32,7 @@ last line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -100,36 +102,44 @@ def decode_profile(engine, prompt_ids, steps: int) -> dict:
 
 
 def batch_decode_profile(engine, prompts, steps: int) -> dict:
-    """Wall and device time per batched decode step once every slot is live
-    (``engine.eos_token_id`` must be -1, so that all slots run ``steps``)."""
+    """Wall and device time of the step that admits every prompt (chunk
+    prefills and the first decode step), then per batched decode step once
+    every slot is live (``engine.eos_token_id`` must be -1, so that all
+    slots run ``steps``)."""
     def run(profiled: bool):
         for prompt in prompts:
             engine.submit(prompt, steps + 1)
-        engine.step()                      # admissions and the first step
         torch.cuda.synchronize()
-        start = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as admit_prof:
+            start = time.perf_counter()
+            engine.step()                  # admissions and the first step
+            torch.cuda.synchronize()
+            admit = time.perf_counter() - start
         n = 0
-        if profiled:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                while engine.has_work:
-                    engine.step()
-                    n += 1
-                torch.cuda.synchronize()
-            return n, prof
-        while engine.has_work:
-            engine.step()
-            n += 1
-        torch.cuda.synchronize()
-        return n, time.perf_counter() - start
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            start = time.perf_counter()
+            while engine.has_work:
+                engine.step()
+                n += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        return n, wall, admit, admit_prof, prof
 
     run(False)                             # warm-up
-    n, wall = run(False)
-    _, prof = run(True)
+    n, wall, admit, _, _ = run(False)
+    _, _, _, admit_prof, prof = run(True)
     per_kernel = _device_us(prof)
     device_ms = sum(per_kernel.values()) / 1e3 / n
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    admit_kernels = _device_us(admit_prof)
+    admit_top = sorted(admit_kernels.items(), key=lambda kv: -kv[1])[:6]
     return {
         "slots": len(prompts),
+        "admission_step_wall_ms": 1e3 * admit,
+        "admission_step_device_ms": sum(admit_kernels.values()) / 1e3,
+        "admission_top_kernels_ms": {k[:80]: v / 1e3 for k, v in admit_top},
         "steps": n,
         "wall_ms_per_step": 1e3 * wall / n,
         "tokens_per_s": len(prompts) * n / wall,
@@ -193,14 +203,14 @@ def semantic_profile(dev) -> dict:
                                          ("quant_static_kernel",)),
         "attention_fused_qkv": kernel_device_ms(
             lambda: qm.attention_fused_qkv(qkv, dh_pad=128, out_scale_inv=40.0, **att),
-            ("encoder_attention_kernel",), 5),
+            ("encoder_attention_",), 5),
         "attention_packed_multihead": kernel_device_ms(
             lambda: qm.attention_packed_multihead(packed, head_dim=72, out_scale_inv=40.0,
                                                   **att),
-            ("encoder_attention_kernel",), 5),
+            ("encoder_attention_",), 5),
         "attention_qkv_packed": kernel_device_ms(
             lambda: qm.attention_qkv_packed(packed, head_dim=72, **att),
-            ("encoder_attention_kernel",), 5),
+            ("encoder_attention_",), 5),
     }
     print(f"fused kernels, device ms per launch: {kernels}", flush=True)
     del x, w, h, qkv, packed

@@ -1,0 +1,214 @@
+"""Ablations of the tensor-core attention kernels, on the card.
+
+    python -m gvl_tpu_torch.kernel_ablation
+
+Run from the repository root on a machine with one CUDA card and ``nvcc``.
+For ``csrc/encoder_attention.cu`` and ``csrc/chunk_attention.cu`` it builds
+the committed source and copies of it with one design choice undone (a
+text edit, :data:`VARIANTS`), each into its own library under
+``gvl_tpu_torch/_build/ablation/``, then calls their C entry points in
+turns (every variant, then every variant again in reverse order; the
+lower time is kept) with CUDA events around back-to-back calls, at the
+so400m frames shape (B9, B10; 8 frames, Sp 736) and the chunk shapes of
+the served QA model and 8B geometry.  Each output is held against the
+plain version: int8 outputs by their largest step and the share of
+elements that differ, the others by their largest absolute difference.
+Prints one JSON object as its last line.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from gvl_tpu_torch.ops import _build
+
+# source -> variant -> [(text in the committed source, its replacement)]
+VARIANTS = {
+    "encoder_attention.cu": {
+        "one m-tile per warp (64-row blocks)": [
+            ("constexpr int kParts = sizeof(T) == 4 ? 2 : 1, kM = 3 - kParts;",
+             "constexpr int kParts = sizeof(T) == 4 ? 2 : 1, kM = 1;")],
+        "exp2f or expf chosen around every key": [
+            ("      if (use_exp2)\n        softmax([](float x) { return exp2_ftz(x); });\n"
+             "      else\n        softmax([](float x) { return expf(x); });",
+             "      softmax([&](float x) { return use_exp2 ? exp2f(x) : expf(x); });")],
+        "runtime tests around the products": [
+            ("    for (int kk = 0; kk < kD / 16; ++kk) {\n      unsigned qa",
+             "    for (int kk = 0; kk < kD / 16; ++kk) {\n"
+             "      if (kk * 16 >= ((dh + 15) & ~15)) continue;\n      unsigned qa"),
+            ("            mma_bf16(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);\n          }",
+             "            if (2 * np + 1 < n_vt) mma_bf16(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);"
+             "\n          }")],
+    },
+    "chunk_attention.cu": {
+        "one key group (4 warps, 4-stage ring)": [
+            ("constexpr int kGroups = 2;", "constexpr int kGroups = 1;"),
+            ("constexpr int kStages = D == 64 ? 3 : 2;", "constexpr int kStages = D == 64 ? 4 : 3;")],
+        "a branch around every exp": [
+            ("          const float ex = expf(s[n][e] - m[e >> 1]);\n"
+             "          const float p = s[n][e] == kNegInf ? 0.f : ex;",
+             "          const float p = s[n][e] == kNegInf ? 0.f : expf(s[n][e] - m[e >> 1]);")],
+        "row tiles in order (longest last)": [
+            ("  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;",
+             "  const int r0 = blockIdx.x * kRows;")],
+    },
+}
+BASE = "as committed"
+
+
+def edited(source: str, edits: list[tuple[str, str]]) -> str:
+    """The text of csrc/``source`` with ``edits`` applied; each edited text
+    must occur exactly once."""
+    text = (_build.CSRC_DIR / source).read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{source}: the text to edit occurs {text.count(old)} times:"
+                             f"\n{old}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variant(source: str, name: str, edits) -> ctypes.CDLL:
+    """One source with ``edits``, compiled alone into a shared library."""
+    slug = "".join(c if c.isalnum() else "_" for c in name)[:40]
+    out = _build.BUILD_DIR / "ablation" / f"{Path(source).stem}-{slug}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        shutil.copy(header, out)
+    (out / source).write_text(edited(source, edits))
+    lib_path = out / "lib.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    str(out / source)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, sig in _build._SIGNATURES.items():
+        if sig and hasattr(lib, fn):
+            getattr(lib, fn).argtypes = sig
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def encoder_cases(dev):
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, dh in (("B9 frames [5888,3x16x128] -> int8", 128),
+                      ("B10 frames [5888,3x16x72] -> int8", 72)):
+        qkv = torch.randn(5888, 48 * dh, generator=gen, device=dev).to(torch.bfloat16)
+        if dh == 128:
+            qkv.view(5888, 48, 128)[..., 72:] = 0      # heads padded as served
+        kw = dict(batch=8, seq_pad=736, kv_len=729, num_heads=16, sm_scale=72 ** -0.5,
+                  out_scale_inv=40.0)
+        want = (qm.attention_fused_qkv_reference(qkv, dh_pad=128, **kw) if dh == 128 else
+                qm.attention_packed_multihead_reference(qkv, head_dim=72, **kw))
+        out = torch.empty_like(want)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, qkv=qkv, out=out, dh=dh):
+            err = lib.gvl_encoder_attention(qkv.data_ptr(), out.data_ptr(), None, 8, 16, 736,
+                                            729, dh, 72 ** -0.5 * qm.LOG2E, 1, 1, 40.0, 0,
+                                            1024, 1, stream)
+            if err:
+                raise RuntimeError(f"gvl_encoder_attention returned {err}")
+
+        def check(out=out, want=want):
+            diff = (out.int() - want.int()).abs()
+            return f"int8 max step {diff.max().item()}, share {(diff > 0).float().mean().item():.1e}"
+
+        cases[label] = (run, check)
+    return cases
+
+
+def chunk_cases(dev):
+    from gvl_tpu_torch.ops.decode_attention import chunk_attention_reference
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, hq, hkv, seq, s_max, d, dtype, start in (
+            ("QA admission: f32 q [1,10,2048,64] at 0", 10, 5, 2048, 4608, 64,
+             torch.float32, 0),
+            ("QA session delta: f32 q [1,10,128,64] at 1200", 10, 5, 128, 4608, 64,
+             torch.float32, 1200),
+            ("QA speculative verify: f32 q [1,10,5,64] at 1517", 10, 5, 5, 4608, 64,
+             torch.float32, 1517),
+            ("8B admission: bf16 q [1,32,128,128] at 0", 32, 8, 128, 1024, 128,
+             torch.bfloat16, 0)):
+        q = torch.randn(1, hq, seq, d, generator=gen, device=dev).to(dtype)
+        kc = torch.randn(1, hkv, s_max, d, generator=gen, device=dev).to(torch.bfloat16)
+        vc = torch.randn(1, hkv, s_max, d, generator=gen, device=dev).to(torch.bfloat16)
+        starts = torch.tensor([start], dtype=torch.int32, device=dev)
+        want = chunk_attention_reference(q, kc, vc, starts)
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, q=q, kc=kc, vc=vc, starts=starts, out=out, hq=hq, hkv=hkv, seq=seq,
+                s_max=s_max, d=d):
+            err = lib.gvl_chunk_attention(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                          starts.data_ptr(), out.data_ptr(), 1, hq, hkv, seq,
+                                          s_max, d, 1.0 / math.sqrt(d),
+                                          _build.DTYPE_CODES[q.dtype], stream)
+            if err:
+                raise RuntimeError(f"gvl_chunk_attention returned {err}")
+
+        def check(out=out, want=want):
+            return f"max abs err {(out.float() - want.float()).abs().max().item():.3g}"
+
+        cases[label] = (run, check)
+    return cases
+
+
+def main() -> dict:
+    dev = torch.device("cuda", 0)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ablation: no CUDA device; it runs on the card only")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    result = {"device": smi}
+    for source, cases in (("encoder_attention.cu", encoder_cases(dev)),
+                          ("chunk_attention.cu", chunk_cases(dev))):
+        libs = {BASE: build_variant(source, BASE, [])}
+        libs.update({name: build_variant(source, name, edits)
+                     for name, edits in VARIANTS[source].items()})
+        table = {}
+        for label, (run, check) in cases.items():
+            times = {name: [] for name in libs}
+            for name in list(libs) + list(libs)[::-1]:
+                times[name].append(time_ms(lambda: run(libs[name])))
+            checks = {}
+            for name, lib in libs.items():
+                run(lib)
+                torch.cuda.synchronize()
+                checks[name] = check()
+            table[label] = {name: {"ms": min(t), "check": checks[name]}
+                            for name, t in times.items()}
+            print(f"{source} {label}: " + ", ".join(
+                f"{name} {min(t):.4f} ms ({checks[name]})" for name, t in times.items()),
+                flush=True)
+        result[source] = table
+    return result
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))

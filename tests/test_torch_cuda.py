@@ -440,3 +440,141 @@ def test_tiny_fused_tower_kernel_path_matches_plain_path(dev):
         want = siglip_fused_apply(fused, pix, cfg, kernels=False)["pooled"].float()
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
         assert cos.min().item() >= 0.9995, cos
+
+
+# --------------------------------------------------------------------------
+# edges of the tensor-core tiling: 64-row query tiles, 64-key K/V tiles
+# --------------------------------------------------------------------------
+
+def _encoder_pairs(qkv, kw, dh):
+    """(kernel, plain, int8?) outputs of every encoder-attention entry point
+    that takes this head width: B10 requantized, B12, and B9 at dh 128."""
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    runs = [(qm.attention_packed_multihead(qkv, head_dim=dh, out_scale_inv=40.0, **kw),
+             qm.attention_packed_multihead_reference(qkv, head_dim=dh, out_scale_inv=40.0,
+                                                     **kw), True),
+            (qm.attention_qkv_packed(qkv, head_dim=dh, **kw),
+             qm.attention_qkv_packed_reference(qkv, head_dim=dh, **kw), False)]
+    if dh == 128:
+        for inv in (40.0, None):
+            runs.append((qm.attention_fused_qkv(qkv, dh_pad=128, out_scale_inv=inv, **kw),
+                         qm.attention_fused_qkv_reference(qkv, dh_pad=128,
+                                                          out_scale_inv=inv, **kw),
+                         inv is not None))
+    torch.cuda.synchronize()
+    return runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [72, 128])
+@pytest.mark.parametrize("sp,kv_len", [(96, 63), (96, 64), (96, 65),
+                                       (736, 639), (736, 640), (736, 641)])
+def test_encoder_attention_key_tile_edges(dev, dtype, dh, sp, kv_len):
+    """kv_len one below, at and one above a 64-key tile boundary, Sp not a
+    multiple of the 64-row query tile; B9's pad columns are random data."""
+    b, h = 2, 4
+    qkv = _randn(dev, b * sp, 3 * h * dh, seed=30, dtype=dtype)
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, sm_scale=1.0 / 72 ** 0.5)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for got, want, is_int8 in _encoder_pairs(qkv, kw, dh):
+        if is_int8:
+            _int8_close(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,sp,kv_len,h", [(1, 96, 65, 2), (2, 736, 729, 4)])
+def test_attention_fused_qkv_int8_scores_block_q_32(dev, quant, b, sp, kv_len, h):
+    """int8_scores with q quantized per 32-row block: two q blocks, two scales,
+    in every 64-row query tile."""
+    from gvl_tpu_torch.ops.quant_matmul import (
+        attention_fused_qkv,
+        attention_fused_qkv_reference,
+    )
+
+    qkv = _randn(dev, b * sp, 3 * h * 128, seed=31, dtype=torch.bfloat16)
+    qkv.view(b * sp, 3 * h, 128)[..., 72:] = 0
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=128,
+              sm_scale=1.0 / 72 ** 0.5, int8_scores=True, block_q=32,
+              out_scale_inv=40.0 if quant else None)
+    got = attention_fused_qkv(qkv, **kw)
+    want = attention_fused_qkv_reference(qkv, **kw)
+    torch.cuda.synchronize()
+    if quant:
+        _int8_close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("dh", [72, 128])
+def test_encoder_attention_ignores_keys_past_kv_len(dev, dh):
+    """NaN in the k and v columns of every row at or past kv_len (the padded
+    key rows) changes no output bit: those rows are zero-filled on load."""
+    b, sp, kv_len, h = 2, 736, 729, 4
+    qkv = _randn(dev, b * sp, 3 * h * dh, seed=32, dtype=torch.bfloat16)
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, sm_scale=1.0 / 72 ** 0.5)
+    clean = [got.clone() for got, _, _ in _encoder_pairs(qkv, kw, dh)]
+    qkv.view(b, sp, 3, h * dh)[:, kv_len:, 1:] = float("nan")
+    for before, (after, _, _) in zip(clean, _encoder_pairs(qkv, kw, dh)):
+        assert torch.equal(before, after)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (10, 5), (16, 4)])      # G 1, 2, 4
+@pytest.mark.parametrize("seq,starts,s_max", [
+    (7, [0, 70], 256),             # 7 G rows: under one 16-row warp tile
+    (37, [3, 100], 512),           # rows not a multiple of 16 or 64
+    (64, [4544], 4608),            # the slot's live end is the cache end
+    (200, [0, 1000], 1536),        # several row tiles, a diagonal per tile
+])
+def test_chunk_attention_tile_edges(dev, qdtype, d, hq, hkv, seq, starts, s_max):
+    batch = len(starts)
+    q = _randn(dev, batch, hq, seq, d, dtype=qdtype, seed=33)
+    kc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=34)
+    vc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=35)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    first = chunk_attention(q, kc, vc, start)
+    torch.testing.assert_close(first.float(),
+                               chunk_attention_reference(q, kc, vc, start).float(),
+                               **BF16_TOL)
+    for b, s in enumerate(starts):            # nothing past the live end is read
+        kc[b, :, s + seq:] = float("nan")
+        vc[b, :, s + seq:] = float("nan")
+    assert torch.equal(chunk_attention(q, kc, vc, start), first)
+
+
+def test_chunk_attention_f32_query_keeps_f32_scores(dev):
+    """The f32 query is split into bf16 hi + lo against the bf16 keys, so the
+    scores keep f32-level error.  Held against an f64 evaluation that rounds
+    p to bf16 as the kernel does: with one 64-key tile per row (start 0, 64
+    positions) the kernel's running maximum is the row's maximum, and the two
+    differ only where a score error moves p across a bf16 rounding step.
+    - mean |error| at most 1e-5 (a CPU emulation of the split gives ~7e-7),
+      and at most 1/20 of the same kernel's on the query rounded to bf16
+      (lo = 0: ~5e-4 in the emulation);
+    - max |error| at most 2**-7 max|v|: a weight p_j that rounds one bf16
+      step (at most 2**-7 p_j) the other way moves an output by at most
+      2**-7 (p_j / l) |v_j|."""
+    import math
+
+    q = _randn(dev, 1, 8, 64, 64, seed=36)
+    kc = _randn(dev, 1, 4, 128, 64, dtype=torch.bfloat16, seed=37)
+    vc = _randn(dev, 1, 4, 128, 64, dtype=torch.bfloat16, seed=38)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    k64 = kc[:, :, :64].double().repeat_interleave(2, dim=1)
+    v64 = vc[:, :, :64].double().repeat_interleave(2, dim=1)
+    s = torch.matmul(q.double(), k64.transpose(-1, -2)) / math.sqrt(64)
+    live = torch.ones(64, 64, dtype=torch.bool, device=dev).tril()
+    s = s.masked_fill(~live, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    want = torch.matmul(p.to(torch.bfloat16).double(), v64) / p.sum(-1, keepdim=True)
+    err = (chunk_attention(q, kc, vc, start).double() - want).abs()
+    unsplit = chunk_attention(q.to(torch.bfloat16).float(), kc, vc, start).double()
+    err_unsplit = (unsplit - want).abs().mean().item()
+    assert err.mean().item() <= min(1e-5, err_unsplit / 20), (err.mean().item(),
+                                                              err_unsplit)
+    assert err.max().item() <= 2.0 ** -7 * v64.abs().max().item(), err.max().item()
