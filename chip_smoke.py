@@ -14,12 +14,16 @@ Run from the root of the repository, on a machine with one CUDA card and
    kernel's time, its plain version's, one PyTorch library call's that
    computes the same function (a yardstick only) and the least time the card
    could take (bytes over 3.35 TB/s or operations over the peak of the units
-   the kernel computes on, named in ``bound_peak``);
+   the kernel computes on, named in ``bound_peak``); the append kernel's
+   pair forms (K and V in one launch, f32 rows cast into a bf16 cache in
+   the kernel) are held bit for bit against their plain versions and timed
+   against the same two writes made by other means (``pairs`` of rows 3
+   and 5);
 3. the in-repo QA model (``outputs/qa_lm``, real weights) behind
    ``create_qa_backend``: held-out accuracy through ``evaluate_qa_lm`` (n 40,
-   seed 1234) against ``outputs/qa_lm/metrics.json``, the same 40 samples
-   through the plain path on the card, and one chat through
-   ``Qwen3ChatBackend.stream``;
+   seed 1234) against ``outputs/qa_lm/metrics.json``, the CUDA launches of
+   one decode step (profiler), the same 40 samples through the plain path
+   on the card, and one chat through ``Qwen3ChatBackend.stream``;
 4. the 8B decoder's layer geometry at depth 4, random bf16 weights: kernel
    path against plain path (prefill and first-step logits), then 16 greedy
    steps;
@@ -45,9 +49,10 @@ Run from the root of the repository, on a machine with one CUDA card and
 
 Kernel launch counts are zeroed just before each served run (the kernel
 path of phases 3 to 10) and read just after it; each run must have launched
-every kernel of its path.  ``quant_static`` and ``attention_qkv_packed``
-lie on no served path (as in the JAX package): phase 2 alone checks them.
-The last two lines are a
+every kernel of its path, and as many appends as decode attentions (a
+decode step writes each layer's K and V with one launch).
+``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
+the JAX package): phase 2 alone checks them.  The last two lines are a
 JSON object of per-kernel numbers and ``{"ok": true, "device": ...}``.  Any
 failed check raises, so the exit code is not 0; a watchdog turns a hang
 into a traceback and an exit.  No JAX and nothing of ``gvl_tpu`` is used.
@@ -197,8 +202,12 @@ def check_kernels(dev) -> list[dict]:
     from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
     from gvl_tpu_torch.ops.cache_update import (
         cache_append,
+        cache_append_kv,
+        cache_append_kv_reference,
         cache_append_reference,
         cache_append_stacked,
+        cache_append_stacked_kv,
+        cache_append_stacked_kv_reference,
         cache_append_stacked_reference,
     )
     from gvl_tpu_torch.ops.decode_attention import (
@@ -252,22 +261,39 @@ def check_kernels(dev) -> list[dict]:
                      want, BF16_TOL)
 
     # cache_append: in place, the written rows right, every other row intact
-    append_err = 0.0
-    for name, batch, positions in [("8B B1", 1, [517]), ("8B B4", 4, [0, 7, 513, 1023])]:
-        cache = randn(batch, 8, 1024, 128, dtype=torch.bfloat16)
-        new = randn(batch, 8, 128, dtype=torch.bfloat16)
+    # (4 slots here; one slot at the 8B decode's shape where it is timed)
+    cache = randn(4, 8, 1024, 128, dtype=torch.bfloat16)
+    new = randn(4, 8, 128, dtype=torch.bfloat16)
+    pos = torch.tensor([0, 7, 513, 1023], dtype=torch.int32, device=dev)
+    checked_append(f"cache_append 8B B4 positions {pos.tolist()}",
+                   lambda: cache_append(cache, new, pos),
+                   lambda: cache_append_reference(cache, new, pos), [cache])
+
+    # the pair forms (K and V in one launch) on the decode writes: the 8B
+    # rows, and the QA model's f32 rows cast into its bf16 caches in the
+    # kernel (rows holding bf16 rounding ties, NaN and inf); positions -1
+    # and S_max write nothing
+    for name, batch, hkv, s_max, d, row_dtype, positions in [
+        ("8B B4", 4, 8, 1024, 128, torch.bfloat16, [0, -1, 1023, 1024]),
+        ("QA f32 rows into bf16 B1", 1, 5, 4608, 64, torch.float32, [3071]),
+        ("QA f32 rows into bf16 B4", 4, 5, 4608, 64, torch.float32, [0, 700, 4607, 4608]),
+    ]:
+        caches = [randn(batch, hkv, s_max, d, dtype=torch.bfloat16) for _ in range(2)]
+        rows = [hard_rows(randn(batch, hkv, d)) if row_dtype == torch.float32
+                else randn(batch, hkv, d, dtype=row_dtype) for _ in range(2)]
         pos = torch.tensor(positions, dtype=torch.int32, device=dev)
-        want = cache_append_reference(cache, new, pos)
-        ptr = cache.data_ptr()
-        got = cache_append(cache, new, pos)
-        torch.cuda.synchronize()
-        if got is not cache or got.data_ptr() != ptr:
-            raise AssertionError("cache_append did not write in place")
-        if not torch.equal(got, want):
-            raise AssertionError(f"cache_append {name}: rows differ from the plain version")
-        append_err = max(append_err, max_err(got, want))
-        log("kernels", f"cache_append {name} positions {positions}: same data_ptr,"
-            " written rows equal, all other rows bit-identical: ok")
+        checked_append(f"cache_append_kv {name} positions {positions}",
+                       lambda: cache_append_kv(*caches, *rows, pos),
+                       lambda: cache_append_kv_reference(*caches, *rows, pos), caches)
+    for layer in (0, 3):
+        k_all, v_all = (randn(4, 4, 8, 1024, 128, dtype=torch.bfloat16) for _ in range(2))
+        rows = [randn(4, 8, 128, dtype=torch.bfloat16) for _ in range(2)]
+        pos = torch.tensor([0, 7, 1024, 1023], dtype=torch.int32, device=dev)
+        checked_append(
+            f"cache_append_stacked_kv 8B layer {layer} of 4 positions {pos.tolist()}",
+            lambda: cache_append_stacked_kv(k_all, v_all, *rows, pos, layer),
+            lambda: cache_append_stacked_kv_reference(k_all, v_all, *rows, pos, layer),
+            [k_all, v_all])
 
     # chunk_attention: the chunks of the served paths, f32 query (QA) or
     # bf16 (8B) over a bf16 cache; row s of slot b sees keys 0 .. start[b] + s
@@ -302,16 +328,9 @@ def check_kernels(dev) -> list[dict]:
         decode_attention_stacked_reference(q, k_all, v_all, lengths, 2), BF16_TOL)
     new = randn(4, 8, 128, dtype=torch.bfloat16)
     pos = torch.tensor([0, 7, 513, 1023], dtype=torch.int32, device=dev)
-    want = cache_append_stacked_reference(k_all, new, pos, 2)
-    ptr = k_all.data_ptr()
-    got = cache_append_stacked(k_all, new, pos, 2)
-    torch.cuda.synchronize()
-    if got is not k_all or got.data_ptr() != ptr:
-        raise AssertionError("cache_append_stacked did not write in place")
-    if not torch.equal(got, want):
-        raise AssertionError("cache_append_stacked: rows differ from the plain version")
-    log("kernels", f"cache_append_stacked 8B positions {pos.tolist()} layer 2: same"
-        " data_ptr, written rows equal, all other rows bit-identical: ok")
+    checked_append(f"cache_append_stacked 8B positions {pos.tolist()} layer 2",
+                   lambda: cache_append_stacked(k_all, new, pos, 2),
+                   lambda: cache_append_stacked_reference(k_all, new, pos, 2), [k_all])
 
     # times at the main path's shapes
     q, k, v, causal, kv_len = flash_in
@@ -364,12 +383,45 @@ def check_kernels(dev) -> list[dict]:
         source="gvl_tpu_torch/csrc/cache_append.cu",
         replaces="gvl_tpu/ops/cache_update.py:42",
         shape="8B decode: cache [1,8,1024,128] bf16, one row",
-        max_abs_err=append_err,
+        max_abs_err=checked_append("cache_append 8B B1 position 517",
+                                   lambda: cache_append(cache, new, pos),
+                                   lambda: cache_append_reference(cache, new, pos), [cache]),
         ms=time_ms(lambda: cache_append(cache, new, pos), 100),
         plain_ms=time_ms(lambda: cache_append_reference(cache, new, pos), 100),
         bound_ms=app_bound[0], bound_by=app_bound[1], bound_peak=app_bound[2],
         library_ms=time_ms(lambda: cache.index_copy_(2, pos_long, new3), 100),
     )
+    # the pair forms at the served decode writes, each against the same two
+    # writes by other means
+    cache_v = randn(1, 8, 1024, 128, dtype=torch.bfloat16)
+    new_v = randn(1, 8, 128, dtype=torch.bfloat16)
+    new3_v = new_v[:, :, None, :]
+    pair_8b = pair_line(
+        "cache_append_kv", "8B decode: K and V caches [1,8,1024,128] bf16, one row each",
+        lambda: cache_append_kv(cache, cache_v, new, new_v, pos),
+        lambda: cache_append_kv_reference(cache, cache_v, new, new_v, pos),
+        lambda: (cache.index_copy_(2, pos_long, new3),
+                 cache_v.index_copy_(2, pos_long, new3_v)),
+        "2 x index_copy_", 2 * (2 * new.nbytes) + pos.nbytes, new.dtype, [cache, cache_v])
+    qa_k, qa_v = (randn(1, 5, 4608, 64, dtype=torch.bfloat16) for _ in range(2))
+    qa_rk, qa_rv = randn(1, 5, 64), randn(1, 5, 64)
+    qa_pos = torch.tensor([3071], dtype=torch.int32, device=dev)
+
+    def qa_scatter():
+        """What the QA model's decode write was before the kernel took it."""
+        slot = torch.arange(1, device=dev)
+        p = qa_pos.long()
+        qa_k[slot, :, p, :] = qa_rk.to(torch.bfloat16)
+        qa_v[slot, :, p, :] = qa_rv.to(torch.bfloat16)
+
+    pair_qa = pair_line(
+        "cache_append_kv", "QA decode: f32 rows [1,5,64] into bf16 K and V caches "
+        "[1,5,4608,64], cast in the kernel",
+        lambda: cache_append_kv(qa_k, qa_v, qa_rk, qa_rv, qa_pos),
+        lambda: cache_append_kv_reference(qa_k, qa_v, qa_rk, qa_rv, qa_pos),
+        qa_scatter, "the scatter block it replaces (arange, .long(), 2 x cast + index_put_)",
+        2 * (qa_rk.nbytes + qa_rk.nbytes // 2) + qa_pos.nbytes, torch.float32, [qa_k, qa_v])
+    append["pairs"] = [pair_8b, pair_qa]
     # chunk_attention at a QA admission (a 2048-token bucket at offset 0)
     q, kc, vc, start = chunk_in
     seq, live = q.shape[2], int(start[0]) + q.shape[2]
@@ -429,18 +481,93 @@ def check_kernels(dev) -> list[dict]:
         source="gvl_tpu_torch/csrc/cache_append.cu",
         replaces="gvl_tpu/ops/cache_update.py:113",
         shape="8B scan decode: one row per slot into layer 2 of [4,4,8,1024,128] bf16",
-        max_abs_err=0.0,
+        max_abs_err=checked_append(
+            f"cache_append_stacked 8B scan positions {pos.tolist()} layer 2",
+            lambda: cache_append_stacked(k_all, new, pos, 2),
+            lambda: cache_append_stacked_reference(k_all, new, pos, 2), [k_all]),
         ms=time_ms(lambda: cache_append_stacked(k_all, new, pos, 2), 100),
         plain_ms=time_ms(lambda: cache_append_stacked_reference(k_all, new, pos, 2), 20),
         bound_ms=ap_bound[0], bound_by=ap_bound[1], bound_peak=ap_bound[2],
         library_ms=time_ms(lambda: layer_rows.index_copy_(0, flat_rows, new_rows), 100),
     )
+    new_v = randn(4, 8, 128, dtype=torch.bfloat16)
+    layer_rows_v, new_rows_v = v_all[2].view(-1, 128), new_v.reshape(-1, 128)
+    append_stacked["pairs"] = [pair_line(
+        "cache_append_stacked_kv", "8B scan decode: one row per slot into layer 2 of the "
+        "K and V caches [4,4,8,1024,128] bf16",
+        lambda: cache_append_stacked_kv(k_all, v_all, new, new_v, pos, 2),
+        lambda: cache_append_stacked_kv_reference(k_all, v_all, new, new_v, pos, 2),
+        lambda: (layer_rows.index_copy_(0, flat_rows, new_rows),
+                 layer_rows_v.index_copy_(0, flat_rows, new_rows_v)),
+        "2 x index_copy_", 2 * (2 * new.nbytes) + pos.nbytes, new.dtype, [k_all, v_all])]
     rows = [flash, decode, append, chunk, stacked, append_stacked]
     for row in rows:
         log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
             f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
             f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        for pair in row.get("pairs", ()):
+            log("kernels", f"  pair {pair['name']} at {pair['shape']}: kernel "
+                f"{pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms, "
+                f"{pair['library']} {pair['library_ms']:.4f} ms, bound "
+                f"{pair['bound_ms']:.7f} ms ({pair['bound_by']})")
     return rows
+
+
+def hard_rows(x):
+    """x with bf16 rounding ties (low 16 bits 0x8000, the kept bit odd and
+    even) and one ulp either side of them in every row, and NaN, -NaN,
+    +-inf and the largest f32 (rounds up to inf) in its first columns."""
+    import torch
+
+    bits = x.view(torch.int32).clone()
+    low = torch.tensor([0x8000, 0x7FFF, 0x8001, 0x18000], dtype=torch.int32,
+                       device=x.device)
+    bits[..., 8:24] = (bits[..., 8:24] & ~0x1FFFF) | low.repeat(4)
+    special = torch.tensor([0x7FC00000, -0x3FFFFF, 0x7F800000, -0x800000,
+                            0x7F7FFFFF], dtype=torch.int32, device=x.device)
+    bits[..., :5] = special
+    return bits.view(torch.float32)
+
+
+def checked_append(what: str, kernel, plain, caches) -> float:
+    """Run an append's plain version (copies) and then its kernel on the
+    same tensors; the kernel must return ``caches`` themselves, written in
+    place, bit for bit the plain version's (NaN equal to itself).  Returns
+    the largest absolute difference, 0 where the bits agree."""
+    import torch
+
+    want = plain()
+    ptrs = [c.data_ptr() for c in caches]
+    got = kernel()
+    torch.cuda.synchronize()
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    same = all(g is c and c.data_ptr() == p for g, c, p in zip(got, caches, ptrs))
+    errs, equal = [], True
+    for g, w in zip(got, want):
+        bits = {2: torch.int16, 4: torch.int32}[g.element_size()]
+        agree = g.view(bits) == w.view(bits)
+        equal = equal and bool(agree.all())
+        errs.append((g.float() - w.float()).abs().masked_fill(agree, 0.0).max())
+    err = torch.stack(errs).max().item()    # NaN where a NaN was not kept
+    ok = same and equal
+    log("kernels", f"{what}: same data_ptr {same}, bit-equal to the plain version (all"
+        f" other rows untouched) {equal}, max abs err {err:.3g}: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version")
+    return err
+
+
+def pair_line(name, shape, kernel, plain, library, library_name, nbytes, dtype,
+              caches) -> dict:
+    """One pair form held against its plain version on the tensors it is
+    timed on, then its time, its plain version's and that of the same two
+    writes made by other means; the bound is its bytes (rows read, rows
+    written, positions) over the card's memory rate."""
+    err = checked_append(f"{name} at {shape}", kernel, plain, caches)
+    bound = bound_ms(nbytes, 0.0, dtype)
+    return dict(name=name, shape=shape, max_abs_err=err, ms=time_ms(kernel, 100),
+                plain_ms=time_ms(plain, 20), library=library_name,
+                library_ms=time_ms(library, 100), bound_ms=bound[0], bound_by=bound[1])
 
 
 def library_int_mm(x, w, scale, bias, epilogue, out_inv=None, residual=None):
@@ -715,14 +842,26 @@ def reset_launches() -> None:
         f.launches = 0
 
 
+# each decode step writes a layer's K and V rows with one append launch and
+# reads them with one decode-attention launch
+APPEND_PER_DECODE = (("cache_append", "decode_attention"),
+                     ("cache_append_stacked", "decode_attention_stacked"))
+
+
 def served_launches(phase: str, expected: tuple[str, ...]) -> dict[str, int]:
     """The counts since the last reset; fails unless every kernel of the
-    served path was launched."""
+    served path was launched, and unless the appends equal the decode
+    attentions (one pair launch per layer and step)."""
     launches = kernel_launches()
     missing = [name for name in expected if launches[name] == 0]
     log(phase, f"launches {launches}")
     if missing:
         raise AssertionError(f"{phase}: kernels of this path not launched: {missing}")
+    for append, decode in APPEND_PER_DECODE:
+        if launches[append] != launches[decode]:
+            raise AssertionError(
+                f"{phase}: {launches[append]} {append} launches for {launches[decode]} "
+                f"{decode}: a decode step must write K and V in one launch per layer")
     return launches
 
 
@@ -768,12 +907,28 @@ def run_qa(dev):
     timed = TimedEngine(engine)
     reset_launches()
     got = evaluate_qa_lm(n_samples=QA_SAMPLES, seed=QA_SEED, engine=timed)
-    launches = served_launches("qa", ("flash_attention", "decode_attention"))
+    launches = served_launches("qa", ("flash_attention", "decode_attention",
+                                      "cache_append"))
     log("qa", f"kernel path: accuracy {got['accuracy']:.3f} (metrics.json {want}),"
         f" by_family {json.dumps(got['by_family'], sort_keys=True)}")
     log("qa", f"kernel path: {timed.summary()}; launches {launches}, "
         f"{sum(launches.values()) / max(timed.decode_steps + timed.prompts, 1):.1f}"
         " per generated token")
+    with uncounted():
+        # every CUDA launch of a decode step (the port's kernels, cuBLAS and
+        # PyTorch's own), counted by the profiler on one held-out prompt
+        from gvl_tpu_torch.device_times import decode_profile
+
+        eos, engine.eos_token_id = engine.eos_token_id, -1
+        try:
+            step = decode_profile(engine, timed.prompt_ids[0], 16)
+        finally:
+            engine.eos_token_id = eos
+    log("qa", f"decode step, {len(timed.prompt_ids[0])}-token prompt: "
+        f"{step['device_launches_per_step']:.1f} CUDA launches and "
+        f"{step['device_copies_per_step']:.1f} copies per step, wall "
+        f"{step['wall_ms_per_step']:.3f} ms, device {step['device_ms_per_step']:.3f} ms "
+        f"(busy {step['busy_share']:.1%})")
 
     plain = Qwen3Engine(engine.config.plain(), engine.model.state_dict(),
                         eos_token_id=EOS_ID, device=dev)
@@ -914,7 +1069,8 @@ def run_qa_batch(dev, backend, single_answers, prompts):
                 first[rid] = now - start
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = served_launches("qa-batch", ("chunk_attention", "decode_attention"))
+    launches = served_launches("qa-batch", ("chunk_attention", "decode_attention",
+                                            "cache_append"))
     outputs = [engine._requests[rid].tokens for rid in ids]
     n_tokens = sum(len(o) for o in outputs)
     got = evaluate_qa_lm(n_samples=QA_SAMPLES, seed=QA_SEED, engine=Replay(outputs))
@@ -1009,7 +1165,8 @@ def run_http(dev, engine, prompts):
             f"{chat2.get('prefilled')} (delta {delta}), answer {chat2.get('text')!r}")
         status3, metrics = http_json(port, "GET", "/metrics")
         torch.cuda.synchronize()
-        launches = served_launches("http", ("chunk_attention", "decode_attention"))
+        launches = served_launches("http", ("chunk_attention", "decode_attention",
+                                            "cache_append"))
         log("http", f"GET /metrics: status {status3}, {json.dumps(metrics)}")
     finally:
         httpd.shutdown()
@@ -1072,7 +1229,8 @@ def run_session_lookup(dev, backend, prompts):
         if out != fresh:
             differ.append(f"prompt lookup {i}")
     torch.cuda.synchronize()
-    launches = served_launches("session", ("chunk_attention", "decode_attention"))
+    launches = served_launches("session", ("chunk_attention", "decode_attention",
+                                           "cache_append"))
     log("session", f"prompt lookup (gamma {lookup.gamma}) on {LOOKUP_PROMPTS} prompts: "
         f"{rounds} verify steps, {accepted} of {drafted} drafted tokens accepted, "
         f"{n_tokens} tokens; streams differing from Qwen3Engine: {differ or 'none'}")
@@ -1386,7 +1544,8 @@ def main() -> int:
     print(nvidia_smi(), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "bound_peak", "library_ms", "shape")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("pairs",) if k in row}
+                                  for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

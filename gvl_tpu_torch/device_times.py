@@ -1,7 +1,7 @@
 """Device-side kernel times and the device's busy share during decode and
 during the fused SigLIP tower's forward.
 
-    python -m gvl_tpu_torch.device_times [--only semantic]
+    python -m gvl_tpu_torch.device_times [--only kernels|decode|semantic]
 
 Run from the repository root on a machine with one CUDA card.  CUDA events
 around back-to-back calls of a small kernel measure the host's launch cost
@@ -15,7 +15,9 @@ from ``torch.profiler`` (CUPTI) instead:
 2. for greedy decode of one held-out QA prompt (seed 1234) and of the 8B
    layer geometry at depth 4: wall time per step (host clock, no profiler),
    device kernel time per step (profiler), their ratio (the device's busy
-   share) and the kernels that take the device time;
+   share) and the kernels that take the device time; for the QA model also
+   the wall time per step with the decode write through the append kernel
+   and through the scatter route, in 7 alternating rounds;
 3. the same for a batched decode step of ``ContinuousBatchingEngine`` with
    4 slots, and for the step that admits the 4 prompts (chunk prefills):
    the QA model on 4 held-out prompts, and the 8B geometry with
@@ -26,8 +28,16 @@ from ``torch.profiler`` (CUPTI) instead:
    bucket of 16 (128 canvas), wall and device ms per batch, the busy share
    and the top device kernels; the bf16 tower beside it.
 
-``--only semantic`` runs part 4 alone.  It prints one JSON object as its
-last line.
+Every decode profile also counts the device's kernel launches per step
+(``device_launches_per_step``, CUDA kernel events in the profile) and its
+memory copies and sets (``device_copies_per_step``).
+
+``--only kernels``, ``decode`` or ``semantic`` runs part 1, parts 2-3 or
+part 4 alone.  ``decode`` uses only what every slice of the port has, so
+this file copied into a checkout of an earlier commit measures that commit
+the same way.  It prints one JSON object as its last line.  The host's
+cost per call of each kernel wrapper is ``launch_costs.py``'s, at the
+repository root.
 """
 
 from __future__ import annotations
@@ -57,6 +67,18 @@ def _device_us(prof) -> dict[str, float]:
     return out
 
 
+def _launch_counts(prof) -> tuple[int, int]:
+    """(kernel launches, memory copies and sets) in a finished profile of
+    CUDA activity only."""
+    kernels = copies = 0
+    for event in prof.key_averages():
+        if event.key.startswith(("Memcpy", "Memset")):
+            copies += event.count
+        elif getattr(event, "device_time_total", 0.0):
+            kernels += event.count
+    return kernels, copies
+
+
 def kernel_device_ms(fn, names: tuple[str, ...], iters: int = 50) -> float | None:
     """Device ms per call of ``fn`` spent in CUDA kernels whose name holds
     one of ``names``; None when the profiler saw no device activity."""
@@ -70,35 +92,56 @@ def kernel_device_ms(fn, names: tuple[str, ...], iters: int = 50) -> float | Non
     return us / 1e3 / iters if us else None
 
 
+def _decode_run(engine, prompt_ids, steps: int, profiled: bool = False):
+    """One greedy stream: (decode steps after the prefill, wall seconds of
+    those steps, or the finished profile when ``profiled``)."""
+    stream = engine.stream(prompt_ids, max_new_tokens=steps, temperature=0.0)
+    next(stream)                           # prefill and the first token
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            n = 1 + sum(1 for _ in stream)
+            torch.cuda.synchronize()
+        return n, prof
+    n = 1 + sum(1 for _ in stream)
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - start
+
+
 def decode_profile(engine, prompt_ids, steps: int) -> dict:
     """Wall and device time per greedy decode step after the prefill."""
-    def run(profiled: bool):
-        stream = engine.stream(prompt_ids, max_new_tokens=steps, temperature=0.0)
-        next(stream)                       # prefill and the first token
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        if profiled:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                n = 1 + sum(1 for _ in stream)
-                torch.cuda.synchronize()
-            return n, prof
-        n = 1 + sum(1 for _ in stream)
-        torch.cuda.synchronize()
-        return n, time.perf_counter() - start
-
-    run(False)                             # warm-up
-    n, wall = run(False)
-    _, prof = run(True)
+    _decode_run(engine, prompt_ids, steps)         # warm-up
+    n, wall = _decode_run(engine, prompt_ids, steps)
+    _, prof = _decode_run(engine, prompt_ids, steps, profiled=True)
     per_kernel = _device_us(prof)
     device_ms = sum(per_kernel.values()) / 1e3 / n
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    launches, copies = _launch_counts(prof)
     return {
         "steps": n,
         "wall_ms_per_step": 1e3 * wall / n,
         "device_ms_per_step": device_ms,
         "busy_share": device_ms / (1e3 * wall / n),
+        "device_launches_per_step": launches / n,
+        "device_copies_per_step": copies / n,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / n for k, v in top},
     }
+
+
+def route_ab(engines: dict, prompt_ids, steps: int, rounds: int = 7) -> dict:
+    """Wall ms per decode step of engines that differ in one route, run in
+    turns (a, b, a, b, ...) in one process so that the host's drift falls
+    on both alike; per round and the medians."""
+    for engine in engines.values():
+        _decode_run(engine, prompt_ids, steps)     # warm-up
+    ms = {name: [] for name in engines}
+    for _ in range(rounds):
+        for name, engine in engines.items():
+            n, wall = _decode_run(engine, prompt_ids, steps)
+            ms[name].append(1e3 * wall / n)
+    return {"rounds_ms_per_step": ms,
+            "median_ms_per_step": {k: float(np.median(v)) for k, v in ms.items()}}
 
 
 def batch_decode_profile(engine, prompts, steps: int) -> dict:
@@ -135,6 +178,7 @@ def batch_decode_profile(engine, prompts, steps: int) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     admit_kernels = _device_us(admit_prof)
     admit_top = sorted(admit_kernels.items(), key=lambda kv: -kv[1])[:6]
+    launches, copies = _launch_counts(prof)
     return {
         "slots": len(prompts),
         "admission_step_wall_ms": 1e3 * admit,
@@ -145,6 +189,8 @@ def batch_decode_profile(engine, prompts, steps: int) -> dict:
         "tokens_per_s": len(prompts) * n / wall,
         "device_ms_per_step": device_ms,
         "busy_share": device_ms / (1e3 * wall / n),
+        "device_launches_per_step": launches / n,
+        "device_copies_per_step": copies / n,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / n for k, v in top},
     }
 
@@ -231,22 +277,21 @@ def semantic_profile(dev) -> dict:
     return out
 
 
-def main() -> dict:
-    from gvl_tpu_torch.agent.core import create_qa_backend
-    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
-    from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
+def kernel_profile(dev) -> dict:
+    """Part 1: device ms per launch of the decoders' kernels."""
     from gvl_tpu_torch.ops.attention import flash_attention
-    from gvl_tpu_torch.models.qwen3 import stack_layers
-    from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_stacked
+    from gvl_tpu_torch.ops.cache_update import (
+        cache_append,
+        cache_append_kv,
+        cache_append_stacked,
+        cache_append_stacked_kv,
+    )
     from gvl_tpu_torch.ops.decode_attention import (
         chunk_attention,
         decode_attention,
         decode_attention_stacked,
     )
-    from gvl_tpu_torch.serving import ContinuousBatchingEngine
-    from gvl_tpu_torch.training.qa_lm_train import encode_sample, generate_qa_sample
 
-    dev = resolve_device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -257,8 +302,9 @@ def main() -> dict:
     kc = randn(1, 5, 4608, 64, dtype=torch.bfloat16)
     vc = randn(1, 5, 4608, 64, dtype=torch.bfloat16)
     lengths = torch.tensor([3072], dtype=torch.int32, device=dev)
-    cache = randn(1, 8, 1024, 128, dtype=torch.bfloat16)
-    row = randn(1, 8, 128, dtype=torch.bfloat16)
+    qa_k, qa_v = randn(1, 5, 64), randn(1, 5, 64)     # the QA model's f32 rows
+    cache, cache_v = (randn(1, 8, 1024, 128, dtype=torch.bfloat16) for _ in range(2))
+    row, row_v = (randn(1, 8, 128, dtype=torch.bfloat16) for _ in range(2))
     pos = torch.tensor([517], dtype=torch.int32, device=dev)
     qc = randn(1, 10, 2048, 64)
     start = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -283,8 +329,27 @@ def main() -> dict:
         "cache_append_stacked": kernel_device_ms(
             lambda: cache_append_stacked(k_all, rows4, lens4 - 1, 2),
             ("cache_append_kernel",)),
+        "cache_append_kv 8B": kernel_device_ms(
+            lambda: cache_append_kv(cache, cache_v, row, row_v, pos), ("cache_append_kernel",)),
+        "cache_append_stacked_kv 8B scan": kernel_device_ms(
+            lambda: cache_append_stacked_kv(k_all, v_all, rows4, rows4, lens4 - 1, 2),
+            ("cache_append_kernel",)),
+        "cache_append_kv QA f32 into bf16": kernel_device_ms(
+            lambda: cache_append_kv(kc, vc, qa_k, qa_v, lengths - 1),
+            ("cache_append_kernel",)),
     }
     print(f"device ms per launch: {kernels}", flush=True)
+    return kernels
+
+
+def decode_profiles(dev) -> dict:
+    """Parts 2 and 3: decode steps of the QA model and the 8B geometry
+    (wall and device ms, busy share, launches per step)."""
+    from gvl_tpu_torch.agent.core import create_qa_backend
+    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
+    from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params, stack_layers
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+    from gvl_tpu_torch.training.qa_lm_train import encode_sample, generate_qa_sample
 
     backend = create_qa_backend(REPO / "outputs" / "qa_lm", device=dev)
     rng = np.random.default_rng(1234)
@@ -297,6 +362,15 @@ def main() -> dict:
     qa = decode_profile(backend.engine, qa_prompts[0], 48)
     qa["prompt_tokens"] = len(qa_prompts[0])
     print(f"QA decode: {qa}", flush=True)
+    # the decode write through the append kernel against the scatter route,
+    # everything else alike
+    cfg = backend.engine.config
+    scatter = Qwen3Engine(dataclasses.replace(cfg, use_cache_append_kernel=False),
+                          backend.engine.model.state_dict(), eos_token_id=-1, device=dev)
+    qa_route = route_ab({"append_kernel": backend.engine, "scatter": scatter},
+                        qa_prompts[0], 48)
+    print(f"QA decode, write route A/B: {qa_route}", flush=True)
+    del scatter
     batch = ContinuousBatchingEngine(backend.engine.config,
                                      backend.engine.model.state_dict(),
                                      eos_token_id=-1, num_slots=4, device=dev)
@@ -324,17 +398,28 @@ def main() -> dict:
     print(f"8B scan batched decode: {big_batch}", flush=True)
     del scan, params
     torch.cuda.empty_cache()
-    return {"device": torch.cuda.get_device_name(0), "kernel_device_ms": kernels,
-            "qa_decode": qa, "qa_batch_decode": qa_batch, "decode_8b": big,
-            "scan_8b_batch_decode": big_batch, "semantic": semantic_profile(dev)}
+    return {"qa_decode": qa, "qa_decode_route_ab": qa_route, "qa_batch_decode": qa_batch,
+            "decode_8b": big, "scan_8b_batch_decode": big_batch}
+
+
+PARTS = {"kernels": kernel_profile, "decode": decode_profiles,
+         "semantic": semantic_profile}
+
+
+def main(parts=tuple(PARTS)) -> dict:
+    dev = resolve_device("cuda")
+    out = {"device": torch.cuda.get_device_name(0)}
+    for name in parts:
+        out[name] = PARTS[name](dev)
+    return out
 
 
 if __name__ == "__main__":
     import sys
 
-    if sys.argv[1:] == ["--only", "semantic"]:
-        dev = resolve_device("cuda")
-        print(json.dumps({"device": torch.cuda.get_device_name(0),
-                          "semantic": semantic_profile(dev)}))
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:] and sys.argv[2] in PARTS:
+        print(json.dumps(main((sys.argv[2],))))
+    elif sys.argv[1:]:
+        sys.exit(f"usage: python -m gvl_tpu_torch.device_times [--only {'|'.join(PARTS)}]")
     else:
         print(json.dumps(main()))

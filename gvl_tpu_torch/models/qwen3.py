@@ -12,8 +12,12 @@ and through their plain versions on CPU tensors:
   admission), whatever its length;
 - ``ops.decode_attention.decode_attention``: each decode step, and
   ``decode_attention_stacked`` for a ``scan_layers`` model's stacked cache;
-- ``ops.cache_update.cache_append`` / ``cache_append_stacked``: the decode
-  step's cache write when head_dim is a multiple of 128.
+- ``ops.cache_update.cache_append_kv`` / ``cache_append_stacked_kv``: the
+  decode step's K and V rows, one launch per layer, whenever the kernel
+  takes the row (a multiple of 16 bytes, of the cache's type or f32 into
+  bf16).  The JAX model takes its append kernel only at head_dim % 128 == 0,
+  the TPU's lane width; the writes are exact, so the cache holds the same
+  bits either way, and the QA model (head_dim 64) writes through the kernel.
 
 ``scan_layers`` keeps the JAX layout: every layer weight stacked over a
 leading layer axis (``layers.self_attn.q_proj.weight`` is ``[L, out, in]``)
@@ -39,7 +43,11 @@ from torch import nn
 from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.nn.layers import RMSNorm
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
-from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_stacked
+from gvl_tpu_torch.ops.cache_update import (
+    appends_in_kernel,
+    cache_append_kv,
+    cache_append_stacked_kv,
+)
 from gvl_tpu_torch.ops.decode_attention import (
     chunk_attention,
     chunk_attention_reference,
@@ -227,24 +235,28 @@ class Qwen3Attention(nn.Module):
             # teacher-forced path: causal over the sequence
             out = attend(q, k, v, causal=True)
         elif stacked_decode:
-            # scan-layers decode: this layer's row goes into the stacked
-            # cache in place and is read back by the layer-indexed kernel
+            # scan-layers decode: this layer's K and V rows go into the
+            # stacked caches in place (one launch) and are read back by the
+            # layer-indexed kernel
             k_all, v_all = cache.k, cache.v
-            _write_back(cache_append_stacked(
-                k_all, k[:, :, 0].to(k_all.dtype).contiguous(), cache_len, layer), k_all)
-            _write_back(cache_append_stacked(
-                v_all, v[:, :, 0].to(v_all.dtype).contiguous(), cache_len, layer), v_all)
+            k_row, v_row = k[:, :, 0], v[:, :, 0]
+            if not appends_in_kernel(k_all, k_row):
+                k_row, v_row = k_row.to(k_all.dtype), v_row.to(v_all.dtype)
+            k_out, v_out = cache_append_stacked_kv(k_all, v_all, k_row, v_row,
+                                                   cache_len, layer)
+            _write_back(k_out, k_all)
+            _write_back(v_out, v_all)
             decode = (decode_attention_stacked if cfg.use_decode_kernel
                       else decode_attention_stacked_reference)
             out = decode(q[:, :, 0], k_all, v_all, cache_len + 1, layer)[:, :, None, :]
         else:
             ck, cv = cache.k[layer], cache.v[layer]
-            if seq == 1 and cfg.use_cache_append_kernel and d % 128 == 0:
-                # one row per slot, written in place by the kernel
-                _write_back(cache_append(
-                    ck, k[:, :, 0].to(ck.dtype).contiguous(), cache_len), ck)
-                _write_back(cache_append(
-                    cv, v[:, :, 0].to(cv.dtype).contiguous(), cache_len), cv)
+            if seq == 1 and cfg.use_cache_append_kernel and appends_in_kernel(ck, k):
+                # one row per slot into K and V, written in place (and cast
+                # to the cache's type) by one launch
+                k_out, v_out = cache_append_kv(ck, cv, k[:, :, 0], v[:, :, 0], cache_len)
+                _write_back(k_out, ck)
+                _write_back(v_out, cv)
             elif seq == 1:
                 # per-slot scatter of one row
                 slot = torch.arange(batch, device=x.device)

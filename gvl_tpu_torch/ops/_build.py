@@ -46,8 +46,8 @@ _SIGNATURES = {
     "gvl_decode_attention_chunk": [],
     "gvl_decode_attention_stacked": [_VOID_P] * 7 + [_INT] * 7 + [_FLOAT, _INT, _VOID_P],
     "gvl_chunk_attention": [_VOID_P] * 5 + [_INT] * 6 + [_FLOAT, _INT, _VOID_P],
-    "gvl_cache_append": [_VOID_P] * 3 + [_INT] * 4 + [_VOID_P],
-    "gvl_cache_append_stacked": [_VOID_P] * 3 + [_INT] * 6 + [_VOID_P],
+    "gvl_cache_append": [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P],
+    "gvl_cache_append_stacked": [_VOID_P] * 5 + [_INT] * 7 + [_VOID_P],
     "gvl_w8a8_matmul": [_VOID_P] * 6 + [_INT] * 4 + [_FLOAT, _INT, _VOID_P],
     "gvl_ln_quant": [_VOID_P] * 4 + [_INT] * 2 + [_FLOAT] * 2 + [_INT, _VOID_P],
     "gvl_quant_static": [_VOID_P] * 2 + [ctypes.c_long, _FLOAT, _INT, _VOID_P],
@@ -173,25 +173,37 @@ def library() -> ctypes.CDLL:
 def check(err: int, kernel: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err:
-        text = library().gvl_error_string(err).decode()
+        text = entry("gvl_error_string")(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({text})")
 
 
-def stream_handle(device: torch.device) -> int:
-    """The current PyTorch stream of ``device``, as a pointer-sized int."""
-    return torch.cuda.current_stream(device).cuda_stream
+@functools.cache
+def entry(name: str):
+    """The loaded library's C function ``name``, looked up once."""
+    return getattr(library(), name)
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device and contiguous, or raise."""
-    dev = tensors[0].device
+def stream_handle(device_index: int) -> int:
+    """PyTorch's current stream on card ``device_index``, as a
+    pointer-sized int: inside ``torch.cuda.stream(s)`` it is ``s``, and
+    during a CUDA graph capture the capturing stream.  The raw handle, with
+    no ``torch.cuda.Stream`` object built around it (the call Triton makes
+    for its launches)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """Every tensor on one CUDA device and contiguous, or raise; returns
+    the device's index."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(
                 f"{name}: tensors must lie on one CUDA device, got "
                 f"{[str(x.device) for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return index
 
 
 if __name__ == "__main__":

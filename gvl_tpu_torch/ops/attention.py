@@ -80,7 +80,7 @@ def flash_attention(
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                    kv_len=kv_len)
-    _build.require_cuda("flash_attention", q, k, v)
+    index = _build.require_cuda("flash_attention", q, k, v)
     batch, num_q_heads, seq_q, head_dim = q.shape
     _, num_kv_heads, seq_k, _ = k.shape
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -101,10 +101,10 @@ def flash_attention(
         raise ValueError(f"flash_attention: shapes {q.shape}, {k.shape}")
     valid = seq_k if kv_len is None else max(0, min(int(kv_len), seq_k))
     out = torch.empty_like(q)
-    err = _build.library().gvl_flash_attention(
+    err = _build.entry("gvl_flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch,
         num_q_heads, num_kv_heads, seq_q, seq_k, head_dim, valid, int(causal),
-        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

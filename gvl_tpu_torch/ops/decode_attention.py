@@ -84,7 +84,7 @@ def _check_decode(name: str, q, k_cache, v_cache, lengths,
         raise ValueError(f"{name}: unsupported shapes {q.shape}, "
                          f"{k_cache.shape}, {v_cache.shape}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
-    return scale, -(-s_max // _build.library().gvl_decode_attention_chunk())
+    return scale, -(-s_max // _build.entry("gvl_decode_attention_chunk")())
 
 
 def _decode_buffers(q: torch.Tensor, n_chunks: int):
@@ -116,17 +116,17 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths,
                                           sm_scale=sm_scale)
-    _build.require_cuda("decode_attention", q, k_cache, v_cache, lengths)
+    index = _build.require_cuda("decode_attention", q, k_cache, v_cache, lengths)
     scale, n_chunks = _check_decode("decode_attention", q, k_cache, v_cache,
                                     lengths, sm_scale)
     out, part_acc, part_ml = _decode_buffers(q, n_chunks)
     batch, num_q_heads, head_dim = q.shape
     _, num_kv_heads, s_max, _ = k_cache.shape
-    err = _build.library().gvl_decode_attention(
+    err = _build.entry("gvl_decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), batch, num_q_heads, num_kv_heads, s_max, head_dim,
-        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -167,7 +167,7 @@ def decode_attention_stacked(
     if q.device.type == "cpu":
         return decode_attention_stacked_reference(q, k_all, v_all, lengths,
                                                   layer, sm_scale=sm_scale)
-    _build.require_cuda("decode_attention_stacked", q, k_all, v_all, lengths)
+    index = _build.require_cuda("decode_attention_stacked", q, k_all, v_all, lengths)
     if k_all.dim() != 5 or not 0 <= int(layer) < k_all.shape[0]:
         raise ValueError(f"decode_attention_stacked: layer {layer} of caches "
                          f"{tuple(k_all.shape)}")
@@ -176,12 +176,12 @@ def decode_attention_stacked(
                                     v_all[0], lengths, sm_scale)
     out, part_acc, part_ml = _decode_buffers(q, n_chunks)
     batch, num_q_heads, head_dim = q.shape
-    err = _build.library().gvl_decode_attention_stacked(
+    err = _build.entry("gvl_decode_attention_stacked")(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), n_layers,
         int(layer), batch, num_q_heads, k_all.shape[2], k_all.shape[3],
         head_dim, scale, _build.DTYPE_CODES[q.dtype],
-        _build.stream_handle(q.device))
+        _build.stream_handle(index))
     _build.check(err, "decode_attention_stacked")
     decode_attention_stacked.launches += 1
     return out
@@ -241,7 +241,7 @@ def chunk_attention(
     if q.device.type == "cpu":
         return chunk_attention_reference(q, k_cache, v_cache, start,
                                          sm_scale=sm_scale)
-    _build.require_cuda("chunk_attention", q, k_cache, v_cache, start)
+    index = _build.require_cuda("chunk_attention", q, k_cache, v_cache, start)
     batch, num_q_heads, seq, head_dim = q.shape
     _, num_kv_heads, s_max, _ = k_cache.shape
     if q.dtype not in _build.DTYPE_CODES:
@@ -260,10 +260,10 @@ def chunk_attention(
                          f"{k_cache.shape}, {v_cache.shape}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
     out = torch.empty_like(q)
-    err = _build.library().gvl_chunk_attention(
+    err = _build.entry("gvl_chunk_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
         out.data_ptr(), batch, num_q_heads, num_kv_heads, seq, s_max, head_dim,
-        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(q.device))
+        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
     _build.check(err, "chunk_attention")
     chunk_attention.launches += 1
     return out

@@ -139,7 +139,7 @@ def w8a8_matmul(
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     operands = [x_q, w_q, scale] + [t for t in (bias, residual) if t is not None]
-    _build.require_cuda("w8a8_matmul", *operands)
+    index = _build.require_cuda("w8a8_matmul", *operands)
     m, k = x_q.shape
     n = w_q.shape[0]
     int8_out = epilogue in ("gelu_quant", "quant")
@@ -157,13 +157,13 @@ def w8a8_matmul(
         raise ValueError("w8a8_matmul: x and w must be 16-byte aligned")
     out = torch.empty(m, n, dtype=torch.int8 if int8_out else out_dtype,
                       device=x_q.device)
-    err = _build.library().gvl_w8a8_matmul(
+    err = _build.entry("gvl_w8a8_matmul")(
         x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         m, n, k, EPILOGUES[epilogue],
         0.0 if out_scale_inv is None else float(out_scale_inv),
-        _build.DTYPE_CODES[out_dtype], _build.stream_handle(x_q.device))
+        _build.DTYPE_CODES[out_dtype], _build.stream_handle(index))
     _build.check(err, "w8a8_matmul")
     w8a8_matmul.launches += 1
     return out
@@ -196,7 +196,7 @@ def ln_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ``ln_quant.launches``."""
     if x.device.type == "cpu":
         return ln_quant_reference(x, gamma, beta, inv_scale, eps=eps)
-    _build.require_cuda("ln_quant", x, gamma, beta)
+    index = _build.require_cuda("ln_quant", x, gamma, beta)
     rows, d = x.shape
     if (x.dtype not in _build.DTYPE_CODES or d % 8 or gamma.shape != (d,)
             or beta.shape != (d,) or gamma.dtype != torch.float32
@@ -206,10 +206,10 @@ def ln_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("ln_quant: x must be 16-byte aligned")
     out = torch.empty(rows, d, dtype=torch.int8, device=x.device)
-    err = _build.library().gvl_ln_quant(
+    err = _build.entry("gvl_ln_quant")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), rows,
         d, float(eps), float(inv_scale), _build.DTYPE_CODES[x.dtype],
-        _build.stream_handle(x.device))
+        _build.stream_handle(index))
     _build.check(err, "ln_quant")
     ln_quant.launches += 1
     return out
@@ -229,16 +229,16 @@ def quant_static(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
     adds one to ``quant_static.launches``."""
     if x.device.type == "cpu":
         return quant_static_reference(x, inv_scale)
-    _build.require_cuda("quant_static", x)
+    index = _build.require_cuda("quant_static", x)
     if x.dtype not in _build.DTYPE_CODES or x.numel() % 8:
         raise ValueError(f"quant_static: needs f32/bf16 with a multiple of 8 "
                          f"elements, got {x.dtype} {tuple(x.shape)}")
     if x.data_ptr() % 16:
         raise ValueError("quant_static: x must be 16-byte aligned")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    err = _build.library().gvl_quant_static(
+    err = _build.entry("gvl_quant_static")(
         x.data_ptr(), out.data_ptr(), x.numel(), float(inv_scale),
-        _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+        _build.DTYPE_CODES[x.dtype], _build.stream_handle(index))
     _build.check(err, "quant_static")
     quant_static.launches += 1
     return out
@@ -362,7 +362,7 @@ def _encoder_attention(name: str, qkv, *, batch, seq_pad, kv_len, num_heads,
                        head_dim, scale, exp2, out_scale_inv, int8_scores=False,
                        block_q=1024):
     """Launch ``csrc/encoder_attention.cu`` (shared by B9, B10 and B12)."""
-    _build.require_cuda(name, qkv)
+    index = _build.require_cuda(name, qkv)
     _split_heads(qkv, batch, seq_pad, num_heads, head_dim)   # raises on a bad shape
     if (qkv.dtype not in _build.DTYPE_CODES or head_dim > MAX_HEAD_DIM
             or head_dim % 8 or not 1 <= kv_len <= seq_pad or qkv.data_ptr() % 16):
@@ -377,12 +377,12 @@ def _encoder_attention(name: str, qkv, *, batch, seq_pad, kv_len, num_heads,
                       dtype=torch.int8 if quant_out else qkv.dtype, device=qkv.device)
     amax = (torch.empty(batch, num_heads, seq_pad // bq + 2, dtype=torch.float32,
                         device=qkv.device) if int8_scores else None)
-    err = _build.library().gvl_encoder_attention(
+    err = _build.entry("gvl_encoder_attention")(
         qkv.data_ptr(), out.data_ptr(), None if amax is None else amax.data_ptr(),
         batch, num_heads, seq_pad, int(kv_len), head_dim, float(scale), int(exp2),
         int(quant_out), float(out_scale_inv) if quant_out else 0.0,
         int(int8_scores), bq, _build.DTYPE_CODES[qkv.dtype],
-        _build.stream_handle(qkv.device))
+        _build.stream_handle(index))
     _build.check(err, name)
     return out
 

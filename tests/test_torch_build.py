@@ -121,6 +121,18 @@ def test_sources_use_plain_c_interface():
         assert f'extern "C" int {name}(' in text
 
 
+def test_signatures_match_the_c_declarations():
+    """ctypes passes what _SIGNATURES declares: a count that differs from
+    the C parameter list would shift every argument after it unnoticed."""
+    import re
+
+    text = "".join(p.read_text() for p in (REPO / "gvl_tpu_torch" / "csrc").glob("*.cu"))
+    for name, argtypes in _build._SIGNATURES.items():
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1).strip()
+        count = 0 if params in ("", "void") else params.count(",") + 1
+        assert count == len(argtypes), name
+
+
 def test_compare_builds_times_one_command_and_per_source(build_dir, monkeypatch):
     calls = []
     monkeypatch.setattr(subprocess, "run", _fake_nvcc(calls))

@@ -15,10 +15,15 @@ import torch
 
 from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+from gvl_tpu_torch.ops import _build
 from gvl_tpu_torch.ops.cache_update import (
     cache_append,
+    cache_append_kv,
+    cache_append_kv_reference,
     cache_append_reference,
     cache_append_stacked,
+    cache_append_stacked_kv,
+    cache_append_stacked_kv_reference,
     cache_append_stacked_reference,
 )
 from gvl_tpu_torch.ops.decode_attention import (
@@ -192,6 +197,167 @@ def test_chunk_attention_reads_only_live_keys(dev):
     assert torch.equal(chunk_attention(q, kc, vc, start), first)
 
 
+def _bits(t):
+    """The tensor's bit patterns, so that NaN compares equal to itself."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _hard_rows(dev, shape, seed):
+    """f32 rows with bf16 rounding ties (low 16 bits 0x8000), one ulp
+    either side of them, NaN, +-inf and the largest f32 (rounds to inf)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    high = torch.randint(0x0080, 0x7F7F, shape, generator=gen, device=dev) << 16
+    low = torch.tensor([0x8000, 0x7FFF, 0x8001, 0x0000], device=dev)[
+        torch.randint(0, 4, shape, generator=gen, device=dev)]
+    sign = torch.randint(0, 2, shape, generator=gen, device=dev) << 31
+    bits = (high | low | sign).to(torch.int64)
+    bits[..., :6] = torch.tensor([0x7FC00000, 0xFFC00001, 0x7F800000, 0xFF800000,
+                                  0x7F7FFFFF, 0x3F808000], device=dev)
+    return (bits - (bits >> 31 << 32)).to(torch.int32).view(torch.float32)
+
+
+@pytest.mark.parametrize("cache_dtype,rows", [(torch.float32, "same"),
+                                              (torch.bfloat16, "same"),
+                                              (torch.bfloat16, "f32_into_bf16")])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layer", [None, 0, 2])
+def test_cache_append_kv_bit_equal_in_place(dev, rows, cache_dtype, d, layer):
+    """One launch writes K and V; bit-equal to the plain version (every
+    other row untouched), in place; positions -1 and S_max write nothing;
+    f32 rows cast in the kernel round as PyTorch's own cast."""
+    s_max, lead = 48, () if layer is None else (3,)
+    k_cache = _randn(dev, *lead, 5, 4, s_max, d, dtype=cache_dtype, seed=40)
+    v_cache = _randn(dev, *lead, 5, 4, s_max, d, dtype=cache_dtype, seed=41)
+    if rows == "same":
+        k_new = _randn(dev, 5, 4, d, dtype=cache_dtype, seed=42)
+        v_new = _randn(dev, 5, 4, d, dtype=cache_dtype, seed=43)
+    else:
+        k_new, v_new = _hard_rows(dev, (5, 4, d), 42), _hard_rows(dev, (5, 4, d), 43)
+    pos = torch.tensor([0, -1, s_max - 1, s_max, 17], dtype=torch.int32, device=dev)
+    ptrs = (k_cache.data_ptr(), v_cache.data_ptr())
+    if layer is None:
+        want = cache_append_kv_reference(k_cache, v_cache, k_new, v_new, pos)
+        counter, before = cache_append, cache_append.launches
+        got = cache_append_kv(k_cache, v_cache, k_new, v_new, pos)
+    else:
+        want = cache_append_stacked_kv_reference(k_cache, v_cache, k_new, v_new, pos, layer)
+        counter, before = cache_append_stacked, cache_append_stacked.launches
+        got = cache_append_stacked_kv(k_cache, v_cache, k_new, v_new, pos, layer)
+    torch.cuda.synchronize()
+    assert got[0] is k_cache and got[1] is v_cache
+    assert (k_cache.data_ptr(), v_cache.data_ptr()) == ptrs
+    assert counter.launches == before + 1
+    for out, ref in zip(got, want):
+        assert torch.equal(_bits(out), _bits(ref))
+    if rows == "f32_into_bf16":
+        assert torch.isnan(k_cache).any() and torch.isinf(v_cache).any()
+
+
+def test_cache_append_launch_lands_on_the_current_stream(dev):
+    """A launch inside torch.cuda.stream(s) waits behind s's work: the
+    default stream does not see the write until s has run."""
+    k_cache = torch.zeros(2, 4, 32, 64, dtype=torch.bfloat16, device=dev)
+    v_cache = torch.zeros_like(k_cache)
+    k_new = torch.ones(2, 4, 64, device=dev)
+    pos = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    # every kernel below loaded once first: loading a kernel at its first
+    # launch can wait for the whole device, and so for `side`
+    torch.cuda._sleep(1000)
+    cache_append_kv(k_cache, v_cache, k_new, k_new, pos)
+    assert k_cache.sum().item() == 2 * 4 * 64
+    k_cache.zero_()
+    v_cache.zero_()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(torch.cuda.current_device()) == side.cuda_stream
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of spinning on `side`
+        cache_append_kv(k_cache, v_cache, k_new, k_new, pos)
+    torch.cuda.current_stream(dev).synchronize()
+    assert k_cache.sum().item() == 0 and not side.query()
+    side.synchronize()
+    assert k_cache.sum().item() == v_cache.sum().item() == 2 * 4 * 64
+
+
+def test_stream_handle_is_the_current_stream(dev):
+    index = torch.cuda.current_device()
+    assert _build.stream_handle(index) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(index) == torch.cuda.current_stream(dev).cuda_stream
+        assert _build.stream_handle(index) == side.cuda_stream
+    graph = torch.cuda.CUDAGraph()
+    handles, counter = [], torch.zeros(1, device=dev)
+    with torch.cuda.graph(graph):
+        handles.append((_build.stream_handle(index),
+                        torch.cuda.current_stream(dev).cuda_stream))
+        counter.add_(1)                  # a graph with one node
+    assert handles[0][0] == handles[0][1]
+    assert handles[0][0] != torch.cuda.default_stream(dev).cuda_stream
+
+
+def test_cache_append_kv_captured_in_a_cuda_graph(dev):
+    """A pair launch captured in a CUDA graph and replayed with new
+    positions and rows writes the rows the positions name."""
+    k_cache = _randn(dev, 2, 5, 64, 64, dtype=torch.bfloat16, seed=44)
+    v_cache = _randn(dev, 2, 5, 64, 64, dtype=torch.bfloat16, seed=45)
+    k_new, v_new = _randn(dev, 2, 5, 64, seed=46), _randn(dev, 2, 5, 64, seed=47)
+    pos = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):                # warm-up outside the capture
+        cache_append_kv(k_cache, v_cache, k_new, v_new, pos)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cache_append_kv(k_cache, v_cache, k_new, v_new, pos)
+    for step, positions in enumerate(([7, 63], [40, 2])):
+        pos.copy_(torch.tensor(positions, dtype=torch.int32, device=dev))
+        k_new.copy_(_randn(dev, 2, 5, 64, seed=50 + step))
+        v_new.copy_(_randn(dev, 2, 5, 64, seed=60 + step))
+        want = cache_append_kv_reference(k_cache, v_cache, k_new, v_new, pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(k_cache, want[0]) and torch.equal(v_cache, want[1])
+
+
+def test_qa_model_caches_bit_equal_through_the_pair_kernel(dev):
+    """The QA model (outputs/qa_lm) after a prompt and 16 decode steps: its
+    K/V caches through the pair kernel equal, bit for bit, those through
+    the scatter route (use_cache_append_kernel=False)."""
+    import dataclasses
+    from pathlib import Path
+
+    from gvl_tpu_torch.models.qwen3 import KVCache, load_model
+    from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
+
+    cfg, state = load_qa_lm(Path(__file__).resolve().parents[1] / "outputs" / "qa_lm",
+                            device=dev)
+    prompt = torch.randint(3, 250, (1, 300), generator=torch.Generator().manual_seed(0))
+    runs = []
+    for use_kernel in (True, False):
+        model = load_model(dataclasses.replace(cfg, use_cache_append_kernel=use_kernel),
+                           state, dev)
+        before = cache_append.launches
+        with torch.inference_mode():
+            cache = KVCache.zeros(cfg, 1, device=dev)
+            logits, _ = model(prompt.to(dev), positions=torch.arange(300, device=dev),
+                              cache=cache)
+            tokens = []
+            for _ in range(16):
+                token = logits[:, -1].argmax(-1)
+                tokens.append(int(token))
+                n = cache.length
+                logits, _ = model(token[:, None], positions=torch.tensor([n], device=dev),
+                                  cache=cache)
+        runs.append((cache, tokens, cache_append.launches - before))
+    (kern, kern_tokens, launches), (plain, plain_tokens, none) = runs
+    assert launches == 16 * cfg.num_layers and none == 0
+    assert kern_tokens == plain_tokens
+    for a, b in zip(kern.k + kern.v, plain.k + plain.v):
+        assert torch.equal(_bits(a), _bits(b))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         wide = _randn(dev, 1, 2, 8, 256)
@@ -220,6 +386,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="layer"):
         cache_append_stacked(k_all, kc[:, :, 0].contiguous(),
                              torch.zeros(1, dtype=torch.int32, device=dev), -1)
+    both = _randn(dev, 2, 1, 2, 16, 64, dtype=torch.bfloat16)
+    row = _randn(dev, 1, 2, 64)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="share memory"):
+        cache_append_kv(both[0], both.view(-1)[64:64 + both[0].numel()].view_as(both[0]),
+                        row, row, pos)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = _randn(dev, 2 * 16 * 64 + 4, dtype=torch.bfloat16)   # 8 bytes off
+        cache_append_kv(flat[4:].view(1, 2, 16, 64), both[1], row, row, pos)
+    with pytest.raises(ValueError, match="f32 into a bf16"):
+        cache_append_kv(both[0].float(), both[1].float(), row.bfloat16(),
+                        row.bfloat16(), pos)
 
 
 @pytest.mark.parametrize("head_dim", [64, 128])

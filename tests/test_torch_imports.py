@@ -42,6 +42,7 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.perception.semantic"):
     assert name in names, name
 import chip_smoke
+import launch_costs
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print(len(names), "modules")
@@ -174,3 +175,11 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_chip_smoke(tmp_path, {"PYTHONPATH": ""})
     assert proc.returncode != 0
     assert "gvl_tpu_torch" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_launch_costs_fails_without_a_card():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "launch_costs.py"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"launch"' not in proc.stdout

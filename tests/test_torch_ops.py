@@ -16,6 +16,7 @@ import torch
 from gvl_tpu.nn.layers import RMSNorm as JaxRMSNorm
 from gvl_tpu.ops.attention import flash_attention as jax_flash
 from gvl_tpu.ops.cache_update import cache_append as jax_cache_append
+from gvl_tpu.ops.cache_update import cache_append_stacked as jax_cache_append_stacked
 from gvl_tpu.ops.decode_attention import decode_attention as jax_decode
 from gvl_tpu.ops.decode_attention import (
     decode_attention_reference as jax_decode_reference,
@@ -24,7 +25,15 @@ from gvl_tpu.ops.rope import apply_rope as jax_apply_rope
 from gvl_tpu.ops.rope import rope_angles as jax_rope_angles
 from gvl_tpu_torch.nn.layers import RMSNorm
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
-from gvl_tpu_torch.ops.cache_update import cache_append, cache_append_reference
+from gvl_tpu_torch.ops.cache_update import (
+    cache_append,
+    cache_append_kv,
+    cache_append_kv_reference,
+    cache_append_reference,
+    cache_append_stacked,
+    cache_append_stacked_kv,
+    cache_append_stacked_kv_reference,
+)
 from gvl_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -189,6 +198,85 @@ def test_cache_append_reference_matches_interpret(dtype):
                                  torch.from_numpy(pos))
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+    # the pair form (one launch on the card) is the plain version applied
+    # to K and to V: each equals the TPU kernel on its own cache
+    v_cache, v_new = _rand(rng, 2, 3, 32, 128), _rand(rng, 2, 3, 128)
+    if dtype == "bfloat16":
+        v_cache, v_new = _bf16(v_cache), _bf16(v_new)
+    want_v = jax_cache_append(jnp.asarray(v_cache, jdt), jnp.asarray(v_new, jdt),
+                              jnp.asarray(pos), interpret=True)
+    got_k, got_v = cache_append_kv(
+        torch.from_numpy(cache).to(tdt), torch.from_numpy(v_cache).to(tdt),
+        torch.from_numpy(new).to(tdt), torch.from_numpy(v_new).to(tdt),
+        torch.from_numpy(pos))
+    np.testing.assert_array_equal(got_k.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(got_v.float().numpy(),
+                                  np.asarray(want_v.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_cache_append_stacked_kv_matches_interpret(dtype, layer):
+    """The stacked pair form against the TPU kernel (interpret mode) on
+    layer 0 and the last layer of K and of V."""
+    rng = np.random.default_rng(6)
+    caches = [_rand(rng, 3, 2, 2, 16, 128) for _ in range(2)]
+    rows = [_rand(rng, 2, 2, 128) for _ in range(2)]
+    pos = np.asarray([15, 4], np.int32)
+    jdt, tdt = jnp.float32, torch.float32
+    if dtype == "bfloat16":
+        caches, rows = [_bf16(c) for c in caches], [_bf16(r) for r in rows]
+        jdt, tdt = jnp.bfloat16, torch.bfloat16
+    got = cache_append_stacked_kv(*(torch.from_numpy(c).to(tdt) for c in caches),
+                                  *(torch.from_numpy(r).to(tdt) for r in rows),
+                                  torch.from_numpy(pos), layer)
+    for cache, new, out in zip(caches, rows, got):
+        want = jax_cache_append_stacked(jnp.asarray(cache, jdt), jnp.asarray(new, jdt),
+                                        jnp.asarray(pos), jnp.int32(layer),
+                                        interpret=True)
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+def _rounding_cases(rng, shape) -> np.ndarray:
+    """f32 rows whose bf16 rounding is hard: ties to even (low 16 bits
+    0x8000, odd and even kept bit), one ulp either side of a tie, NaN,
+    +-inf, the largest f32 (rounds up to inf), -0 and subnormals."""
+    bits = rng.integers(0x0080, 0x7F7F, shape, dtype=np.uint32) << 16
+    bits |= rng.choice(np.array([0x8000, 0x7FFF, 0x8001, 0x0000, 0x1234], np.uint32),
+                       shape)
+    bits[..., :2] |= np.uint32(0x80000000)                    # negative
+    special = np.array([0x7FC00000, 0xFFC00001, 0x7F800000, 0xFF800000, 0x7F7FFFFF,
+                        0x80000000, 0x00008000, 0x00018000, 0x3F808000, 0x3F818000],
+                       np.uint32)
+    bits.reshape(-1, shape[-1])[:, 2:2 + len(special)] = special
+    return bits.view(np.float32)
+
+
+def test_cache_append_kv_casts_f32_rows_like_jax_scatter():
+    """f32 rows into a bf16 cache at head_dim 64 (the QA model's decode
+    write): the port's pair form equals JAX's scatter path, which casts
+    with ``.astype(bfloat16)`` and writes with ``.at[].set``, value for
+    value, at rounding ties, NaN and inf included."""
+    rng = np.random.default_rng(7)
+    caches = [_bf16(_rand(rng, 2, 5, 24, 64)) for _ in range(2)]
+    rows = [_rounding_cases(rng, (2, 5, 64)) for _ in range(2)]
+    pos = np.asarray([0, 23], np.int32)
+    got = cache_append_kv(*(torch.from_numpy(c).bfloat16() for c in caches),
+                          *(torch.from_numpy(r) for r in rows), torch.from_numpy(pos))
+    slot = jnp.arange(2)
+    for cache, new, out in zip(caches, rows, got):
+        want = jnp.asarray(cache, jnp.bfloat16).at[slot, :, jnp.asarray(pos), :].set(
+            jnp.asarray(new).astype(jnp.bfloat16))
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+        # and bit for bit PyTorch's own cast of the rows, NaN kept a NaN
+        written = out[torch.arange(2), :, torch.from_numpy(pos).long()]
+        cast = torch.from_numpy(new).bfloat16()
+        assert torch.equal(written.view(torch.int16), cast.view(torch.int16))
+        assert torch.isnan(written).sum() == np.isnan(new).sum() > 0
 
 
 def test_cache_append_on_cpu_copies_and_drops_out_of_range():
@@ -200,6 +288,59 @@ def test_cache_append_on_cpu_copies_and_drops_out_of_range():
     assert got.data_ptr() != cache.data_ptr() and cache.abs().sum() == 0
     assert got[0, 0, 3].eq(1).all() and got[0, 0, :3].eq(0).all()
     assert got[1].eq(0).all()   # position 4 is past S_max: nothing written
+
+
+def test_pair_forms_on_cpu_write_in_place():
+    """On CPU tensors the pair forms (the model's decode write) make the
+    plain write into the caches themselves, as the kernel does on the card,
+    and equal the plain versions' copies; out-of-range positions drop."""
+    gen = torch.Generator().manual_seed(8)
+    kc, vc = (torch.randn(2, 3, 8, 64, generator=gen).bfloat16() for _ in range(2))
+    rows = [torch.randn(2, 3, 64, generator=gen) for _ in range(2)]
+    pos = torch.tensor([7, 8], dtype=torch.int32)
+    before = kc.clone()
+    want = cache_append_kv_reference(kc, vc, *rows, pos)
+    got = cache_append_kv(kc, vc, *rows, pos)
+    assert got[0] is kc and got[1] is vc
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(kc[0], before[0])
+    assert torch.equal(kc[1], before[1])          # position 8 is past S_max
+    k_all, v_all = (torch.randn(3, 2, 3, 8, 64, generator=gen) for _ in range(2))
+    want = cache_append_stacked_kv_reference(k_all, v_all, *rows, pos, 2)
+    got = cache_append_stacked_kv(k_all, v_all, *rows, pos, 2)
+    assert got[0] is k_all and got[1] is v_all
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_append_wrappers_refuse_what_the_kernel_does_not_take():
+    """Checks that come before any launch, run here on meta tensors."""
+    kc = torch.empty(2, 3, 16, 64, dtype=torch.bfloat16, device="meta")
+    vc = torch.empty_like(kc)
+    rows = torch.empty(2, 3, 64, device="meta")
+    pos = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="one tensor"):
+        cache_append_kv(kc, kc, rows, rows, pos)
+    stacked = kc[None].expand(3, -1, -1, -1, -1)
+    with pytest.raises(ValueError, match="one tensor"):
+        cache_append_stacked_kv(stacked, stacked, rows, rows, pos, 0)
+    with pytest.raises(ValueError, match="f32 into a bf16 cache"):   # bf16 into f32
+        cache_append_kv(kc.float(), vc.float(), rows.bfloat16(), rows.bfloat16(), pos)
+    with pytest.raises(ValueError, match="f32 into a bf16 cache"):   # f32 into f16
+        cache_append(kc.half(), rows, pos)
+    with pytest.raises(ValueError, match="V rows"):
+        cache_append_kv(kc, vc, rows, rows.bfloat16(), pos)
+    with pytest.raises(ValueError, match="V cache"):
+        cache_append_kv(kc, vc[:, :, :8], rows, rows, pos)
+    with pytest.raises(ValueError, match="16-byte words"):      # bf16 rows of 8 bytes
+        cache_append_kv(kc[..., :4], vc[..., :4], rows[..., :4], rows[..., :4], pos)
+    with pytest.raises(ValueError, match="int32"):
+        cache_append_kv(kc, vc, rows, rows, pos.long())
+    with pytest.raises(ValueError, match="layer"):
+        cache_append_stacked_kv(stacked, stacked.clone(), rows, rows, pos, 3)
+    with pytest.raises(ValueError, match=r"\[L, B, Hkv, S_max, D\]"):
+        cache_append_stacked(kc, rows, pos, 0)
+    with pytest.raises(ValueError, match="CUDA"):                   # well formed
+        cache_append_kv(kc, vc, rows, rows, pos)
 
 
 def test_wrappers_refuse_other_devices():

@@ -97,24 +97,54 @@ def test_tiny_greedy_tokens_identical(head_dim):
     assert got == want and len(got) == 8
 
 
-@pytest.mark.parametrize("head_dim,appends", [(16, 0), (128, 2 * 2 * 8)])
+@pytest.mark.parametrize("head_dim,appends", [(4, 0), (16, 2 * 8), (128, 2 * 8)])
 def test_cache_append_branch_only_at_head_dim_128(monkeypatch, head_dim, appends):
-    """qwen3.py:283 takes the cache_append kernel for d % 128 == 0 only."""
+    """The JAX model (qwen3.py:283) takes its append kernel for d % 128 == 0
+    only, the TPU's lane width; the port takes its pair kernel wherever the
+    Hopper kernel takes the row: a multiple of 16 bytes (bf16 cache: d 16
+    and 128, not d 4), K and V in one call per layer."""
     _, tcfg, _, state = _tiny_pair(head_dim=head_dim)
     calls = []
-    real = port.cache_append
+    real = port.cache_append_kv
 
-    def counting(cache, new, positions):
+    def counting(k_cache, v_cache, k_new, v_new, positions):
         calls.append(int(positions[0]))
-        return real(cache, new, positions)
+        return real(k_cache, v_cache, k_new, v_new, positions)
 
-    monkeypatch.setattr(port, "cache_append", counting)
+    monkeypatch.setattr(port, "cache_append_kv", counting)
     port.Qwen3Engine(tcfg, state, eos_token_id=-1, device="cpu").generate(
         [1, 2, 3], max_new_tokens=8, temperature=0.0)
-    # 2 layers x (k, v) x 8 decode steps, written at positions 3 .. 10
+    # 2 layers x 8 decode steps, written at positions 3 .. 10
     assert len(calls) == appends
     if appends:
         assert sorted(set(calls)) == list(range(3, 11))
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_qa_shaped_decode_writes_one_pair_per_layer(monkeypatch, cache_dtype):
+    """A QA-shaped model (head_dim 64, f32 weights, the QA model's 2:1
+    heads) gives JAX's greedy tokens; every decode step writes each layer's
+    K and V through one pair call, f32 rows into a bf16 cache included."""
+    kw = dict(head_dim=64, num_heads=4, num_kv_heads=2, hidden_size=128, num_layers=3)
+    jcfg, tcfg, params, state = _tiny_pair(**kw)
+    want = JaxEngine(jcfg, params, eos_token_id=-1, dtype=getattr(jnp, cache_dtype)).generate(
+        [5, 9, 2, 7], max_new_tokens=10, temperature=0.0)
+    calls = []
+    real = port.cache_append_kv
+
+    def counting(k_cache, v_cache, k_new, v_new, positions):
+        calls.append((k_new.dtype, k_cache.dtype, int(positions[0])))
+        return real(k_cache, v_cache, k_new, v_new, positions)
+
+    monkeypatch.setattr(port, "cache_append_kv", counting)
+    got = port.Qwen3Engine(tcfg, state, eos_token_id=-1, device="cpu",
+                           dtype=getattr(torch, cache_dtype)).generate(
+        [5, 9, 2, 7], max_new_tokens=10, temperature=0.0)
+    assert got == want and len(got) == 10
+    # 3 layers x 10 decode steps, f32 rows uncast, at positions 4 .. 13
+    assert len(calls) == 3 * 10
+    assert {c[:2] for c in calls} == {(torch.float32, getattr(torch, cache_dtype))}
+    assert sorted({c[2] for c in calls}) == list(range(4, 14))
 
 
 def test_engine_bucket_and_eos_stop():

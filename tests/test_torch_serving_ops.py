@@ -242,23 +242,24 @@ def test_scan_layers_logits_match_jax(head_dim):
 
 
 def test_stacked_decode_runs_the_stacked_forms(monkeypatch):
-    """scan_layers + head_dim 128 + one token: each layer appends into and
-    reads from the stacked cache by layer index; head_dim 16 does not."""
+    """scan_layers + head_dim 128 + one token: each layer appends K and V
+    into the stacked caches in one call and reads them by layer index;
+    head_dim 16 does not."""
     calls = []
-    real_append, real_decode = port.cache_append_stacked, port.decode_attention_stacked
+    real_append, real_decode = port.cache_append_stacked_kv, port.decode_attention_stacked
 
-    def append(cache, new, positions, layer):
+    def append(k_cache, v_cache, k_new, v_new, positions, layer):
         calls.append(("append", layer))
-        return real_append(cache, new, positions, layer)
+        return real_append(k_cache, v_cache, k_new, v_new, positions, layer)
 
     def decode(q, k_all, v_all, lengths, layer):
         calls.append(("decode", layer))
         return real_decode(q, k_all, v_all, lengths, layer)
 
-    monkeypatch.setattr(port, "cache_append_stacked", append)
+    monkeypatch.setattr(port, "cache_append_stacked_kv", append)
     monkeypatch.setattr(port, "decode_attention_stacked", decode)
-    for head_dim, expect in [(128, [("append", 0), ("append", 0), ("decode", 0),
-                                    ("append", 1), ("append", 1), ("decode", 1)]),
+    for head_dim, expect in [(128, [("append", 0), ("decode", 0),
+                                    ("append", 1), ("decode", 1)]),
                              (16, [])]:
         calls.clear()
         _, tcfg, _, state = _pair(head_dim=head_dim, scan_layers=True)
