@@ -145,25 +145,6 @@ __device__ __forceinline__ void store_pair(void* __restrict__ out, size_t idx, f
   }
 }
 
-// 2^x with one MUFU.EX2: exp2f without its rescaling for results under
-// 2^-126, which are flushed to 0 (a softmax weight that small rounds to 0
-// in the P V sum either way)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // bf16 (one product) or f32 (hi/lo split, three products) qkv, heads up to
 // kD wide.  Each warp owns kM m-tiles of 16 query rows (a block 64 kM
 // rows), so every K and V fragment read from shared memory feeds kM

@@ -9,9 +9,10 @@ as much as the kernel; this script reads the device's own kernel durations
 from ``torch.profiler`` (CUPTI) instead:
 
 1. each port kernel's device time per launch at the shapes the served models
-   give it (QA prefill at 4096 tokens, QA decode at 3072 live rows, one 8B
-   cache row, a QA admission chunk of 2048 tokens, the 8B scan-layers decode
-   of 4 slots);
+   give it (QA prefill at 4096 tokens, the 8B prefill of 128 tokens, the
+   bf16 so400m tower's attention and its MAP head, QA decode at 3072 live
+   rows, one 8B cache row, a QA admission chunk of 2048 tokens, the 8B
+   scan-layers decode of 4 slots);
 2. for greedy decode of one held-out QA prompt (seed 1234) and of the 8B
    layer geometry at depth 4: wall time per step (host clock, no profiler),
    device kernel time per step (profiler), their ratio (the device's busy
@@ -313,19 +314,28 @@ def kernel_profile(dev) -> dict:
     q4 = randn(4, 32, 128, dtype=torch.bfloat16)
     lens4 = torch.tensor([129, 134, 140, 144], dtype=torch.int32, device=dev)
     rows4 = randn(4, 8, 128, dtype=torch.bfloat16)
+    q8, k8 = randn(1, 32, 128, 128, dtype=torch.bfloat16), randn(1, 8, 128, 128,
+                                                                 dtype=torch.bfloat16)
+    qs, ks = (randn(8, 16, 729, 72, dtype=torch.bfloat16) for _ in range(2))
+    probe = randn(8, 16, 1, 72, dtype=torch.bfloat16)
     kernels = {
         "flash_attention": kernel_device_ms(
             lambda: flash_attention(q, k, v, causal=True), ("flash_attention_kernel",), 20),
+        "flash_attention 8B bf16 S128": kernel_device_ms(
+            lambda: flash_attention(q8, k8, k8, causal=True), ("flash_attention_kernel",)),
+        "flash_attention so400m bf16 [8,16,729,72]": kernel_device_ms(
+            lambda: flash_attention(qs, ks, ks), ("flash_attention_kernel",), 20),
+        "flash_attention MAP head [8,16,1,72] over 729": kernel_device_ms(
+            lambda: flash_attention(probe, ks, ks), ("flash_attention_kernel",)),
         "decode_attention": kernel_device_ms(
-            lambda: decode_attention(qd, kc, vc, lengths),
-            ("decode_partial_kernel", "decode_combine_kernel")),
+            lambda: decode_attention(qd, kc, vc, lengths), ("decode_attention_kernel",)),
         "cache_append": kernel_device_ms(
             lambda: cache_append(cache, row, pos), ("cache_append_kernel",)),
         "chunk_attention": kernel_device_ms(
             lambda: chunk_attention(qc, kc, vc, start), ("chunk_attention_kernel",), 20),
         "decode_attention_stacked": kernel_device_ms(
             lambda: decode_attention_stacked(q4, k_all, v_all, lens4, 2),
-            ("decode_partial_kernel", "decode_combine_kernel")),
+            ("decode_attention_kernel",)),
         "cache_append_stacked": kernel_device_ms(
             lambda: cache_append_stacked(k_all, rows4, lens4 - 1, 2),
             ("cache_append_kernel",)),

@@ -3,14 +3,16 @@
     python -m gvl_tpu_torch.kernel_ablation
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``.
-For ``csrc/encoder_attention.cu`` and ``csrc/chunk_attention.cu`` it builds
-the committed source and copies of it with one design choice undone (a
-text edit, :data:`VARIANTS`), each into its own library under
-``gvl_tpu_torch/_build/ablation/``, then calls their C entry points in
-turns (every variant, then every variant again in reverse order; the
-lower time is kept) with CUDA events around back-to-back calls, at the
-so400m frames shape (B9, B10; 8 frames, Sp 736) and the chunk shapes of
-the served QA model and 8B geometry.  Each output is held against the
+For each tensor-core attention source (``csrc/encoder_attention.cu``,
+``chunk_attention.cu``, ``decode_attention.cu``, ``flash_attention.cu``)
+it builds the committed source and copies of it with
+one design choice undone (a text edit, :data:`VARIANTS`), each into its own
+library under ``gvl_tpu_torch/_build/ablation/``, then calls their C entry
+points in turns (every variant, then every variant again in reverse order;
+the lower time is kept) with CUDA events around back-to-back calls, at the
+so400m frames shape (B9, B10; 8 frames, Sp 736), the chunk, decode and
+prefill shapes of the served QA model and 8B geometry, and the bf16 so400m
+tower's attention.  Each output is held against the
 plain version: int8 outputs by their largest step and the share of
 elements that differ, the others by their largest absolute difference.
 Prints one JSON object as its last line.
@@ -58,6 +60,26 @@ VARIANTS = {
         "row tiles in order (longest last)": [
             ("  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;",
              "  const int r0 = blockIdx.x * kRows;")],
+    },
+    "decode_attention.cu": {
+        "one block per (slot, KV head): no cluster split": [
+            ("constexpr int kSplit = 8;", "constexpr int kSplit = 1;")],
+        "expf for every weight (not one ex2.approx)": [
+            ("        const float ex = exp2_ftz(s[p][g] - m_new);",
+             "        const float ex = expf((s[p][g] - m_new) * 0.6931471805599453f);")],
+    },
+    "flash_attention.cu": {
+        "one m-tile per warp": [
+            ("struct Tiles<float, 64> { static constexpr int kM = 2,",
+             "struct Tiles<float, 64> { static constexpr int kM = 1,"),
+            ("struct Tiles<__nv_bfloat16, 128> { static constexpr int kM = 2,",
+             "struct Tiles<__nv_bfloat16, 128> { static constexpr int kM = 1,")],
+        "one key group at f32 D 64 (4 warps per SM)": [
+            ("struct Tiles<float, 64> { static constexpr int kM = 2, kBK = 64, kSt = 2, kGroups = 2; };",
+             "struct Tiles<float, 64> { static constexpr int kM = 2, kBK = 64, kSt = 2, kGroups = 1; };")],
+        "expf for every weight (not one ex2.approx)": [
+            ("          const float ex = exp2_ftz(s[mt][n][e] - m[mt][e >> 1]);",
+             "          const float ex = expf((s[mt][n][e] - m[mt][e >> 1]) * 0.6931471805599453f);")],
     },
 }
 BASE = "as committed"
@@ -178,6 +200,79 @@ def chunk_cases(dev):
     return cases
 
 
+def decode_cases(dev):
+    from gvl_tpu_torch.ops.decode_attention import decode_attention_reference
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, batch, hq, hkv, s_max, d, dtype, lens in (
+            ("QA decode: f32 q [1,10,64], bf16 cache [1,5,4608,64], length 3072",
+             1, 10, 5, 4608, 64, torch.float32, [3072]),
+            ("8B decode: bf16 q [4,32,128], bf16 cache [4,8,1024,128], lengths 129-144",
+             4, 32, 8, 1024, 128, torch.bfloat16, [129, 134, 140, 144])):
+        q = torch.randn(batch, hq, d, generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn(batch, hkv, s_max, d, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = decode_attention_reference(q, kc, vc, lengths)
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, q=q, kc=kc, vc=vc, lengths=lengths, out=out, batch=batch, hq=hq,
+                hkv=hkv, s_max=s_max, d=d):
+            err = lib.gvl_decode_attention(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                           lengths.data_ptr(), out.data_ptr(), batch, hq,
+                                           hkv, s_max, d, 1.0 / math.sqrt(d),
+                                           _build.DTYPE_CODES[q.dtype], stream)
+            if err:
+                raise RuntimeError(f"gvl_decode_attention returned {err}")
+
+        def check(out=out, want=want):
+            return f"max abs err {(out.float() - want.float()).abs().max().item():.3g}"
+
+        cases[label] = (run, check)
+    return cases
+
+
+def flash_cases(dev):
+    from gvl_tpu_torch.ops.attention import attention_reference
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, batch, hq, hkv, seq, d, dtype, causal in (
+            ("QA prefill: f32 [1,10,4096,64], 5 KV heads, causal",
+             1, 10, 5, 4096, 64, torch.float32, True),
+            ("so400m tower: bf16 [8,16,729,80] (72 padded)", 8, 16, 16, 729, 80,
+             torch.bfloat16, False),
+            ("8B prefill: bf16 [1,32,128,128], 8 KV heads, causal", 1, 32, 8, 128, 128,
+             torch.bfloat16, True)):
+        q = torch.randn(batch, hq, seq, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(batch, hkv, seq, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        want = attention_reference(q, k, v, causal=causal)
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, q=q, k=k, v=v, out=out, batch=batch, hq=hq, hkv=hkv, seq=seq, d=d,
+                causal=causal):
+            err = lib.gvl_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), batch, hq, hkv, seq, seq, d, seq,
+                                          int(causal), 1.0 / math.sqrt(d),
+                                          _build.DTYPE_CODES[q.dtype], stream)
+            if err:
+                raise RuntimeError(f"gvl_flash_attention returned {err}")
+
+        def check(out=out, want=want):
+            return f"max abs err {(out.float() - want.float()).abs().max().item():.3g}"
+
+        cases[label] = (run, check)
+    return cases
+
+
+CASES = {"encoder_attention.cu": encoder_cases, "chunk_attention.cu": chunk_cases,
+         "decode_attention.cu": decode_cases, "flash_attention.cu": flash_cases}
+
+
 def main() -> dict:
     dev = torch.device("cuda", 0)
     if not torch.cuda.is_available():
@@ -186,8 +281,8 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     result = {"device": smi}
-    for source, cases in (("encoder_attention.cu", encoder_cases(dev)),
-                          ("chunk_attention.cu", chunk_cases(dev))):
+    for source, make_cases in CASES.items():
+        cases = make_cases(dev)
         libs = {BASE: build_variant(source, BASE, [])}
         libs.update({name: build_variant(source, name, edits)
                      for name, edits in VARIANTS[source].items()})

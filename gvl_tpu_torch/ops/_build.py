@@ -42,9 +42,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VOID_P, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gvl_flash_attention": [_VOID_P] * 4 + [_INT] * 8 + [_FLOAT, _INT, _VOID_P],
-    "gvl_decode_attention": [_VOID_P] * 7 + [_INT] * 5 + [_FLOAT, _INT, _VOID_P],
-    "gvl_decode_attention_chunk": [],
-    "gvl_decode_attention_stacked": [_VOID_P] * 7 + [_INT] * 7 + [_FLOAT, _INT, _VOID_P],
+    "gvl_decode_attention": [_VOID_P] * 5 + [_INT] * 5 + [_FLOAT, _INT, _VOID_P],
+    "gvl_decode_attention_split": [],
+    "gvl_decode_attention_stacked": [_VOID_P] * 5 + [_INT] * 7 + [_FLOAT, _INT, _VOID_P],
     "gvl_chunk_attention": [_VOID_P] * 5 + [_INT] * 6 + [_FLOAT, _INT, _VOID_P],
     "gvl_cache_append": [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P],
     "gvl_cache_append_stacked": [_VOID_P] * 5 + [_INT] * 7 + [_VOID_P],

@@ -7,7 +7,10 @@ its kernel on CUDA tensors and runs its plain version on CPU tensors:
 - :func:`decode_attention` (``csrc/decode_attention.cu``) replaces the TPU
   kernel ``gvl_tpu/ops/decode_attention.py:decode_attention``: q
   ``[B, Hq, D]`` (one token per slot) over caches ``[B, Hkv, S_max, D]``,
-  lengths ``[B]`` (keys ``0 .. lengths[b] - 1`` are attended);
+  lengths ``[B]`` (keys ``0 .. lengths[b] - 1`` are attended).  One launch
+  per call: a thread-block cluster per (slot, KV head) splits the live
+  prefix and merges in shared memory, so the wrapper allocates only the
+  output;
 - :func:`decode_attention_stacked` (the same source, its own entry point)
   replaces ``decode_attention_stacked``: the same over layer ``layer`` of
   caches stacked over layers, ``[L, B, Hkv, S_max, D]``;
@@ -63,12 +66,13 @@ def decode_attention_reference(
     return out.reshape(batch, num_q_heads, head_dim).to(q.dtype)
 
 
-def _check_decode(name: str, q, k_cache, v_cache, lengths,
-                  sm_scale) -> tuple[float, int]:
-    """Raise unless the decode kernel takes these operands (one layer's
-    caches); returns the softmax scale and the number of key chunks."""
+def _check_decode(name: str, q, k_cache, v_cache, lengths, sm_scale,
+                  dims: int = 4) -> tuple:
+    """Raise unless the decode kernel takes these operands: caches of one
+    layer, ``[B, Hkv, S_max, D]``, or with ``dims`` 5 stacked over layers,
+    ``[L, B, Hkv, S_max, D]``.  Returns the kernel's arguments after the
+    pointers (and the layers): ``(B, Hq, Hkv, S_max, D, scale, q_dtype)``."""
     batch, num_q_heads, head_dim = q.shape
-    _, num_kv_heads, s_max, _ = k_cache.shape
     if q.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"{name}: q must be f32 or bf16, got {q.dtype}")
     if k_cache.dtype != torch.bfloat16 or v_cache.dtype != torch.bfloat16:
@@ -77,25 +81,15 @@ def _check_decode(name: str, q, k_cache, v_cache, lengths,
     if lengths.dtype != torch.int32 or lengths.shape != (batch,):
         raise ValueError(f"{name}: lengths must be int32 [{batch}],"
                          f" got {lengths.dtype} {tuple(lengths.shape)}")
-    if (head_dim not in HEAD_DIMS or k_cache.shape[0] != batch
-            or k_cache.shape[-1] != head_dim or v_cache.shape != k_cache.shape
-            or num_q_heads % num_kv_heads
-            or num_q_heads // num_kv_heads > MAX_GROUP):
+    shape = k_cache.shape
+    if (len(shape) != dims or v_cache.shape != shape or shape[-4] != batch
+            or shape[-1] != head_dim or head_dim not in HEAD_DIMS
+            or num_q_heads % shape[-3] or num_q_heads // shape[-3] > MAX_GROUP):
         raise ValueError(f"{name}: unsupported shapes {q.shape}, "
                          f"{k_cache.shape}, {v_cache.shape}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
-    return scale, -(-s_max // _build.entry("gvl_decode_attention_chunk")())
-
-
-def _decode_buffers(q: torch.Tensor, n_chunks: int):
-    """The output and the split-KV scratch of one decode launch."""
-    batch, num_q_heads, head_dim = q.shape
-    out = torch.empty_like(q)
-    part_acc = torch.empty(batch, num_q_heads, n_chunks, head_dim,
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(batch, num_q_heads, n_chunks, 2,
-                          dtype=torch.float32, device=q.device)
-    return out, part_acc, part_ml
+    return (batch, num_q_heads, shape[-3], shape[-2], head_dim, scale,
+            _build.DTYPE_CODES[q.dtype])
 
 
 def decode_attention(
@@ -110,23 +104,20 @@ def decode_attention(
 
     The kernel takes an f32 or bf16 query against a bf16 cache, head_dim
     64 or 128, at most 8 query heads per KV head, int32 lengths and
-    contiguous tensors; anything else raises.  Each call adds one to
-    ``decode_attention.launches``.
+    contiguous tensors; anything else raises.  A slot of length 0 gives 0
+    on the card (the plain version, as JAX's reference, the mean of the
+    values).  Each call adds one to ``decode_attention.launches``.
     """
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return decode_attention_reference(q, k_cache, v_cache, lengths,
                                           sm_scale=sm_scale)
     index = _build.require_cuda("decode_attention", q, k_cache, v_cache, lengths)
-    scale, n_chunks = _check_decode("decode_attention", q, k_cache, v_cache,
-                                    lengths, sm_scale)
-    out, part_acc, part_ml = _decode_buffers(q, n_chunks)
-    batch, num_q_heads, head_dim = q.shape
-    _, num_kv_heads, s_max, _ = k_cache.shape
+    args = _check_decode("decode_attention", q, k_cache, v_cache, lengths,
+                         sm_scale)
+    out = torch.empty_like(q)
     err = _build.entry("gvl_decode_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), batch, num_q_heads, num_kv_heads, s_max, head_dim,
-        scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
+        lengths.data_ptr(), out.data_ptr(), *args, _build.stream_handle(index))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -164,24 +155,20 @@ def decode_attention_stacked(
     ``decode_attention_stacked.launches``.  CPU tensors take the plain
     version.
     """
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return decode_attention_stacked_reference(q, k_all, v_all, lengths,
                                                   layer, sm_scale=sm_scale)
     index = _build.require_cuda("decode_attention_stacked", q, k_all, v_all, lengths)
-    if k_all.dim() != 5 or not 0 <= int(layer) < k_all.shape[0]:
+    layer = int(layer)
+    if k_all.dim() != 5 or not 0 <= layer < k_all.shape[0]:
         raise ValueError(f"decode_attention_stacked: layer {layer} of caches "
                          f"{tuple(k_all.shape)}")
-    n_layers = k_all.shape[0]
-    scale, n_chunks = _check_decode("decode_attention_stacked", q, k_all[0],
-                                    v_all[0], lengths, sm_scale)
-    out, part_acc, part_ml = _decode_buffers(q, n_chunks)
-    batch, num_q_heads, head_dim = q.shape
+    args = _check_decode("decode_attention_stacked", q, k_all, v_all, lengths,
+                         sm_scale, dims=5)
+    out = torch.empty_like(q)
     err = _build.entry("gvl_decode_attention_stacked")(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), n_layers,
-        int(layer), batch, num_q_heads, k_all.shape[2], k_all.shape[3],
-        head_dim, scale, _build.DTYPE_CODES[q.dtype],
-        _build.stream_handle(index))
+        out.data_ptr(), k_all.shape[0], layer, *args, _build.stream_handle(index))
     _build.check(err, "decode_attention_stacked")
     decode_attention_stacked.launches += 1
     return out

@@ -169,8 +169,8 @@ def launch_costs(dev) -> dict:
     qc16 = qc.to(bf16)
     calls = {
         # the pieces of a launch, down to its floors
-        "ctypes call, no argument (gvl_decode_attention_chunk)":
-            lib.gvl_decode_attention_chunk,
+        "ctypes call, no argument (gvl_decode_attention_split)":
+            lib.gvl_decode_attention_split,
         "empty kernel launch, ctypes, stream handle given":
             lambda: empty_launch(stream),
         "empty kernel launch with the raw stream handle looked up":

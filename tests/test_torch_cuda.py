@@ -7,12 +7,14 @@ These tests need an NVIDIA card with nvcc (sm_90a) and skip elsewhere:
 (``--noconftest``: tests/conftest.py imports JAX, which the port does not need.)
 
 Tolerances: f32 1e-4 (sums in another order); bf16 2e-2 absolute and
-relative (the softmax weights and outputs round to bf16 at other places).
+relative (the softmax weights and outputs round to bf16 at other places);
+decode attention chip_smoke.py's ``decode_tol``, tied to the output's size.
 """
 
 import pytest
 import torch
 
+from chip_smoke import decode_tol
 from gvl_tpu_torch.models.qwen3 import Qwen3Config, Qwen3Engine, init_params
 from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
 from gvl_tpu_torch.ops import _build
@@ -39,6 +41,15 @@ pytestmark = pytest.mark.cuda
 
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _assert_decode_close(got, want):
+    """chip_smoke.py's limit for decode attention: atol a share of each
+    slot's largest |value|, rtol two bf16 steps (the outputs are weighted
+    means far below BF16_TOL's atol)."""
+    atol, rtol = decode_tol(want)
+    err = (got.float() - want.float()).abs()
+    assert (err <= atol + rtol * want.float().abs()).all(), err.max().item()
 
 
 @pytest.fixture
@@ -80,7 +91,7 @@ def test_decode_attention_matches_plain(dev, qdtype, d, hq, hkv):
     vc = _randn(dev, 6, hkv, s_max, d, dtype=torch.bfloat16, seed=6)
     got = decode_attention(q, kc, vc, lengths)
     want = decode_attention_reference(q, kc, vc, lengths)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _assert_decode_close(got, want)
     assert got.dtype == qdtype
 
 
@@ -119,7 +130,7 @@ def test_decode_attention_stacked_matches_plain(dev, qdtype, d, hq, hkv, layer):
     before = decode_attention_stacked.launches
     got = decode_attention_stacked(q, k_all, v_all, lengths, layer)
     want = decode_attention_stacked_reference(q, k_all, v_all, lengths, layer)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _assert_decode_close(got, want)
     assert decode_attention_stacked.launches == before + 1 and got.dtype == qdtype
     # the same numbers as the one-layer kernel on that layer
     assert torch.equal(got, decode_attention(q, k_all[layer].contiguous(),
@@ -756,3 +767,263 @@ def test_chunk_attention_f32_query_keeps_f32_scores(dev):
     assert err.mean().item() <= min(1e-5, err_unsplit / 20), (err.mean().item(),
                                                               err_unsplit)
     assert err.max().item() <= 2.0 ** -7 * v64.abs().max().item(), err.max().item()
+
+
+# ---------------------------------------------- flash attention on tensor cores
+
+def _flash_case(dev, dtype, d, hq, hkv, sq, sk, seed, batch=2):
+    q = _randn(dev, batch, hq, sq, d, dtype=dtype, seed=seed)
+    k = _randn(dev, batch, hkv, sk, d, dtype=dtype, seed=seed + 1)
+    v = _randn(dev, batch, hkv, sk, d, dtype=dtype, seed=seed + 2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,kv_len", [
+    *[(4, 2, s, s, c, None) for s in (1, 63, 64, 65, 127, 128, 129) for c in (False, True)],
+    (10, 5, 4096, 4096, True, None),                      # the QA prefill bucket
+    *[(4, 4, 100, 100, c, kv) for kv in (1, 63, 64, 65) for c in (False, True)],
+    (4, 2, 70, 200, True, None), (8, 2, 200, 70, True, None),   # non-square causal
+    (8, 1, 129, 129, True, 100),                          # G 8, kv_len inside a tile
+    (12, 4, 65, 65, True, None),                          # G 3
+])
+def test_flash_attention_tile_edges(dev, dtype, d, hq, hkv, sq, sk, causal, kv_len):
+    """Sequences at and around the 64-key tiles and the block's 128 (f32 D
+    128: 64) rows, at each head size the kernel is built for, kv_len
+    around a tile, non-square causal masks (top-left aligned, as
+    attention_reference), against the plain version."""
+    q, k, v = _flash_case(dev, dtype, d, hq, hkv, sq, sk, seed=70, batch=1 if sq > 1000 else 2)
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = attention_reference(q, k, v, causal=causal, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kv_len_0_gives_0(dev, dtype, causal):
+    """No live key: the kernel gives 0 (ROADMAP C, "Rows with no live
+    key"; the plain version, as JAX's reference, the mean of v)."""
+    q, k, v = _flash_case(dev, dtype, 64, 4, 2, 65, 65, seed=73)
+    got = flash_attention(q, k, v, causal=causal, kv_len=0)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_map_head_shape(dev, dtype):
+    """The SigLIP MAP head: one query row over 729 keys, head_dim 72
+    (padded to 80 by the wrapper), 16 heads."""
+    q = _randn(dev, 8, 16, 1, 72, dtype=dtype, seed=76)
+    k = _randn(dev, 8, 16, 729, 72, dtype=dtype, seed=77)
+    v = _randn(dev, 8, 16, 729, 72, dtype=dtype, seed=78)
+    got = flash_attention(q, k, v)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_ignores_keys_past_kv_len(dev, dtype, d, causal):
+    q, k, v = _flash_case(dev, dtype, d, 4, 2, 150, 150, seed=79)
+    first = flash_attention(q, k, v, causal=causal, kv_len=97)
+    k[:, :, 97:] = float("nan")
+    v[:, :, 97:] = float("nan")
+    assert torch.equal(flash_attention(q, k, v, causal=causal, kv_len=97), first)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_f32_against_f64(dev, causal):
+    """f32 q, k, v are split into bf16 hi + lo and q k^T and P V each take
+    hi.hi + hi.lo + lo.hi, so the kernel keeps f32-level error.  Held
+    against an f64 evaluation of the same math (for f32 the softmax weights
+    are not rounded, so the f64 softmax is the exact target), at 200 keys
+    (four 64-key tiles: the online rescale is exercised):
+    - the split leaves |x - hi - lo| <= 2**-18 |x| and drops lo.lo <= 2**-18
+      |x||y|, so each product is within ~2**-17 relative and a 64-term score
+      within ~1e-5 absolute before the scale; mean |error| at most 1e-5, and
+      at most 1/20 of the same kernel's on inputs rounded to bf16 (lo = 0),
+      which carries bf16's 2**-9 relative error (~5e-4);
+    - max |error| at most 1e-4, the f32 tolerance of the other tests: a score
+      error e moves a weight by a factor exp(e) ~ 1 + e, so the output by at
+      most ~e max|v| ~ 5e-5."""
+    q, k, v = _flash_case(dev, torch.float32, 64, 4, 2, 200, 200, seed=82)
+
+    def f64(q, k, v):
+        kk, vv = (t.double().repeat_interleave(2, dim=1) for t in (k, v))
+        s = torch.matmul(q.double(), kk.transpose(-1, -2)) / 8.0
+        if causal:
+            s = s.masked_fill(torch.ones(200, 200, dtype=torch.bool, device=dev).triu(1),
+                              float("-inf"))
+        return torch.matmul(torch.softmax(s, dim=-1), vv)
+
+    want = f64(q, k, v)
+    err = (flash_attention(q, k, v, causal=causal).double() - want).abs()
+    rounded = [t.to(torch.bfloat16).float() for t in (q, k, v)]
+    err_unsplit = (flash_attention(*rounded, causal=causal).double() - want).abs().mean().item()
+    assert err.mean().item() <= min(1e-5, err_unsplit / 20), (err.mean().item(), err_unsplit)
+    assert err.max().item() <= 1e-4, err.max().item()
+
+
+# ------------------------------------ decode attention: one launch per call
+
+def _share_edge_lengths(s_max, split):
+    """0, 1, 63, 64, 65, S_max, and lengths whose block shares under a split
+    of ``split`` blocks (ceil(len / split) keys a block) are 1 or 2 keys, end
+    on an edge of the per-warp tiles (16 keys at D 64, 8 at D 128) or of a
+    round of the block's four warps, or go one key past one, with the last
+    blocks of the cluster full, short or empty."""
+    lengths = {0, 1, 63, 64, 65, s_max}
+    for share in (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128, 129):
+        for n in (split * share - 1, split * share, split * share + 1,
+                  (split - 3) * share + 1):
+            if 0 < n <= s_max:
+                lengths.add(n)
+    return sorted(lengths)
+
+
+def _library_split() -> int:
+    """Blocks per (slot, KV head) of the built kernel: one thread-block
+    cluster, at most the portable 8."""
+    split = _build.entry("gvl_decode_attention_split")()
+    assert 1 <= split <= 8, split
+    return split
+
+
+def test_share_edge_lengths_cover_the_split():
+    for split in (2, 4, 8):
+        lengths = _share_edge_lengths(1100, split)
+        shares = [-(-n // split) for n in lengths]
+        assert any(n - (split - 1) * sh <= 0 < n for n, sh in zip(lengths, shares))  # empty last
+        for edge in (8, 16, 64):
+            assert any(sh == edge and n == split * sh for n, sh in zip(lengths, shares))
+            assert any(sh == edge + 1 for sh in shares)                  # one key past
+        assert 0 in lengths and 1100 in lengths
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+def test_decode_attention_split_edges(dev, qdtype, d, group):
+    """One slot per length of _share_edge_lengths: every block-share
+    boundary of the cluster's split, for G 1, 2, 3 (rounded up to 4 in the
+    kernel), 4 and 8; a length-0 slot gives 0; NaN past each slot's length
+    leaves the output bit for bit unchanged."""
+    s_max, hkv = 1100, 2
+    lengths = torch.tensor(_share_edge_lengths(s_max, _library_split()), dtype=torch.int32,
+                           device=dev)
+    batch = lengths.numel()
+    q = _randn(dev, batch, group * hkv, d, dtype=qdtype, seed=85)
+    kc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=86)
+    vc = _randn(dev, batch, hkv, s_max, d, dtype=torch.bfloat16, seed=87)
+    got = decode_attention(q, kc, vc, lengths)
+    live = lengths > 0
+    _assert_decode_close(got[live], decode_attention_reference(q, kc, vc, lengths)[live])
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    for b, n in enumerate(lengths.tolist()):
+        kc[b, :, n:] = float("nan")
+        vc[b, :, n:] = float("nan")
+    assert torch.equal(decode_attention(q, kc, vc, lengths), got)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_decode_attention_stacked_split_edges(dev, group):
+    """The stacked entry point on the same body: layer 1 of 3 equals the
+    one-layer kernel on that layer bit for bit, at every share boundary,
+    and ignores NaN past the lengths and in the other layers."""
+    s_max, hkv = 1100, 2
+    lengths = torch.tensor(_share_edge_lengths(s_max, _library_split()), dtype=torch.int32,
+                           device=dev)
+    batch = lengths.numel()
+    q = _randn(dev, batch, group * hkv, 128, dtype=torch.bfloat16, seed=88)
+    k_all = _randn(dev, 3, batch, hkv, s_max, 128, dtype=torch.bfloat16, seed=89)
+    v_all = _randn(dev, 3, batch, hkv, s_max, 128, dtype=torch.bfloat16, seed=90)
+    got = decode_attention_stacked(q, k_all, v_all, lengths, 1)
+    assert torch.equal(got, decode_attention(q, k_all[1].contiguous(),
+                                             v_all[1].contiguous(), lengths))
+    live = lengths > 0
+    _assert_decode_close(
+        got[live], decode_attention_stacked_reference(q, k_all, v_all, lengths, 1)[live])
+    for b, n in enumerate(lengths.tolist()):
+        k_all[1, b, :, n:] = float("nan")
+        v_all[1, b, :, n:] = float("nan")
+    k_all[0] = float("nan")
+    v_all[2] = float("nan")
+    assert torch.equal(decode_attention_stacked(q, k_all, v_all, lengths, 1), got)
+
+
+def test_decode_attention_on_a_side_stream(dev):
+    """A launch inside torch.cuda.stream(s) reads what s wrote before it:
+    the query and lengths are written on s behind ~0.1 s of spinning, so a
+    launch on any other stream would read the old ones."""
+    kc = _randn(dev, 2, 5, 512, 64, dtype=torch.bfloat16, seed=91)
+    vc = _randn(dev, 2, 5, 512, 64, dtype=torch.bfloat16, seed=92)
+    q = torch.zeros(2, 10, 64, device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    new_q = _randn(dev, 2, 10, 64, seed=93)
+    new_lengths = torch.tensor([300, 511], dtype=torch.int32, device=dev)
+    torch.cuda._sleep(1000)
+    decode_attention(q, kc, vc, lengths)          # loaded before the test proper
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)
+        q.copy_(new_q)
+        lengths.copy_(new_lengths)
+        got = decode_attention(q, kc, vc, lengths)
+    assert not side.query()
+    side.synchronize()
+    _assert_decode_close(got, decode_attention_reference(new_q, kc, vc, new_lengths))
+
+
+def test_decode_attention_captured_in_a_cuda_graph(dev):
+    """A decode launch captured in a CUDA graph and replayed with new
+    lengths and queries attends the prefixes the lengths name."""
+    kc = _randn(dev, 3, 5, 700, 64, dtype=torch.bfloat16, seed=94)
+    vc = _randn(dev, 3, 5, 700, 64, dtype=torch.bfloat16, seed=95)
+    q = _randn(dev, 3, 10, 64, seed=96)
+    lengths = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):                 # warm-up outside the capture
+        decode_attention(q, kc, vc, lengths)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, kc, vc, lengths)
+    for step, lens in enumerate(([700, 65, 0], [129, 511, 64])):
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32, device=dev))
+        q.copy_(_randn(dev, 3, 10, 64, seed=97 + step))
+        graph.replay()
+        torch.cuda.synchronize()
+        live = lengths > 0
+        _assert_decode_close(out[live], decode_attention_reference(q, kc, vc, lengths)[live])
+        assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+
+
+def _kernel_events(fn) -> list:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0.0) and not e.key.startswith(("Memcpy", "Memset"))]
+
+
+def test_decode_attention_is_one_kernel_launch(dev):
+    """One call of each decode wrapper is one kernel event on the device
+    (the profiler), the cluster's merge included."""
+    q = _randn(dev, 1, 10, 64, seed=98)
+    kc = _randn(dev, 1, 5, 4608, 64, dtype=torch.bfloat16, seed=99)
+    lengths = torch.tensor([3072], dtype=torch.int32, device=dev)
+    events = _kernel_events(lambda: decode_attention(q, kc, kc, lengths))
+    assert [e.count for e in events] == [1], [(e.key, e.count) for e in events]
+    assert "decode_attention_kernel" in events[0].key
+    k_all = kc[None].repeat(2, 1, 1, 1, 1)
+    events = _kernel_events(lambda: decode_attention_stacked(q, k_all, k_all, lengths, 1))
+    assert [e.count for e in events] == [1], [(e.key, e.count) for e in events]

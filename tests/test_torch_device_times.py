@@ -15,7 +15,7 @@ def _event(key, count, device_us):
 
 def test_launch_counts_split_kernels_from_copies():
     prof = SimpleNamespace(key_averages=lambda: [
-        _event("decode_partial_kernel", 10, 40.0),
+        _event("decode_attention_kernel", 10, 40.0),
         _event("ampere_sgemm_128x64_tn", 30, 300.0),
         _event("Memcpy HtoD (Pageable -> Device)", 2, 3.0),
         _event("Memset (Device)", 1, 1.0),
