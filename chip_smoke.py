@@ -18,8 +18,11 @@ Run from the root of the repository, on a machine with one CUDA card and
    pair forms (K and V in one launch, f32 rows cast into a bf16 cache in
    the kernel) are held bit for bit against their plain versions and timed
    against the same two writes made by other means (``pairs`` of rows 3
-   and 5), and the flash kernel also at the bf16 SigLIP so400m tower's
-   attention and its MAP head (``lines`` of row 1);
+   and 5), the flash kernel also at the bf16 SigLIP so400m tower's
+   attention and its MAP head (``lines`` of row 1), and the int8 product
+   at all four products of a fused so400m layer and the regions' qkv
+   (``lines`` of its row), after ``cuobjdump`` shows that its built kernels
+   issue warpgroup products (IGMMA) and no ``mma.sync`` (IMMA);
 3. the in-repo QA model (``outputs/qa_lm``, real weights) behind
    ``create_qa_backend``: held-out accuracy through ``evaluate_qa_lm`` (n 40,
    seed 1234) against ``outputs/qa_lm/metrics.json``, the CUDA launches of
@@ -65,6 +68,7 @@ import contextlib
 import faulthandler
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -680,13 +684,13 @@ def check_quant_kernels(dev) -> list[dict]:
             raise AssertionError(f"{what}: kernel disagrees with its plain version")
         return float(diff.max().item())
 
-    rows, errs = [], {}
-    # B7: the four products of a layer; y spreads about +-3 (+-60 for quant)
+    rows, errs, mm_in = [], {}, {}
+    # B7: the four products of a layer and the regions' qkv; y spreads about
+    # +-3 (+-60 for quant)
     m = 5888
     cases = [("qkv", 1152, 6144, "none"), ("o", 2048, 1152, "residual"),
              ("fc1", 1152, 4352, "gelu_quant"), ("fc2", 4352, 1152, "residual"),
              ("regions qkv", 1152, 6144, "none")]
-    mm_in = None
     for name, k, n, epilogue in cases:
         mi = 1536 if name.startswith("regions") else m
         x, w = int8(mi, k), int8(n, k)
@@ -698,25 +702,37 @@ def check_quant_kernels(dev) -> list[dict]:
         got = qm.w8a8_matmul(x, w, scale, bias, **kw)
         want = qm.w8a8_matmul_reference(x, w, scale, bias, **kw)
         torch.cuda.synchronize()
-        what = f"w8a8_matmul {name} [{mi},{k}]x[{n},{k}] {epilogue}"
+        what = (f"w8a8_matmul {name} [{mi},{k}]x[{n},{k}] {epilogue} "
+                f"(tile 128x{qm.w8a8_block_n(n)})")
         if epilogue == "gelu_quant":
-            errs[what] = int8_close(what, got, want)
+            errs[name] = int8_close(what, got, want)
         else:
-            errs[what] = assert_close(what, got, want, BF16_TOL)
-        if name == "qkv":
-            mm_in = (x, w, scale, bias)
-    x, w, scale, bias = mm_in
-    mm_bound = bound_ms(x.nbytes + w.nbytes + 8 * w.shape[0] + 2 * m * w.shape[0],
-                        2.0 * m * x.shape[1] * w.shape[0], torch.int8)
+            errs[name] = assert_close(what, got, want, BF16_TOL)
+        mm_in[name] = (what, x, w, scale, bias, kw)
+    mm_lines = []
+    for name in mm_in:
+        what, x, w, scale, bias, kw = mm_in[name]
+        mi, k = x.shape
+        n = w.shape[0]
+        out_bytes = mi * n * (1 if kw["epilogue"] == "gelu_quant" else 2)
+        res_bytes = 0 if kw["residual"] is None else kw["residual"].nbytes
+        bnd = bound_ms(x.nbytes + w.nbytes + 8 * n + out_bytes + res_bytes,
+                       2.0 * mi * k * n, torch.int8)
+        mm_lines.append(dict(
+            name="w8a8_matmul", shape=what[len("w8a8_matmul "):], max_abs_err=errs[name],
+            ms=time_ms(lambda: qm.w8a8_matmul(x, w, scale, bias, **kw)),
+            plain_ms=time_ms(lambda: qm.w8a8_matmul_reference(x, w, scale, bias, **kw), 5),
+            bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2],
+            library="torch._int_mm + epilogue",
+            library_ms=time_ms(lambda: library_int_mm(
+                x, w, scale, bias, kw["epilogue"], kw["out_scale_inv"], kw["residual"]))))
+    qkv = mm_lines[0]
     rows.append(dict(
-        name="w8a8_matmul", route="cuda", source="gvl_tpu_torch/csrc/w8a8_matmul.cu",
+        qkv, route="cuda", source="gvl_tpu_torch/csrc/w8a8_matmul.cu",
         replaces="gvl_tpu/ops/quant_matmul.py:135",
         shape="so400m qkv, batch 8: int8 [5888,1152] x [6144,1152], bf16 out",
-        max_abs_err=max(errs.values()),
-        ms=time_ms(lambda: qm.w8a8_matmul(x, w, scale, bias)),
-        plain_ms=time_ms(lambda: qm.w8a8_matmul_reference(x, w, scale, bias), 5),
-        bound_ms=mm_bound[0], bound_by=mm_bound[1], bound_peak=mm_bound[2],
-        library_ms=time_ms(lambda: library_int_mm(x, w, scale, bias, "none"))))
+        max_abs_err=max(errs.values()), lines=mm_lines[1:]))
+    check_wgmma_sass()
 
     # B8 and B11: the residual stream of a batch of 8 (and of the regions)
     for mi in (5888, 1536):
@@ -817,7 +833,34 @@ def check_quant_kernels(dev) -> list[dict]:
         log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
             f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
             f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+        for line in row.get("lines", ()):
+            log("kernels", f"  {line['name']} at {line['shape']}: kernel "
+                f"{line['ms']:.4f} ms, plain {line['plain_ms']:.4f} ms, "
+                f"{line['library']} {line['library_ms']:.4f} ms, bound "
+                f"{line['bound_ms']:.5f} ms ({line['bound_by']})")
     return rows
+
+
+def check_wgmma_sass() -> None:
+    """The built library's w8a8_matmul kernels issue warpgroup int8
+    products (IGMMA in the SASS) and no mma.sync ones (IMMA), read with
+    cuobjdump where the toolkit has it."""
+    from gvl_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        log("kernels", f"SASS of w8a8_matmul not checked: no {tool}")
+        return
+    sass = subprocess.run([str(tool), "--dump-sass", str(_build.build().path)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    kernels = [part for part in sass.split("Function : ")[1:]
+               if "w8a8_matmul_kernel" in part.split("\n", 1)[0]]
+    igmma = [part.count("IGMMA") for part in kernels]
+    imma = sum(len(re.findall(r"\bIMMA\b", part)) for part in kernels)
+    log("kernels", f"SASS: {len(kernels)} w8a8_matmul kernels, IGMMA per kernel "
+        f"{sorted(set(igmma))}, IMMA {imma}")
+    if not kernels or min(igmma) == 0 or imma:
+        raise AssertionError("w8a8_matmul: the built kernels are not on wgmma")
 
 
 # --------------------------------------------------------------------------

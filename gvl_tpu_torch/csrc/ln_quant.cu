@@ -9,28 +9,33 @@
 // gvl_quant_static replaces quant_static_pallas (Pallas body _quant_kernel):
 // clip(round(x * inv), 127) -> int8, elementwise.
 //
-// Design.  ln_quant: one warp per row; the row is read once with 16-byte
-// loads into shared memory as f32 (D floats per warp), then the mean, the
-// centred variance and the output are three warp passes over it with
-// shuffle reductions.  The products and sums use round-to-nearest
-// intrinsics (no fused multiply-add), so each step rounds as the JAX body's
-// does; rounding is __float2int_rn (half to even, as jnp.round).
+// Bound.  Both move bytes only: at the so400m layer of a batch of 8 frames
+// (bf16 [5888, 1152] in, int8 out) 20 MB, 6.1 us at 3.35 TB/s.  So the
+// design keeps device memory streaming.
+//
+// Design.  ln_quant: a grid sized to what the SMs hold at once; each warp
+// walks rows (row += all warps of the grid) and owns two row buffers in
+// shared memory.  Before it reduces a row it has issued every 16-byte
+// cp.async of the next row into the other buffer, so each warp keeps a
+// whole row (2.3 KB at D 1152 bf16) in flight while it computes, some
+// 70 KB per SM.  gamma and beta are copied into shared memory once per
+// block.  The mean, the centred variance and the output are three warp
+// passes over the buffered row, 8 elements a lane a step, with shuffle
+// reductions; each step stores 8 int8 in one 8-byte store.  The products
+// and sums use round-to-nearest intrinsics (no fused multiply-add), so each
+// step rounds as the JAX body's does; rounding is __float2int_rn (half to
+// even, as jnp.round).  Any D that is a multiple of 8 runs this one path:
+// a block holds fewer warps where two rows a warp and gamma, beta would not
+// fit its shared memory.
 // quant_static: each thread converts 8 elements (16- or 32-byte loads, one
 // 8-byte store).  D (and the element count) must be multiples of 8.
-//
-// Bound.  Both move bytes only: at the so400m layer of a batch of 8 frames
-// (bf16 [5888, 1152] in, int8 out) 20 MB, 6.1 us at 3.35 TB/s.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace gvl {
 namespace {
 
-constexpr int kWarps = 4;  // rows per ln_quant block
-
-__device__ __forceinline__ signed char quant_int8(float x, float inv) {
-  const int q = __float2int_rn(__fmul_rn(x, inv));
-  return static_cast<signed char>(max(-127, min(127, q)));
-}
+constexpr int kMaxWarps = 8;                  // rows in flight per block
+constexpr int kSmemLimit = 227 * 1024;        // a block's shared memory on sm_90
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -39,54 +44,85 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ void store8(signed char* dst, const signed char (&q)[8]) {
-  uint2 packed;
-  unsigned char* b = reinterpret_cast<unsigned char*>(&packed);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) b[e] = static_cast<unsigned char>(q[e]);
-  *reinterpret_cast<uint2*>(dst) = packed;
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(pack_s8x4(q[0], q[1], q[2], q[3]), pack_s8x4(q[4], q[5], q[6], q[7]));
+}
+
+// every 16-byte chunk of one row into a warp's buffer (cp.async, no wait)
+template <typename T>
+__device__ __forceinline__ void load_row(T* dst, const T* __restrict__ src, int d, int lane) {
+  const int chunks = d * (int)sizeof(T) / 16;
+  for (int c = lane; c < chunks; c += 32)
+    cp_async16(reinterpret_cast<char*>(dst) + c * 16,
+               reinterpret_cast<const char*>(src) + c * 16, true);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, signed char* __restrict__ out,
                 int rows, int d, float eps, float inv) {
-  extern __shared__ float srow[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= rows) return;
-  float* r = srow + (size_t)warp * d;
-  const T* xr = x + (size_t)row * d;
+  extern __shared__ __align__(16) float smem[];
+  float* sg = smem;
+  float* sb = smem + d;
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  T* buf = reinterpret_cast<T*>(smem + 2 * d) + (size_t)2 * warp * d;
 
-  float sum = 0.f;
-  for (int c = lane * 8; c < d; c += 32 * 8) {
-    float v[8];
-    load_f32<T, 8>(xr + c, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      r[c + e] = v[e];
-      sum = __fadd_rn(sum, v[e]);
-    }
+  const int stride = gridDim.x * warps;
+  int row = blockIdx.x * warps + warp;
+  if (row < rows) load_row(buf, x + (size_t)row * d, d, lane);
+  cp_async_commit();
+  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
+    *reinterpret_cast<float4*>(sg + c) = *reinterpret_cast<const float4*>(gamma + c);
+    *reinterpret_cast<float4*>(sb + c) = *reinterpret_cast<const float4*>(beta + c);
   }
-  const float mu = __fdiv_rn(warp_sum(sum), (float)d);
-  __syncwarp();
-  float sq = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    const float xc = __fsub_rn(r[c], mu);
-    sq = __fadd_rn(sq, __fmul_rn(xc, xc));
-  }
-  const float var = __fdiv_rn(warp_sum(sq), (float)d);
-  const float rstd = rsqrtf(__fadd_rn(var, eps));
-  signed char* orow = out + (size_t)row * d;
-  for (int c = lane * 8; c < d; c += 32 * 8) {
-    signed char q[8];
+  __syncthreads();
+
+  for (int i = 0; row < rows; row += stride, ++i) {
+    const T* r = buf + (size_t)(i & 1) * d;
+    const int next = row + stride;
+    if (next < rows) load_row(buf + (size_t)((i + 1) & 1) * d, x + (size_t)next * d, d, lane);
+    cp_async_commit();
+    cp_async_wait<1>();   // this row's copies are done (the next row's may not be)
+    __syncwarp();
+
+    float sum = 0.f;
+    for (int c = lane * 8; c < d; c += 32 * 8) {
+      float v[8];
+      load_f32<T, 8>(r + c, v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float xc = __fsub_rn(r[c + e], mu);
-      const float y = __fadd_rn(__fmul_rn(__fmul_rn(xc, rstd), gamma[c + e]), beta[c + e]);
-      q[e] = quant_int8(y, inv);
+      for (int e = 0; e < 8; ++e) sum = __fadd_rn(sum, v[e]);
     }
-    store8(orow + c, q);
+    const float mu = __fdiv_rn(warp_sum(sum), (float)d);
+    float sq = 0.f;
+    for (int c = lane * 8; c < d; c += 32 * 8) {
+      float v[8];
+      load_f32<T, 8>(r + c, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xc = __fsub_rn(v[e], mu);
+        sq = __fadd_rn(sq, __fmul_rn(xc, xc));
+      }
+    }
+    const float var = __fdiv_rn(warp_sum(sq), (float)d);
+    const float rstd = rsqrtf(__fadd_rn(var, eps));
+    signed char* orow = out + (size_t)row * d;
+    for (int c = lane * 8; c < d; c += 32 * 8) {
+      float v[8];
+      load_f32<T, 8>(r + c, v);
+      float gb[2][8];   // gamma, beta: 16-byte loads (scalar ones conflict on banks)
+      load_f32<float, 8>(sg + c, gb[0]);
+      load_f32<float, 8>(sb + c, gb[1]);
+      signed char q[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xc = __fsub_rn(v[e], mu);
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(xc, rstd), gb[0][e]), gb[1][e]);
+        q[e] = quant_int8(y, inv);
+      }
+      store8(orow + c, q);
+    }
+    __syncwarp();   // every lane has read this buffer before it is refilled
   }
 }
 
@@ -108,14 +144,30 @@ __global__ void quant_static_kernel(const T* __restrict__ x,
 template <typename T>
 int launch_ln(const void* x, const void* gamma, const void* beta, void* out,
               int rows, int d, float eps, float inv, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ln_quant_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // gamma and beta, then two rows a warp
+  const size_t fixed = (size_t)2 * d * sizeof(float), per_warp = (size_t)2 * d * sizeof(T);
+  int warps = kMaxWarps;
+  while (warps > 1 && fixed + warps * per_warp > kSmemLimit) --warps;
+  const size_t smem = fixed + warps * per_warp;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  auto kernel = ln_quant_kernel<T>;
+  // the grid: as many blocks as the SMs hold at once (cached for the last shape)
+  static int last_d = -1, last_blocks = 0;
+  if (d != last_d) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
     if (err != cudaSuccess) return (int)err;
+    last_d = d;
+    last_blocks = sms * per_sm;
   }
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  ln_quant_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
+  const int want = (rows + warps - 1) / warps;
+  const int blocks = want < last_blocks ? want : last_blocks;
+  kernel<<<blocks, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<signed char*>(out), rows, d,
       eps, inv);
@@ -137,7 +189,8 @@ int launch_quant(const void* x, void* out, long n, float inv, cudaStream_t strea
 }  // namespace gvl
 
 // x [M, D] (x_dtype: 0 f32, 1 bf16), gamma/beta [D] f32, out [M, D] int8.
-// All contiguous, D a multiple of 8.  Returns a cudaError_t.
+// All contiguous and 16-byte aligned, D a multiple of 8.  Returns a
+// cudaError_t.
 extern "C" int gvl_ln_quant(const void* x, const void* gamma, const void* beta,
                             void* out, int rows, int d, float eps, float inv,
                             int x_dtype, void* stream) {

@@ -1,21 +1,24 @@
-"""Ablations of the tensor-core attention kernels, on the card.
+"""Ablations of the redesigned kernels, on the card.
 
     python -m gvl_tpu_torch.kernel_ablation
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``.
-For each tensor-core attention source (``csrc/encoder_attention.cu``,
-``chunk_attention.cu``, ``decode_attention.cu``, ``flash_attention.cu``)
-it builds the committed source and copies of it with
-one design choice undone (a text edit, :data:`VARIANTS`), each into its own
-library under ``gvl_tpu_torch/_build/ablation/``, then calls their C entry
-points in turns (every variant, then every variant again in reverse order;
-the lower time is kept) with CUDA events around back-to-back calls, at the
-so400m frames shape (B9, B10; 8 frames, Sp 736), the chunk, decode and
-prefill shapes of the served QA model and 8B geometry, and the bf16 so400m
-tower's attention.  Each output is held against the
-plain version: int8 outputs by their largest step and the share of
-elements that differ, the others by their largest absolute difference.
-Prints one JSON object as its last line.
+For each redesigned source (the tensor-core attention kernels
+``csrc/encoder_attention.cu``, ``chunk_attention.cu``,
+``decode_attention.cu``, ``flash_attention.cu``; the ``wgmma`` int8 product
+``w8a8_matmul.cu``; the streaming LayerNorm-quantize ``ln_quant.cu``) it
+builds the committed source and copies of it with one design choice undone
+(a text edit, :data:`VARIANTS`), each into its own library under
+``gvl_tpu_torch/_build/ablation/`` (one nvcc per library, all started
+together), then calls their C entry points in turns (every variant, then
+every variant again in reverse order; the lower time is kept) with CUDA
+events around back-to-back calls, at the so400m frames shape (B9, B10; 8
+frames, Sp 736), the chunk, decode and prefill shapes of the served QA
+model and 8B geometry, the bf16 so400m tower's attention, and the fused
+tower's int8 products (each at two tile widths) and LayerNorm-quantize.
+Each output is held against the plain version: int8 outputs by their
+largest step and the share of elements that differ, the others by their
+largest absolute difference.  Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import json
 import math
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -81,6 +85,31 @@ VARIANTS = {
             ("          const float ex = exp2_ftz(s[mt][n][e] - m[mt][e >> 1]);",
              "          const float ex = expf((s[mt][n][e] - m[mt][e >> 1]) * 0.6931471805599453f);")],
     },
+    "w8a8_matmul.cu": {
+        "2 stages": [("static constexpr int kStages = BN == 256 ? 3 : 4;",
+                      "static constexpr int kStages = 2;")],
+        "3 stages at every width": [("static constexpr int kStages = BN == 256 ? 3 : 4;",
+                                     "static constexpr int kStages = 3;")],
+        "4-byte stores straight from the fragment (no staging; whole tiles only)": [
+            ("    unsigned char* lo = out_rows + r0 * T::kOutLd;\n"
+             "    unsigned char* hi = lo + 8 * T::kOutLd;",
+             "    unsigned char* lo = static_cast<unsigned char*>(out) + "
+             "((size_t)(m0 + half * 64 + r0) * n_cols + n0) * kOutBytes;\n"
+             "    unsigned char* hi = lo + (size_t)8 * n_cols * kOutBytes;"),
+            ("      for (int u = tid; u < 64 * kUnits; u += 128) {",
+             "      for (int u = tid; u < 0; u += 128) {")],
+        "__fdiv_rn around every GELU division": [
+            ("        for (int e = 0; e < 4; ++e) y[e] = div_ge1(y[e], gelu_denominator(y[e]));",
+             "        for (int e = 0; e < 4; ++e) y[e] = __fdiv_rn(y[e], gelu_denominator(y[e]));")],
+    },
+    "ln_quant.cu": {
+        "gamma and beta re-read per row": [
+            ("      load_f32<float, 8>(sg + c, gb[0]);\n      load_f32<float, 8>(sb + c, gb[1]);",
+             "      load_f32<float, 8>(gamma + c, gb[0]);\n      load_f32<float, 8>(beta + c, gb[1]);")],
+        "one row per warp, no prefetch (a grid over every row)": [
+            ("  const int blocks = want < last_blocks ? want : last_blocks;",
+             "  const int blocks = want;")],
+    },
 }
 BASE = "as committed"
 
@@ -98,7 +127,8 @@ def edited(source: str, edits: list[tuple[str, str]]) -> str:
 
 
 def build_variant(source: str, name: str, edits) -> ctypes.CDLL:
-    """One source with ``edits``, compiled alone into a shared library."""
+    """One source with ``edits``, compiled alone into a shared library
+    and loaded."""
     slug = "".join(c if c.isalnum() else "_" for c in name)[:40]
     out = _build.BUILD_DIR / "ablation" / f"{Path(source).stem}-{slug}"
     shutil.rmtree(out, ignore_errors=True)
@@ -269,8 +299,84 @@ def flash_cases(dev):
     return cases
 
 
+def w8a8_cases(dev):
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, k, n, epilogue, block_n in (
+            ("qkv [5888,1152]x[6144,1152] -> bf16, BN 256", 1152, 6144, "none", 256),
+            ("qkv [5888,1152]x[6144,1152] -> bf16, BN 128", 1152, 6144, "none", 128),
+            ("o-projection [5888,2048]x[1152,2048] + residual, BN 144", 2048, 1152,
+             "residual", 144),
+            ("o-projection [5888,2048]x[1152,2048] + residual, BN 128", 2048, 1152,
+             "residual", 128),
+            ("fc1 [5888,1152]x[4352,1152] -> GELU int8, BN 256", 1152, 4352, "gelu_quant",
+             256)):
+        x = torch.randint(-127, 128, (5888, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        scale = (torch.rand(n, generator=gen, device=dev) + 0.5) * (3.0 / (5376 * k ** 0.5))
+        bias = torch.randn(n, generator=gen, device=dev) * 0.1
+        res = torch.randn(5888, n, generator=gen, device=dev).to(torch.bfloat16)
+        kw = dict(epilogue=epilogue, out_scale_inv=37.5 if epilogue == "gelu_quant" else None,
+                  residual=res if epilogue == "residual" else None)
+        want = qm.w8a8_matmul_reference(x, w, scale, bias, **kw)
+        out = torch.empty_like(want)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, x=x, w=w, scale=scale, bias=bias, res=res, out=out, k=k, n=n,
+                epilogue=epilogue, block_n=block_n):
+            err = lib.gvl_w8a8_matmul(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                                      bias.data_ptr(), res.data_ptr(), out.data_ptr(), 5888,
+                                      n, k, qm.EPILOGUES[epilogue], 37.5, 1, block_n, stream)
+            if err:
+                raise RuntimeError(f"gvl_w8a8_matmul returned {err}")
+
+        if epilogue == "gelu_quant":
+            def check(out=out, want=want):
+                diff = (out.int() - want.int()).abs()
+                return (f"int8 max step {diff.max().item()}, share "
+                        f"{(diff > 0).float().mean().item():.1e}")
+        else:
+            def check(out=out, want=want):
+                return f"max abs err {(out.float() - want.float()).abs().max().item():.3g}"
+
+        cases[label] = (run, check)
+    return cases
+
+
+def ln_quant_cases(dev):
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for label, rows in (("frames bf16 [5888,1152] -> int8", 5888),
+                        ("regions bf16 [1536,1152] -> int8", 1536)):
+        x = (torch.randn(rows, 1152, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+        g = torch.rand(1152, generator=gen, device=dev) + 0.5
+        b = torch.randn(1152, generator=gen, device=dev) * 0.1
+        want = qm.ln_quant_reference(x, g, b, 40.0)
+        out = torch.empty_like(want)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def run(lib, x=x, g=g, b=b, out=out, rows=rows):
+            err = lib.gvl_ln_quant(x.data_ptr(), g.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                   rows, 1152, 1e-6, 40.0, 1, stream)
+            if err:
+                raise RuntimeError(f"gvl_ln_quant returned {err}")
+
+        def check(out=out, want=want):
+            diff = (out.int() - want.int()).abs()
+            return (f"int8 max step {diff.max().item()}, share "
+                    f"{(diff > 0).float().mean().item():.1e}")
+
+        cases[label] = (run, check)
+    return cases
+
+
 CASES = {"encoder_attention.cu": encoder_cases, "chunk_attention.cu": chunk_cases,
-         "decode_attention.cu": decode_cases, "flash_attention.cu": flash_cases}
+         "decode_attention.cu": decode_cases, "flash_attention.cu": flash_cases,
+         "w8a8_matmul.cu": w8a8_cases, "ln_quant.cu": ln_quant_cases}
 
 
 def main() -> dict:
@@ -281,11 +387,14 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     result = {"device": smi}
+    builds = [(source, name, edits) for source in CASES
+              for name, edits in [(BASE, [])] + list(VARIANTS[source].items())]
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        built = list(pool.map(lambda b: build_variant(*b), builds))
+    libraries = {(source, name): lib for (source, name, _), lib in zip(builds, built)}
     for source, make_cases in CASES.items():
         cases = make_cases(dev)
-        libs = {BASE: build_variant(source, BASE, [])}
-        libs.update({name: build_variant(source, name, edits)
-                     for name, edits in VARIANTS[source].items()})
+        libs = {name: lib for (src, name), lib in libraries.items() if src == source}
         table = {}
         for label, (run, check) in cases.items():
             times = {name: [] for name in libs}

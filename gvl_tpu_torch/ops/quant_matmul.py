@@ -110,6 +110,36 @@ def w8a8_matmul_reference(
     return y.to(out_dtype)
 
 
+W8A8_BLOCK_N = (256, 144, 128)   # the kernel's tile widths (wgmma N), widest first
+
+
+def w8a8_block_n(n: int) -> int:
+    """The W8A8 kernel's tile width for ``n`` output columns: the widest
+    of :data:`W8A8_BLOCK_N` that divides ``n`` (no ragged last tile: qkv
+    6144 and fc1 4352 take 256, the o-projection and fc2 at 1152 take 144),
+    else 128."""
+    return next((bn for bn in W8A8_BLOCK_N if n % bn == 0), 128)
+
+
+def _check_w8a8(x_q, w_q, scale, bias, residual, out_dtype) -> tuple[int, int, int]:
+    """Raise unless the kernel takes these operands; returns (M, N, K)."""
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape[1] != k
+            or k % 16 or n % 16 or scale.dtype != torch.float32 or scale.shape != (n,)
+            or (bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)))
+            or out_dtype not in _build.DTYPE_CODES):
+        raise ValueError(
+            f"w8a8_matmul: needs int8 x [M, K] and w [N, K] with K and N multiples of "
+            f"16, f32 scale/bias [N] and an f32 or bf16 output; got x {x_q.dtype} "
+            f"{tuple(x_q.shape)}, w {w_q.dtype} {tuple(w_q.shape)}, out {out_dtype}")
+    if residual is not None and (residual.shape != (m, n) or residual.dtype != out_dtype):
+        raise ValueError(f"w8a8_matmul: residual must be {out_dtype} [{m}, {n}]")
+    if any(t is not None and t.data_ptr() % 16 for t in (x_q, w_q, scale, bias, residual)):
+        raise ValueError("w8a8_matmul: x, w, scale, bias and residual must be 16-byte aligned")
+    return m, n, k
+
+
 def w8a8_matmul(
     x_q: torch.Tensor,
     w_q: torch.Tensor,
@@ -124,9 +154,11 @@ def w8a8_matmul(
     """The W8A8 product: the Hopper kernel on CUDA tensors, the plain
     version on CPU tensors.  Arguments as :func:`w8a8_matmul_reference`.
 
-    The kernel takes int8 operands with K a multiple of 64, f32 scale and
-    bias, an f32 or bf16 output (and residual of that type); anything else
-    raises.  Each launch adds one to ``w8a8_matmul.launches``.
+    The kernel takes 16-byte aligned int8 operands with K and N multiples
+    of 16, f32 scale and bias, an f32 or bf16 output (and residual of that
+    type); anything else raises.  Its tile width is
+    :func:`w8a8_block_n` of N.  Each launch adds one to
+    ``w8a8_matmul.launches``.
     """
     if epilogue == "gelu_quant" and out_scale_inv is None:
         raise ValueError("gelu_quant needs out_scale_inv")
@@ -140,21 +172,8 @@ def w8a8_matmul(
         raise ValueError(f"unknown epilogue {epilogue!r}")
     operands = [x_q, w_q, scale] + [t for t in (bias, residual) if t is not None]
     index = _build.require_cuda("w8a8_matmul", *operands)
-    m, k = x_q.shape
-    n = w_q.shape[0]
+    m, n, k = _check_w8a8(x_q, w_q, scale, bias, residual, out_dtype)
     int8_out = epilogue in ("gelu_quant", "quant")
-    if (x_q.dtype != torch.int8 or w_q.dtype != torch.int8 or w_q.shape[1] != k
-            or k % 64 or scale.dtype != torch.float32 or scale.shape != (n,)
-            or (bias is not None and (bias.dtype != torch.float32 or bias.shape != (n,)))
-            or out_dtype not in _build.DTYPE_CODES):
-        raise ValueError(
-            f"w8a8_matmul: needs int8 x [M, K] and w [N, K] with K % 64 == 0, "
-            f"f32 scale/bias [N] and an f32 or bf16 output; got x {x_q.dtype} "
-            f"{tuple(x_q.shape)}, w {w_q.dtype} {tuple(w_q.shape)}, out {out_dtype}")
-    if residual is not None and (residual.shape != (m, n) or residual.dtype != out_dtype):
-        raise ValueError(f"w8a8_matmul: residual must be {out_dtype} [{m}, {n}]")
-    if any(t.data_ptr() % 16 for t in (x_q, w_q)):
-        raise ValueError("w8a8_matmul: x and w must be 16-byte aligned")
     out = torch.empty(m, n, dtype=torch.int8 if int8_out else out_dtype,
                       device=x_q.device)
     err = _build.entry("gvl_w8a8_matmul")(
@@ -163,7 +182,7 @@ def w8a8_matmul(
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         m, n, k, EPILOGUES[epilogue],
         0.0 if out_scale_inv is None else float(out_scale_inv),
-        _build.DTYPE_CODES[out_dtype], _build.stream_handle(index))
+        _build.DTYPE_CODES[out_dtype], w8a8_block_n(n), _build.stream_handle(index))
     _build.check(err, "w8a8_matmul")
     w8a8_matmul.launches += 1
     return out
@@ -192,8 +211,8 @@ def ln_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
              inv_scale: float, *, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm + quantize: the Hopper kernel on CUDA tensors, the plain
     version on CPU tensors.  The kernel takes f32 or bf16 ``x [M, D]`` with
-    D a multiple of 8 and f32 gamma, beta; each launch adds one to
-    ``ln_quant.launches``."""
+    D a multiple of 8 and f32 gamma, beta, all 16-byte aligned; each launch
+    adds one to ``ln_quant.launches``."""
     if x.device.type == "cpu":
         return ln_quant_reference(x, gamma, beta, inv_scale, eps=eps)
     index = _build.require_cuda("ln_quant", x, gamma, beta)
@@ -203,8 +222,8 @@ def ln_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             or beta.dtype != torch.float32):
         raise ValueError(f"ln_quant: needs f32/bf16 x [M, D] with D % 8 == 0 and "
                          f"f32 gamma, beta [D]; got {x.dtype} {tuple(x.shape)}")
-    if x.data_ptr() % 16:
-        raise ValueError("ln_quant: x must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (x, gamma, beta)):
+        raise ValueError("ln_quant: x, gamma and beta must be 16-byte aligned")
     out = torch.empty(rows, d, dtype=torch.int8, device=x.device)
     err = _build.entry("gvl_ln_quant")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), rows,

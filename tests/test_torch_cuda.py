@@ -515,6 +515,57 @@ def test_w8a8_matmul_integer_sum_is_exact(dev):
     assert torch.equal(got, int_matmul(x, w.T).float())
 
 
+@pytest.mark.parametrize("m,k,n,block_n", [
+    (200, 1152, 384, None),     # ragged M; N 384 takes the 128 tile
+    (200, 1152, 1152, 256),     # ragged N: 4.5 tiles of 256
+    (200, 1152, 1152, 144),     # the o-projection's width
+    (200, 1152, 1152, 128),
+    (64, 4352, 256, 256),       # 34 K stages: the 4-stage ring wraps 8 times
+    (96, 16, 384, 128),         # the smallest K: one 16-byte column of a stage
+    (130, 48, 144, 144),        # K short of a stage, M one row past a tile
+    (1, 16, 16, 256),           # one row, one column group
+    (2000, 1152, 6144, None),   # 384 tiles on 132 SMs: each block walks several
+])
+def test_w8a8_matmul_exact_sum_at_tile_edges(dev, monkeypatch, m, k, n, block_n):
+    """scale 1, no bias, f32 out: the output is the int32 sum itself, at
+    every edge of the tiling and with every tile width (a block_n forces
+    the wrapper's choice)."""
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    if block_n is not None:
+        monkeypatch.setattr(qm, "w8a8_block_n", lambda _n: block_n)
+    x, w = _int8(dev, m, k, seed=m + k), _int8(dev, n, k, seed=n + k)
+    got = qm.w8a8_matmul(x, w, torch.ones(n, device=dev), out_dtype=torch.float32)
+    assert torch.equal(got, qm.int_matmul(x, w.T).float())
+
+
+@pytest.mark.parametrize("epilogue", ["none", "residual", "gelu_quant", "quant"])
+@pytest.mark.parametrize("k,n", [(1152, 6144), (2048, 1152), (1152, 4352), (4352, 1152),
+                                 (1152, 3456), (1152, 1152)])
+def test_w8a8_matmul_served_products_every_epilogue(dev, epilogue, k, n):
+    """The tower's four products (qkv, o-projection, fc1, fc2) and the
+    packed-head qkv and o-projection, 200 rows (two tiles, one ragged),
+    every epilogue.  The f32 steps are the plain version's, each rounded
+    once, so none, residual and quant are bit-equal; gelu_quant's exp2f
+    may differ from torch.exp2 in the last bit (int8 within one step)."""
+    from gvl_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_matmul_reference
+
+    m = 200
+    x, w = _int8(dev, m, k, seed=k), _int8(dev, n, k, seed=n)
+    unit = 1.0 / (5376 * k ** 0.5)
+    scale = (_randn(dev, n, seed=3).abs() + 0.5) * unit * (60 if epilogue == "quant" else 3)
+    b = _randn(dev, n, seed=4) * 0.1
+    res = _randn(dev, m, n, seed=5, dtype=torch.bfloat16)
+    kw = dict(epilogue=epilogue, out_scale_inv=37.5 if epilogue == "gelu_quant" else None,
+              residual=res if epilogue == "residual" else None)
+    got = w8a8_matmul(x, w, scale, b, **kw)
+    want = w8a8_matmul_reference(x, w, scale, b, **kw)
+    if epilogue == "gelu_quant":
+        _int8_close(got, want)
+    else:
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,d", [(64, 256), (5888, 1152), (100, 4352)])
 def test_ln_quant_and_quant_static_match_plain(dev, dtype, rows, d):
@@ -530,6 +581,44 @@ def test_ln_quant_and_quant_static_match_plain(dev, dtype, rows, d):
     b = _randn(dev, d, seed=10) * 0.1
     _int8_close(ln_quant(x, g, b, 40.0), ln_quant_reference(x, g, b, 40.0))
     _int8_close(quant_static(x, 20.0), quant_static_reference(x, 20.0))
+
+
+def test_w8a8_matmul_gelu_quant_at_the_division_edges(dev):
+    """GELU's division y / (1 + exp2(..)) runs without a branch: scaled by
+    2^-64 where the denominator passes 2^64 (y below about -7), selects for
+    y exactly 0 and for a denominator that overflows to inf (y below about
+    -12); tiny and large y, all mixed in one warp's columns, against the
+    plain version."""
+    from gvl_tpu_torch.ops.quant_matmul import w8a8_matmul, w8a8_matmul_reference
+
+    m, k, n = 256, 1152, 512
+    x, w = _int8(dev, m, k, seed=11), _int8(dev, n, k, seed=12)
+    x[:8] = 0                                           # rows whose y is the bias alone
+    unit = 1.0 / (5376 * k ** 0.5)
+    scale = (_randn(dev, n, seed=13).abs() + 0.5) * unit * 20     # y spreads about +-40
+    b = torch.zeros(n, device=dev)
+    b[1::4] = -30.0
+    b[2::4] = 1e-35
+    b[3::4] = -1e-30
+    got = w8a8_matmul(x, w, scale, b, epilogue="gelu_quant", out_scale_inv=3.0)
+    want = w8a8_matmul_reference(x, w, scale, b, epilogue="gelu_quant", out_scale_inv=3.0)
+    _int8_close(got, want)
+
+
+@pytest.mark.parametrize("dtype,rows,d", [
+    (torch.bfloat16, 5889, 1152),   # not a multiple of 8 rows a block; warps walk 2 rows
+    (torch.bfloat16, 40000, 256),   # each warp walks ~5 rows through its two buffers
+    (torch.bfloat16, 13, 4352),
+    (torch.float32, 7, 4352),       # 5 warps a block (shared memory)
+    (torch.float32, 3, 8),
+])
+def test_ln_quant_row_and_width_edges(dev, dtype, rows, d):
+    from gvl_tpu_torch.ops.quant_matmul import ln_quant, ln_quant_reference
+
+    x = _randn(dev, rows, d, seed=rows, dtype=dtype) * 2.0
+    g = _randn(dev, d, seed=9).abs() + 0.5
+    b = _randn(dev, d, seed=10) * 0.1
+    _int8_close(ln_quant(x, g, b, 40.0), ln_quant_reference(x, g, b, 40.0))
 
 
 def test_ln_quant_and_quant_static_reject_misaligned_rows(dev):

@@ -134,6 +134,47 @@ def test_w8a8_matmul_refuses_misuse():
         tq.w8a8_matmul(x, w, s, epilogue="relu")
 
 
+@pytest.mark.parametrize("product,n", [("qkv", 6144), ("o-projection", 1152),
+                                       ("fc1", 4352), ("fc2", 1152), ("region qkv", 6144),
+                                       ("packed qkv", 3456)])
+def test_w8a8_block_n_is_a_wgmma_width(product, n):
+    """The tile width the wrapper picks for each served product is a width
+    the kernel has (a wgmma N: a multiple of 16, at most 256) and divides N,
+    so no tile of a served product is ragged."""
+    bn = tq.w8a8_block_n(n)
+    assert bn in tq.W8A8_BLOCK_N and bn % 16 == 0 and bn <= 256
+    assert n % bn == 0
+    assert tq.w8a8_block_n(4352) == tq.w8a8_block_n(6144) == 256
+
+
+def _w8a8_args(m=32, k=128, n=128, **over):
+    args = dict(x_q=torch.zeros(m, k, dtype=torch.int8), w_q=torch.zeros(n, k, dtype=torch.int8),
+                scale=torch.ones(n), bias=None, residual=None, out_dtype=torch.bfloat16)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("k", [16, 48, 1152, 4352])
+def test_w8a8_contract_takes_k_in_16_byte_steps(k):
+    """TMA needs 16-byte row strides only, so K % 16 replaces K % 64."""
+    assert tq._check_w8a8(**_w8a8_args(k=k)) == (32, 128, k)
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(k=40), "multiples of 16"),                  # K % 16 != 0
+    (dict(k=8), "multiples of 16"),
+    (dict(n=24), "multiples of 16"),                  # N % 16 != 0
+    (dict(x_q=torch.zeros(32, 128, dtype=torch.int16)), "int8"),
+    (dict(scale=torch.ones(128, dtype=torch.float64)), "f32 scale"),
+    (dict(out_dtype=torch.float16), "f32 or bf16"),
+    (dict(residual=torch.zeros(32, 128)), "residual"),
+    (dict(x_q=torch.zeros(32 * 128 + 1, dtype=torch.int8)[1:].view(32, 128)), "aligned"),
+])
+def test_w8a8_contract_refuses_what_the_kernel_does_not_take(over, match):
+    with pytest.raises(ValueError, match=match):
+        tq._check_w8a8(**_w8a8_args(**over))
+
+
 # ------------------------------------------------------------- B8, B11
 
 @pytest.mark.parametrize("rows,d,dtype", [(64, 256, "bf16"), (96, 1152, "bf16"),
