@@ -49,10 +49,23 @@ Run from the root of the repository, on a machine with one CUDA card and
    fused tree and against the bf16 ``TorchSigLIPBackend`` on the same
    weights (pooled cosine), with images/s and regions/s; then regions of
    three more seeded frames and mask layouts against the bf16 tower;
-10. the packed-head variant of the fused tower against the padded one.
+10. the packed-head variant of the fused tower against the padded one;
+11. perception: the ``qa_lm`` arm's encoders at their trained geometry with
+    seeded random weights (``gvl_tpu_torch.perception.encoders``), served
+    once through their entry points with the launches counted (the
+    retriever over 64 event texts and 64 queries, the segmenter's tracker
+    on 32 synthetic 320 x 568 gameplay frames x 4 concepts, the OCR engine
+    on 8 HUD frames, the audio processor's event detection on 8 s and its
+    transcription of 4 ASR windows of 6 s), then each against its plain
+    path: the retriever's embeddings and top-1, the segmenter's mask
+    logits, flipped mask cells and scores, the ASR's encoder states and
+    greedy tokens (the flash kernel against its plain version on the
+    card), the OCR nets' logits and the event net's probabilities (no
+    flash kernel: the card against the CPU on the same weights); wall ms
+    per call of each encoder.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 10) and read just after it; each run must have launched
+path of phases 3 to 11) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -115,6 +128,19 @@ REGION_SEEDS = (1, 2, 3)    # more frames and mask layouts, fused vs bf16
 COS_KERNEL_PLAIN, COS_FUSED_BF16, COS_PACKED_PADDED = 0.9995, 0.999, 0.999
 # fused kernels per forward of the 27-layer tower
 FUSED_LAUNCHES = {"w8a8_matmul": 4 * 27, "ln_quant": 2 * 27}
+# phase 11: the qa_lm arm's encoders at their trained geometry, seeded
+# random weights; 32 frames (the arm's max_frames) x 4 concepts, 64
+# retrieval texts over a 64-entry index, 8 HUD frames, 8 s of audio for
+# the event net, 4 ASR windows of 6 s
+PERCEPTION_SEED, PERCEPTION_FRAMES, RETRIEVAL_TEXTS, OCR_FRAMES = 11, 32, 64, 8
+EVENT_SECONDS, ASR_CHUNKS = 8, 4
+RETRIEVER_TOL = 1e-4        # unit embeddings, f32 (B1's f32 route: ~2**-16)
+MASK_LOGIT_SHARE = 1e-3     # mask logits: max abs err per unit of max |logit|
+MASK_FLIP_SHARE = 1e-3      # mask cells on the other side of the threshold
+SCORE_TOL = 1e-4
+OCR_LOGIT_SHARE = 1e-3      # card against the CPU, same weights
+EVENT_PROB_TOL = 1e-4       # card against the CPU, same weights
+ASR_STATE_TOL = 1e-4
 
 _T0 = time.perf_counter()
 
@@ -390,6 +416,32 @@ def check_kernels(dev) -> list[dict]:
             plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
             bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
             library="SDPA, bf16",
+            library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
+
+    # the perception encoders' attention, f32 as those models run (PERF.md
+    # rows 1c-1f): the segmenter's image encoder (32 frames), its mask
+    # decoder's cross-attention (32 frames x 4 concepts, head 32 padded to
+    # 64 by the wrapper), the byte ASR's encoder and its cached decode's
+    # cross-attention (4 windows, one query row per step)
+    for shape, b, h, sq, sk, d in (
+            ("segmenter image encoder: q/k/v [32,6,256,64] f32", 32, 6, 256, 256, 64),
+            ("segmenter mask decoder cross-attention: q [128,8,8,32], k/v [128,8,257,32] "
+             "f32 (head padded to 64)", 128, 8, 8, 257, 32),
+            ("byte ASR encoder: q/k/v [4,4,300,64] f32", 4, 4, 300, 300, 64),
+            ("byte ASR decode cross-attention: q [4,4,1,64], k/v [4,4,300,64] f32",
+             4, 4, 1, 300, 64)):
+        qt = randn(b, h, sq, d)
+        kt, vt = randn(b, h, sk, d), randn(b, h, sk, d)
+        err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt),
+                           attention_reference(qt, kt, vt), F32_TOL)
+        line_bound = bound_ms(sum(t.nbytes for t in (qt, kt, vt)) + qt.nbytes,
+                              4.0 * b * h * d * sq * sk, torch.bfloat16)
+        flash["lines"].append(dict(
+            name="flash_attention", shape=shape, max_abs_err=err,
+            ms=time_ms(lambda: flash_attention(qt, kt, vt), 50),
+            plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
+            bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+            library="SDPA, f32",
             library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
 
     live = 3072   # a usual QA prompt: the decode reads ~3K of the 4608 rows
@@ -1576,6 +1628,174 @@ def run_packed(dev, encoder, prepared):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the qa_lm arm's perception encoders
+# --------------------------------------------------------------------------
+
+def check_share(phase: str, what: str, err: float, limit: float) -> float:
+    ok = math.isfinite(err) and err <= limit
+    log(phase, f"{what}: {err:.3g} (limit {limit:.3g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{phase}: {what} {err} over {limit}")
+    return err
+
+
+def wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - start)
+
+
+def run_perception(dev):
+    """Phase 11: each encoder of the qa_lm arm served once through its entry
+    point (launches counted), then held against its plain path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.audio.mel import log_mel_spectrogram
+    from gvl_tpu_torch.audio.processor import AudioConfig, AudioProcessor
+    from gvl_tpu_torch.models.sam import hash_tokenize
+    from gvl_tpu_torch.models.whisper import greedy_decode_cached
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.perception import encoders as E
+    from gvl_tpu_torch.perception.ocr_model import _nn_resize, _to_gray, crop_to_input
+    from gvl_tpu_torch.runtime.resize import resize_image
+    from gvl_tpu_torch.training.asr_train import BOS_ID
+
+    start = time.perf_counter()
+    enc = E.random_encoders(dev, PERCEPTION_SEED)
+    queries, descs = E.retrieval_texts(RETRIEVAL_TEXTS, PERCEPTION_SEED)
+    frames = E.gameplay_frames(PERCEPTION_FRAMES, seed=PERCEPTION_SEED)
+    hud = E.hud_frames(OCR_FRAMES, seed=PERCEPTION_SEED)
+    audio = E.soundtrack(EVENT_SECONDS, seed=PERCEPTION_SEED)
+    speech = E.soundtrack(6 * ASR_CHUNKS, seed=PERCEPTION_SEED + 1)
+    processor = AudioProcessor(AudioConfig(max_audio_length=6.0, chunk_overlap=0.0),
+                               asr_backend=enc.asr, event_backend=enc.events)
+    concepts = list(E.CONCEPTS)
+    served = {
+        "retriever": lambda: enc.retriever.encode(descs + queries),
+        "segmenter": lambda: enc.segmenter.segment_batch(
+            frames, list(range(len(frames))), concepts),
+        "ocr": lambda: enc.ocr.batch(hud),
+        "audio events": lambda: processor.detect_audio_events(audio, 16000),
+        "byte ASR": lambda: processor.transcribe(speech, 16000),
+    }
+    with uncounted():       # first calls: lazy kernel loads, allocator growth
+        for fn in served.values():
+            fn()
+    torch.cuda.synchronize()
+    log("perception", f"encoders at their trained geometry, random weights seed "
+        f"{PERCEPTION_SEED}, built and warmed in {time.perf_counter() - start:.1f} s")
+
+    reset_launches()
+    walls, flash_by = {}, {}
+    for name, fn in served.items():
+        before = flash_attention.launches
+        walls[name] = wall_ms(fn)
+        flash_by[name] = flash_attention.launches - before
+    launches = served_launches("perception", ("flash_attention",))
+    smi = nvidia_smi()
+    for name in served:
+        log("perception", f"{name}: {walls[name]:.1f} ms wall per call (host clock), "
+            f"{flash_by[name]} flash_attention launches; {smi}")
+    for name in ("retriever", "segmenter", "byte ASR"):
+        if not flash_by[name]:
+            raise AssertionError(f"perception: {name} launched no flash_attention")
+    segments = processor.transcribe(speech, 16000)
+    log("perception", f"byte ASR: {len(segments)} segments of {ASR_CHUNKS} chunks")
+
+    with uncounted(), torch.inference_mode():
+        # retriever: kernel path against plain path, embeddings and top-1
+        got_q, got_d = enc.retriever.encode(queries), enc.retriever.encode(descs)
+        set_flash_kernel(enc.retriever.tower, False)
+        want_q, want_d = enc.retriever.encode(queries), enc.retriever.encode(descs)
+        set_flash_kernel(enc.retriever.tower, True)
+        check_share("perception", f"retriever ({2 * RETRIEVAL_TEXTS} texts): embedding "
+                    "max abs err", float(max(np.abs(got_q - want_q).max(),
+                                             np.abs(got_d - want_d).max())), RETRIEVER_TOL)
+        top_got, top_want = (got_q @ got_d.T).argmax(1), (want_q @ want_d.T).argmax(1)
+        if not np.array_equal(top_got, top_want):
+            raise AssertionError(f"perception: retriever top-1 differs on "
+                                 f"{int((top_got != top_want).sum())} queries")
+        log("perception", f"retriever: top-1 over the {RETRIEVAL_TEXTS}-entry index equal "
+            f"for all {RETRIEVAL_TEXTS} queries")
+
+        # segmenter: the backend's model on the frames it was served
+        backend = enc.segmenter.backend
+        size = backend.config.image_size
+        px = torch.from_numpy(np.stack([resize_image(f, size, size) for f in frames]))
+        px = px.to(dev).float() / 255.0
+        tokens = torch.from_numpy(np.stack([hash_tokenize(c, 4096) for c in concepts]))
+        got = backend.model(px, tokens.to(dev))
+        set_flash_kernel(backend.model, False)
+        want = backend.model(px, tokens.to(dev))
+        set_flash_kernel(backend.model, True)
+        scale = want["mask_logits"].abs().max().item()
+        check_share("perception", f"segmenter ({len(frames)} frames x {len(concepts)} "
+                    f"concepts): mask logits max abs err per max |logit| {scale:.3g}",
+                    max_err(got["mask_logits"], want["mask_logits"]) / scale,
+                    MASK_LOGIT_SHARE)
+        flips = ((got["mask_logits"] > 0) != (want["mask_logits"] > 0)).float().mean().item()
+        check_share("perception", "segmenter: share of flipped mask cells", flips,
+                    MASK_FLIP_SHARE)
+        check_share("perception", "segmenter: scores max abs err",
+                    max_err(got["scores"], want["scores"]), SCORE_TOL)
+
+        # OCR: detector and v2 recognizer on the card against the CPU
+        cfg = enc.ocr.config
+        canvases = np.stack([_nn_resize(_to_gray(f), cfg.det_height, cfg.det_width)
+                             for f in hud])[..., None].astype(np.float32)
+        crops = np.stack([crop_to_input(_to_gray(f)[40:90, 20:400], cfg) for f in hud])
+        for name, net, x in (("detector", enc.ocr.detector, canvases),
+                             ("v2 recognizer", enc.ocr.recognizer, crops[..., None])):
+            got = net(torch.from_numpy(x).to(dev)).cpu()
+            want = copy.deepcopy(net).cpu()(torch.from_numpy(x))
+            check_share("perception", f"OCR {name} ({len(hud)} frames): logits max abs err "
+                        f"per max |logit| {want.abs().max().item():.3g}, card vs CPU",
+                        max_err(got, want) / want.abs().max().item(), OCR_LOGIT_SHARE)
+
+        # event net: the card against the CPU
+        n = len(audio) // 16000
+        wavs = torch.from_numpy(audio[: n * 16000].reshape(n, 16000))
+        got = enc.events.probabilities(wavs.to(dev)).cpu()
+        cpu_events = copy.copy(enc.events)
+        cpu_events.net = copy.deepcopy(enc.events.net).cpu()
+        check_share("perception", f"event net ({n} s): probabilities max abs err, card vs "
+                    "CPU", max_err(got, cpu_events.probabilities(wavs)), EVENT_PROB_TOL)
+
+        # byte ASR: encoder states and greedy tokens, kernel path vs plain path
+        model = enc.asr.model
+        chunks = torch.from_numpy(speech.reshape(ASR_CHUNKS, -1)).to(dev)
+        mel = log_mel_spectrogram(chunks)
+        prompts = torch.full((ASR_CHUNKS, 1), BOS_ID, device=dev)
+        steps = enc.asr.config.max_target_positions - 1
+        got_states = model.encoder(mel)
+        got_tokens = greedy_decode_cached(model, mel, prompts, steps)
+        set_flash_kernel(model, False)
+        want_states = model.encoder(mel)
+        want_tokens = greedy_decode_cached(model, mel, prompts, steps)
+        set_flash_kernel(model, True)
+        check_share("perception", f"byte ASR ({ASR_CHUNKS} windows): encoder states max abs "
+                    "err", max_err(got_states, want_states), ASR_STATE_TOL)
+        differ = (got_tokens != want_tokens).nonzero()
+        if len(differ):
+            row, col = differ[0].tolist()
+            raise AssertionError(
+                f"perception: byte ASR greedy tokens differ first at window {row}, step "
+                f"{col}: kernel {got_tokens[row, :col + 1].tolist()}, plain "
+                f"{want_tokens[row, :col + 1].tolist()}")
+        log("perception", f"byte ASR: greedy token streams equal ({ASR_CHUNKS} windows x "
+            f"{got_tokens.shape[1]} positions)")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1618,8 +1838,11 @@ def main() -> int:
     semantic_launches, encoder, prepared = run_semantic(dev)
     served.append(semantic_launches)
     served.append(run_packed(dev, encoder, prepared))
+    del encoder, prepared
+    torch.cuda.empty_cache()
+    served.append(run_perception(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-10): {launches}")
+    log("launches", f"served paths (phases 3-11): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

@@ -52,3 +52,16 @@ class GenerationConfig:
     temperature: float = 0.7
     top_p: float = 0.8
     top_k: int = 20
+
+
+@dataclass
+class RetrievalConfig:
+    """The retrieval fields of ``gvl_tpu.agent.config.ReasoningCoreConfig``
+    that :class:`gvl_tpu_torch.agent.retriever.TimelineRetriever` and
+    :func:`~gvl_tpu_torch.agent.retriever.make_embedder` read (any object
+    with these attributes will do)."""
+
+    retrieval_window_sec: float = 30.0
+    semantic_top_k: int = 10
+    embedding_model: str = "auto"
+    embedding_dim: int = 256

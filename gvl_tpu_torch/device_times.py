@@ -1,7 +1,7 @@
 """Device-side kernel times and the device's busy share during decode and
 during the fused SigLIP tower's forward.
 
-    python -m gvl_tpu_torch.device_times [--only kernels|decode|semantic]
+    python -m gvl_tpu_torch.device_times [--only kernels|decode|semantic|perception]
 
 Run from the repository root on a machine with one CUDA card.  CUDA events
 around back-to-back calls of a small kernel measure the host's launch cost
@@ -27,14 +27,22 @@ from ``torch.profiler`` (CUPTI) instead:
    seed 0): the device time per launch of the six fused kernels at its
    shapes, and for one forward at batch 8 (384 canvas) and at the region
    bucket of 16 (128 canvas), wall and device ms per batch, the busy share
-   and the top device kernels; the bf16 tower beside it.
+   and the top device kernels; the bf16 tower beside it;
+5. the ``qa_lm`` arm's perception encoders at their trained geometry with
+   seeded random weights (:mod:`gvl_tpu_torch.perception.encoders`): the
+   flash kernel's device time per launch at their attention shapes, and
+   for one call of each encoder's entry point (the retriever on 128 texts,
+   the segmenter on 32 frames x 4 concepts, the OCR engine on 8 HUD
+   frames, event detection on 8 s, transcription of 4 windows of 6 s)
+   wall ms, device ms, CUDA kernel launches, the busy share and the top
+   device kernels.
 
 Every decode profile also counts the device's kernel launches per step
 (``device_launches_per_step``, CUDA kernel events in the profile) and its
 memory copies and sets (``device_copies_per_step``).
 
-``--only kernels``, ``decode`` or ``semantic`` runs part 1, parts 2-3 or
-part 4 alone.  ``decode`` uses only what every slice of the port has, so
+``--only kernels``, ``decode``, ``semantic`` or ``perception`` runs part 1,
+parts 2-3, part 4 or part 5 alone.  ``decode`` uses only what every slice of the port has, so
 this file copied into a checkout of an earlier commit measures that commit
 the same way.  It prints one JSON object as its last line.  The host's
 cost per call of each kernel wrapper is ``launch_costs.py``'s, at the
@@ -278,6 +286,71 @@ def semantic_profile(dev) -> dict:
     return out
 
 
+def call_profile(fn, repeats: int = 3) -> dict:
+    """Wall ms per call of ``fn`` (host clock, no profiler), device ms and
+    CUDA kernel launches per call (profiler), the busy share and the top
+    device kernels."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - start) / repeats
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = _device_us(prof)
+    device_ms = sum(per_kernel.values()) / 1e3 / repeats
+    launches, copies = _launch_counts(prof)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall, "device_ms": device_ms, "busy_share": device_ms / wall,
+            "kernel_launches": launches / repeats, "copies": copies / repeats,
+            "top_kernels_ms": {k[:80]: v / 1e3 / repeats for k, v in top}}
+
+
+def perception_profile(dev) -> dict:
+    """Part 5: the perception encoders' attention shapes and entry points."""
+    from gvl_tpu_torch.audio.processor import AudioConfig, AudioProcessor
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.perception import encoders as E
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = {"segmenter image encoder [32,6,256,64]": (32, 6, 256, 256, 64),
+              "mask decoder cross [128,8,8->257,32]": (128, 8, 8, 257, 32),
+              "ASR encoder [4,4,300,64]": (4, 4, 300, 300, 64),
+              "ASR decode cross [4,4,1->300,64]": (4, 4, 1, 300, 64)}
+    attention = {}
+    for name, (b, h, sq, sk, d) in shapes.items():
+        q = torch.randn(b, h, sq, d, generator=gen, device=dev)
+        k, v = (torch.randn(b, h, sk, d, generator=gen, device=dev) for _ in range(2))
+        attention[name] = kernel_device_ms(lambda: flash_attention(q, k, v),
+                                           ("flash_attention_kernel",))
+    print(f"flash_attention at the encoders' shapes, device ms per launch: {attention}",
+          flush=True)
+    enc = E.random_encoders(dev, seed=11)
+    queries, descs = E.retrieval_texts(64, seed=11)
+    frames = E.gameplay_frames(32, seed=11)
+    hud = E.hud_frames(8, seed=11)
+    audio, speech = E.soundtrack(8, seed=11), E.soundtrack(24, seed=12)
+    processor = AudioProcessor(AudioConfig(max_audio_length=6.0, chunk_overlap=0.0),
+                               asr_backend=enc.asr, event_backend=enc.events)
+    calls = {
+        "retriever, 128 texts": lambda: enc.retriever.encode(descs + queries),
+        "segmenter, 32 frames x 4 concepts": lambda: enc.segmenter.segment_batch(
+            frames, list(range(32)), list(E.CONCEPTS)),
+        "OCR, 8 HUD frames": lambda: enc.ocr.batch(hud),
+        "audio events, 8 s": lambda: processor.detect_audio_events(audio, 16000),
+        "byte ASR, 4 windows of 6 s": lambda: processor.transcribe(speech, 16000),
+    }
+    out = {"flash_device_ms_per_launch": attention}
+    for name, fn in calls.items():
+        out[name] = call_profile(fn)
+        print(f"{name}: {out[name]}", flush=True)
+    return out
+
+
 def kernel_profile(dev) -> dict:
     """Part 1: device ms per launch of the decoders' kernels."""
     from gvl_tpu_torch.ops.attention import flash_attention
@@ -413,11 +486,14 @@ def decode_profiles(dev) -> dict:
 
 
 PARTS = {"kernels": kernel_profile, "decode": decode_profiles,
-         "semantic": semantic_profile}
+         "semantic": semantic_profile, "perception": perception_profile}
 
 
 def main(parts=tuple(PARTS)) -> dict:
     dev = resolve_device("cuda")
+    # f32 products and convolutions in full f32, as chip_smoke.py checks them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     out = {"device": torch.cuda.get_device_name(0)}
     for name in parts:
         out[name] = PARTS[name](dev)

@@ -108,6 +108,40 @@ def map_head_from_jax(head: dict, prefix: str = "head") -> dict[str, torch.Tenso
     return out
 
 
+def _attention(node: dict, prefix: str) -> dict:
+    """Four Flax ``Dense`` projections q/k/v/o (``gvl_tpu.nn.layers.
+    Attention``, or Whisper's, whose k_proj has no bias)."""
+    out = {}
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        out.update(_dense(node[name], f"{prefix}.{name}"))
+    return out
+
+
+def _mlp(node: dict, prefix: str) -> dict:
+    out = _dense(node["fc1"], f"{prefix}.fc1")
+    out.update(_dense(node["fc2"], f"{prefix}.fc2"))
+    return out
+
+
+def block_from_jax(layer: dict, prefix: str) -> dict:
+    """A Flax LayerNorm/GELU ``TransformerBlock`` → the port's block."""
+    out = _norm(layer["LayerNorm_0"], f"{prefix}.ln1")
+    out.update(_norm(layer["LayerNorm_1"], f"{prefix}.ln2"))
+    out.update(_attention(layer["attention"], f"{prefix}.attention"))
+    out.update(_mlp(layer["mlp"], f"{prefix}.mlp"))
+    return out
+
+
+def stack_from_jax(node: dict, prefix: str, num_layers: int) -> dict:
+    """A Flax ``TransformerStack`` (blocks ``layers_{i}``, its final norm
+    ``LayerNorm_0``) → the port's ``TransformerStack``."""
+    out = {}
+    for i in range(num_layers):
+        out.update(block_from_jax(node[f"layers_{i}"], f"{prefix}.layers.{i}"))
+    out.update(_norm(node["LayerNorm_0"], f"{prefix}.final_norm"))
+    return out
+
+
 def siglip_params_from_jax(tree: dict, num_layers: int) -> dict[str, torch.Tensor]:
     """A Flax ``SigLIPVisionTower`` tree (numpy leaves; float, W8A8 or
     calibrated W8A8 layers) → the port's ``SigLIPVisionTower`` state dict,
@@ -116,15 +150,21 @@ def siglip_params_from_jax(tree: dict, num_layers: int) -> dict[str, torch.Tenso
     out = _dense(params["patch_embed"]["proj"], "patch_embed.proj")
     out["pos_embed"] = _tensor(params["pos_embed"])
     for i in range(num_layers):
-        layer, pre = params[f"layers_{i}"], f"layers.{i}"
-        out.update(_norm(layer["LayerNorm_0"], f"{pre}.ln1"))
-        out.update(_norm(layer["LayerNorm_1"], f"{pre}.ln2"))
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            out.update(_dense(layer["attention"][name], f"{pre}.attention.{name}"))
-        for name in ("fc1", "fc2"):
-            out.update(_dense(layer["mlp"][name], f"{pre}.mlp.{name}"))
+        out.update(block_from_jax(params[f"layers_{i}"], f"layers.{i}"))
     out.update(_norm(params["post_norm"], "post_norm"))
     out.update(map_head_from_jax(params["head"]))
+    return out
+
+
+def siglip_text_params_from_jax(tree: dict, num_layers: int) -> dict[str, torch.Tensor]:
+    """A Flax ``SigLIPTextTower`` tree → the port's ``SigLIPTextTower``."""
+    params = tree["params"] if "params" in tree else tree
+    out = {"token_embed.weight": _tensor(params["token_embed"]["embedding"]),
+           "pos_embed": _tensor(params["pos_embed"])}
+    for i in range(num_layers):
+        out.update(block_from_jax(params[f"layers_{i}"], f"layers.{i}"))
+    out.update(_norm(params["final_norm"], "final_norm"))
+    out.update(_dense(params["head"], "head"))
     return out
 
 
@@ -157,3 +197,114 @@ def fused_from_jax(fused: dict) -> dict:
         "post_norm_b": _tensor(bf["post_norm_b"]),
         "head": {k[len("head."):]: v for k, v in map_head_from_jax(bf["head"]).items()},
     }, "layers": layers}
+
+
+# --------------------------------------------------------------------------
+# Perception encoders: segmenter, OCR nets, audio-event net, Whisper
+# --------------------------------------------------------------------------
+
+def sam_params_from_jax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """A Flax ``PromptableSegmenter`` tree → the port's
+    ``PromptableSegmenter`` state dict (``config``: its ``SamConfig``)."""
+    params = tree["params"] if "params" in tree else tree
+    enc, text, dec = params["image_encoder"], params["text_tower"], params["decoder"]
+    out = _dense(enc["patch_proj"], "image_encoder.patch_proj")
+    out["image_encoder.pos"] = _tensor(enc["pos"])
+    out.update(stack_from_jax(enc["encoder"], "image_encoder.encoder", config.encoder_layers))
+    out.update(_dense(enc["neck"], "image_encoder.neck"))
+    out["text_tower.embed.weight"] = _tensor(text["embed"]["embedding"])
+    out["text_tower.pos"] = _tensor(text["pos"])
+    for i in range(config.text_layers):
+        out.update(block_from_jax(text[f"layers_{i}"], f"text_tower.layers.{i}"))
+    out.update(_dense(text["proj"], "text_tower.proj"))
+    out["decoder.queries"] = _tensor(dec["queries"])
+    for i in range(config.decoder_layers):
+        for kind in ("cross", "self"):
+            out.update(_attention(dec[f"{kind}_{i}"], f"decoder.{kind}_{i}"))
+        for kind in ("cross_norm", "self_norm", "mlp_norm"):
+            out.update(_norm(dec[f"{kind}_{i}"], f"decoder.{kind}_{i}"))
+        out.update(_mlp(dec[f"mlp_{i}"], f"decoder.mlp_{i}"))
+    for name in ("pixel_head", "mask_head", "score_head"):
+        out.update(_dense(dec[name], f"decoder.{name}"))
+    return out
+
+
+def _conv(node: dict, prefix: str) -> dict:
+    """A Flax ``Conv`` (kernel HWIO, or WIO in one dimension) → torch's
+    ``weight`` (OIHW / OIW) and ``bias``."""
+    kernel = np.asarray(node["kernel"])
+    axes = (3, 2, 0, 1) if kernel.ndim == 4 else (2, 1, 0)
+    return {f"{prefix}.weight": _tensor(np.ascontiguousarray(kernel.transpose(axes))),
+            f"{prefix}.bias": _tensor(node["bias"])}
+
+
+def _self_attention(node: dict, prefix: str) -> dict:
+    """A Flax ``SelfAttention`` (``query/key/value`` kernels ``[d, heads,
+    dh]``, ``out`` ``[heads, dh, d]``) → four ``nn.Linear`` states."""
+    out = {}
+    for name in ("query", "key", "value"):
+        k = np.asarray(node[name]["kernel"])
+        out[f"{prefix}.{name}.weight"] = _tensor(k.reshape(k.shape[0], -1).T)
+        out[f"{prefix}.{name}.bias"] = _tensor(np.asarray(node[name]["bias"]).reshape(-1))
+    k = np.asarray(node["out"]["kernel"])
+    out[f"{prefix}.out.weight"] = _tensor(k.reshape(-1, k.shape[-1]).T)
+    out[f"{prefix}.out.bias"] = _tensor(node["out"]["bias"])
+    return out
+
+
+def ocr_net_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """A Flax OCR net (``TextDetectorNet``, ``TextRecognizerNet`` or
+    ``TextRecognizerNetV2``) → the port's net of the same name; the state
+    keys are the Flax names (``Conv_0``, ``Dense_0``, ``attn_0``, ...)."""
+    params = tree["params"] if "params" in tree else tree
+    out = {}
+    for name, node in params.items():
+        if name.startswith("Conv_"):
+            out.update(_conv(node, name))
+        elif name.startswith("attn_"):
+            out.update(_self_attention(node, name))
+        elif name.startswith(("ln", "LayerNorm")):
+            out.update(_norm(node, name))
+        elif name == "pos_embed":
+            out[name] = _tensor(node)
+        else:
+            out.update(_dense(node, name))
+    return out
+
+
+def event_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """A Flax ``AudioEventNet`` tree → the port's ``AudioEventNet``."""
+    params = tree["params"] if "params" in tree else tree
+    out = {}
+    for name, node in params.items():
+        out.update(_conv(node, name) if name.startswith("conv") else _dense(node, name))
+    return out
+
+
+def whisper_params_from_jax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """A Flax ``WhisperModel`` tree (encoder convs stored as
+    ``conv1/kernel``: one escaped name) → the port's ``WhisperModel``."""
+    params = tree["params"] if "params" in tree else tree
+    enc, dec = params["encoder"], params["decoder"]
+    out = {}
+    for conv in ("conv1", "conv2"):
+        node = {"kernel": enc[f"{conv}/kernel"], "bias": enc[f"{conv}/bias"]}
+        out.update(_conv(node, f"encoder.{conv}"))
+    for i in range(config.encoder_layers):
+        layer, pre = enc[f"layers_{i}"], f"encoder.layers.{i}"
+        out.update(_norm(layer["attn_norm"], f"{pre}.attn_norm"))
+        out.update(_attention(layer["self_attn"], f"{pre}.self_attn"))
+        out.update(_norm(layer["ff_norm"], f"{pre}.ff_norm"))
+        out.update(_mlp(layer, pre))
+    out.update(_norm(enc["final_norm"], "encoder.final_norm"))
+    out["decoder.embed_tokens"] = _tensor(dec["embed_tokens"])
+    out["decoder.embed_positions"] = _tensor(dec["embed_positions"])
+    for i in range(config.decoder_layers):
+        layer, pre = dec[f"layers_{i}"], f"decoder.layers.{i}"
+        for norm in ("self_norm", "cross_norm", "ff_norm"):
+            out.update(_norm(layer[norm], f"{pre}.{norm}"))
+        for attn in ("self_attn", "cross_attn"):
+            out.update(_attention(layer[attn], f"{pre}.{attn}"))
+        out.update(_mlp(layer, pre))
+    out.update(_norm(dec["final_norm"], "decoder.final_norm"))
+    return out

@@ -1,10 +1,12 @@
-"""SigLIP2-class vision tower (counterpart of :mod:`gvl_tpu.models.siglip`).
+"""SigLIP2-class vision and text towers (counterpart of
+:mod:`gvl_tpu.models.siglip`).
 
 Patchify is a reshape and one matrix product (stride equals kernel), the
 encoder is a stack of LayerNorm/GELU :class:`~gvl_tpu_torch.nn.layers.
 TransformerBlock` layers, and the attention-pooling MAP head gives the
 pooled output.  Pixels are channels-last ``[B, H, W, 3]`` as in the JAX
-package.  ``quant_int8`` builds the W8A8 encoder (dynamic activation
+package.  The text tower (:class:`SigLIPTextTower`) carries the trained
+retriever.  ``quant_int8`` builds the W8A8 encoder (dynamic activation
 scales, or static ones with ``quant_static_act``); :func:`quantize_siglip_int8`
 and :func:`calibrate_siglip_int8` make its weights.
 """
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gvl_tpu_torch import resolve_device
-from gvl_tpu_torch.nn.layers import LayerNorm, TransformerBlock, gelu_tanh
+from gvl_tpu_torch.nn.layers import LayerNorm, TransformerBlock, gelu_tanh, load_module
 from gvl_tpu_torch.nn.quant import W8A8Dense, bake_act_scales, quantize_kernels_int8
 
 
@@ -177,8 +179,7 @@ def load_tower(config: SigLIPVisionConfig, state: dict[str, torch.Tensor],
     device = resolve_device(device)
     with torch.device("meta"):
         tower = SigLIPVisionTower(config)
-    tower.load_state_dict(state, assign=True)
-    return tower.to(device).eval()
+    return load_module(tower, state, device)
 
 
 def init_tower_params(config: SigLIPVisionConfig, generator: torch.Generator,
@@ -235,3 +236,52 @@ def calibrate_siglip_int8(config: SigLIPVisionConfig, qstate: dict[str, torch.Te
         for pixels in batches:
             tower(pixels.float(), pool=False)
     return bake_act_scales(tower, qstate)
+
+
+@dataclass(frozen=True)
+class SigLIPTextConfig:
+    """Text-tower hyperparameters (defaults: so400m's text side)."""
+
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_layers: int = 27
+    num_heads: int = 16
+    vocab_size: int = 32000
+    max_position: int = 64
+    projection_size: int = 1152
+    layer_norm_eps: float = 1e-6
+
+    @classmethod
+    def tiny(cls, **kw) -> "SigLIPTextConfig":
+        base = dict(hidden_size=32, intermediate_size=64, num_layers=2,
+                    num_heads=2, vocab_size=256, max_position=16,
+                    projection_size=32)
+        base.update(kw)
+        return cls(**base)
+
+
+class SigLIPTextTower(nn.Module):
+    """SigLIP text encoder: token + position embeddings, LayerNorm/GELU
+    blocks with no mask (pads are attended, as the JAX tower does), a
+    final LayerNorm, and the pooled output: the LAST position through the
+    projection head."""
+
+    def __init__(self, config: SigLIPTextConfig):
+        super().__init__()
+        self.config = config
+        self.token_embed = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.pos_embed = nn.Parameter(torch.zeros(config.max_position, config.hidden_size))
+        self.layers = nn.ModuleList(
+            TransformerBlock(config.hidden_size, config.num_heads,
+                             config.intermediate_size, eps=config.layer_norm_eps)
+            for _ in range(config.num_layers))
+        self.final_norm = LayerNorm(config.hidden_size, config.layer_norm_eps)
+        self.head = nn.Linear(config.hidden_size, config.projection_size)
+
+    def forward(self, input_ids: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = self.token_embed(input_ids.long())
+        x = x + self.pos_embed[None, : x.shape[1]].to(x.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        x = self.final_norm(x)
+        return {"last_hidden_state": x, "pooled": self.head(x[:, -1])}

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -55,12 +56,78 @@ def _dense(in_dim: int, out_dim: int, quant: bool, quant_static: bool,
     return nn.Linear(in_dim, out_dim, bias=use_bias)
 
 
+def attend(module: nn.Module, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **kw) -> torch.Tensor:
+    """``[B, H, S, dh]`` attention for ``module``: through the flash kernel's
+    wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
+    or straight through the plain version when ``module.use_flash_kernel``
+    is off, which is how a model's kernel path is held to its plain path on
+    the card (:func:`set_flash_kernel`)."""
+    from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    fn = flash_attention if module.use_flash_kernel else attention_reference
+    return fn(q, k, v, **kw)
+
+
+def set_flash_kernel(model: nn.Module, on: bool) -> nn.Module:
+    """Send every attention of ``model`` through the flash kernel (``on``)
+    or through its plain version; returns ``model``."""
+    for m in model.modules():
+        if hasattr(m, "use_flash_kernel"):
+            m.use_flash_kernel = on
+    return model
+
+
+def init_state(model: nn.Module, generator: torch.Generator,
+               device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Random f32 weights for ``model`` (built on any device, the meta
+    device included) as a state dict on ``device``, drawn from
+    ``generator`` in the order of ``model.state_dict()`` with the JAX
+    package's initialisers: matrices and convolutions ``N(0, 1/fan_in)``
+    (Flax's lecun normal, untruncated), zero biases, unit norms, and
+    ``N(0, 0.02²)`` for every other parameter (embeddings, positions,
+    queries)."""
+    from gvl_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    norms = {f"{name}.weight" for name, m in model.named_modules()
+             if isinstance(m, (LayerNorm, nn.LayerNorm, RMSNorm))}
+    dense = {f"{name}.weight" for name, m in model.named_modules()
+             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d))}
+    state = {}
+    for name, t in model.state_dict().items():
+        w = torch.empty(t.shape, dtype=torch.float32, device=device)
+        if name in norms:
+            w.fill_(1.0)
+        elif name.rsplit(".", 1)[-1] == "bias":
+            w.zero_()
+        elif name in dense:
+            w.normal_(0.0, 1.0 / math.sqrt(t[0].numel()), generator=generator)
+        else:
+            w.normal_(0.0, 0.02, generator=generator)
+        state[name] = w
+    return state
+
+
+def load_module(model: nn.Module, state: dict[str, torch.Tensor],
+                device: str | torch.device = "cuda") -> nn.Module:
+    """``model`` (built on the meta device) holding the state dict's tensors,
+    in eval mode on ``device``."""
+    from gvl_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    model.load_state_dict(state, assign=True)
+    return model.to(device).eval()
+
+
 class Attention(nn.Module):
     """Multi-head self-attention of the encoder family (bias on every
     projection, no mask but an optional key length), input and output
     ``[B, S, D]``; heads go to :func:`gvl_tpu_torch.ops.attention.
     flash_attention` as ``[B, H, S, dh]`` (``gvl_tpu.nn.layers.Attention``
     with ``quant`` / ``quant_static``: W8A8 projections)."""
+
+    use_flash_kernel = True
 
     def __init__(self, dim: int, num_heads: int, *, quant: bool = False,
                  quant_static: bool = False):
@@ -75,16 +142,14 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 kv_len: Optional[int] = None) -> torch.Tensor:
-        from gvl_tpu_torch.ops.attention import flash_attention
-
         kv_in = x if kv is None else kv
         batch, seq_q, _ = x.shape
 
         def heads(t):
             return t.view(batch, -1, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
 
-        out = flash_attention(heads(self.q_proj(x)), heads(self.k_proj(kv_in)),
-                              heads(self.v_proj(kv_in)), kv_len=kv_len)
+        out = attend(self, heads(self.q_proj(x)), heads(self.k_proj(kv_in)),
+                     heads(self.v_proj(kv_in)), kv_len=kv_len)
         out = out.transpose(1, 2).reshape(batch, seq_q, self.num_heads * self.head_dim)
         return self.o_proj(out)
 
@@ -123,3 +188,22 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, kv_len: Optional[int] = None) -> torch.Tensor:
         x = x + self.attention(self.ln1(x), kv_len=kv_len)
         return x + self.mlp(self.ln2(x))
+
+
+class TransformerStack(nn.Module):
+    """``num_layers`` :class:`TransformerBlock` layers, then a LayerNorm
+    (``gvl_tpu.nn.layers.TransformerStack`` with its default LayerNorm/GELU
+    blocks and final norm)."""
+
+    def __init__(self, num_layers: int, dim: int, num_heads: int,
+                 intermediate_dim: int, *, eps: float = 1e-6):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerBlock(dim, num_heads, intermediate_dim, eps=eps)
+            for _ in range(num_layers))
+        self.final_norm = LayerNorm(dim, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return self.final_norm(x)

@@ -1,5 +1,6 @@
-"""uint8 image resize: the port's own copy of the JAX package's native
-``resize_u8`` (``gvl_tpu/runtime/csrc/gvl_runtime.cpp``), in numpy.
+"""uint8 image and mask resize: the port's own copies of the JAX package's
+native ``resize_u8`` and ``resize_nearest_u8``
+(``gvl_tpu/runtime/csrc/gvl_runtime.cpp``), in numpy.
 
 Area average when neither side grows, else bilinear with half-pixel
 centres in 8.8 fixed point; coordinates in float32 as the C++ computes
@@ -62,3 +63,17 @@ def resize_image(image: np.ndarray, height: int, width: int) -> np.ndarray:
     top = img[y0][:, x0] * (256 - wx3) + img[y0][:, x1] * wx3
     bot = img[y1][:, x0] * (256 - wx3) + img[y1][:, x1] * wx3
     return ((top * (256 - wy3) + bot * wy3 + 32768) >> 16).astype(np.uint8)
+
+
+def resize_mask(mask: np.ndarray, height: int, width: int) -> np.ndarray:
+    """bool ``[H, W]`` → bool ``[height, width]`` by nearest neighbour: the
+    port's copy of the JAX package's native ``resize_nearest_u8``
+    (source index ``(i · src) // dst`` on each axis), so the cells are
+    those of ``gvl_tpu.runtime.native.resize_mask``."""
+    src = np.asarray(mask)
+    sh, sw = src.shape
+    if min(sh, sw, height, width) <= 0:
+        raise ValueError(f"cannot resize {src.shape} to ({height}, {width})")
+    ys = np.minimum(np.arange(height, dtype=np.int64) * sh // height, sh - 1)
+    xs = np.minimum(np.arange(width, dtype=np.int64) * sw // width, sw - 1)
+    return src.astype(bool)[ys][:, xs]

@@ -6,6 +6,9 @@ a ``/`` inside a name is escaped as ``\\/`` (and a backslash as ``\\\\``).
 
 from __future__ import annotations
 
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
 
 
@@ -39,3 +42,18 @@ def load_flat_npz(path) -> dict:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
     return tree
+
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+
+def resolve_repo_path(path) -> Optional[str]:
+    """Path as given if it exists, else relative to the repository root
+    (``gvl_tpu.utils.checkpoints.resolve_repo_path``)."""
+    if not path:
+        return None
+    p = Path(path)
+    if p.exists():
+        return str(p)
+    rooted = REPO_ROOT / p
+    return str(rooted) if rooted.exists() else None

@@ -1116,3 +1116,72 @@ def test_decode_attention_is_one_kernel_launch(dev):
     k_all = kc[None].repeat(2, 1, 1, 1, 1)
     events = _kernel_events(lambda: decode_attention_stacked(q, k_all, k_all, lengths, 1))
     assert [e.count for e in events] == [1], [(e.key, e.count) for e in events]
+
+
+# B1 at the perception encoders' shapes (f32, as those models run)
+@pytest.mark.parametrize("what,b,h,sq,sk,d,causal", [
+    ("mask decoder cross-attention, head 32 padded to 64", 128, 8, 8, 257, 32, False),
+    ("mask decoder self-attention, head 32 padded to 64", 128, 8, 8, 8, 32, False),
+    ("byte ASR cross-attention, one query over 300 keys", 4, 4, 1, 300, 64, False),
+    ("byte ASR teacher-forced decoder, causal", 4, 4, 96, 96, 64, True),
+    ("retriever text tower, 64 positions", 64, 4, 64, 64, 64, False),
+    ("segmenter image encoder, 256 tokens", 32, 6, 256, 256, 64, False),
+])
+def test_flash_attention_at_the_encoder_shapes(dev, what, b, h, sq, sk, d, causal):
+    q = _randn(dev, b, h, sq, d, seed=91)
+    k = _randn(dev, b, h, sk, d, seed=92)
+    v = _randn(dev, b, h, sk, d, seed=93)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches > before and got.shape == q.shape, what
+    torch.testing.assert_close(got, attention_reference(q, k, v, causal=causal), **F32_TOL)
+
+
+def test_perception_models_kernel_path_matches_plain_path(dev):
+    """Each encoder on the card, seeded random weights, through the flash
+    kernel and through its plain version (``set_flash_kernel``)."""
+    from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig
+    from gvl_tpu_torch.models.siglip import SigLIPTextConfig, SigLIPTextTower
+    from gvl_tpu_torch.models.whisper import WhisperModel, greedy_decode_cached
+    from gvl_tpu_torch.nn.layers import init_state, load_module, set_flash_kernel
+    from gvl_tpu_torch.training.asr_train import asr_config
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def build(make):
+        with torch.device("meta"):
+            model = make()
+        return load_module(model, init_state(model, gen, dev), dev)
+
+    def both(model, *args, fn=None):
+        fn = fn or model
+        with torch.inference_mode():
+            set_flash_kernel(model, True)
+            before = flash_attention.launches
+            got = fn(*args)
+            assert flash_attention.launches > before
+            set_flash_kernel(model, False)
+            want = fn(*args)
+            set_flash_kernel(model, True)
+        return got, want
+
+    sam = build(lambda: PromptableSegmenter(SamConfig()))
+    got, want = both(sam, torch.rand(2, 256, 256, 3, generator=gen, device=dev),
+                     torch.randint(1, 4096, (3, 16), generator=gen, device=dev))
+    scale = want["mask_logits"].abs().max().item()
+    torch.testing.assert_close(got["mask_logits"], want["mask_logits"], atol=1e-3 * scale,
+                               rtol=0)
+    torch.testing.assert_close(got["scores"], want["scores"], atol=1e-4, rtol=0)
+    text = build(lambda: SigLIPTextTower(SigLIPTextConfig(
+        hidden_size=256, intermediate_size=1024, num_layers=4, num_heads=4, vocab_size=256,
+        max_position=64, projection_size=256)))
+    got, want = both(text, torch.randint(0, 256, (8, 64), generator=gen, device=dev))
+    torch.testing.assert_close(got["pooled"], want["pooled"], **F32_TOL)
+    asr = build(lambda: WhisperModel(asr_config()))
+    mel = torch.randn(2, 600, 80, generator=gen, device=dev)
+    got, want = both(asr, mel, fn=asr.encoder)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    prompts = torch.full((2, 1), 257, device=dev)
+    got, want = both(asr, mel, prompts, 16,
+                     fn=lambda m, p, n: greedy_decode_cached(asr, m, p, n))
+    assert torch.equal(got, want)

@@ -25,7 +25,7 @@ def test_launch_counts_split_kernels_from_copies():
 
 
 def test_parts_and_usage():
-    assert set(device_times.PARTS) == {"kernels", "decode", "semantic"}
+    assert set(device_times.PARTS) == {"kernels", "decode", "semantic", "perception"}
     proc = subprocess.run([sys.executable, "-m", "gvl_tpu_torch.device_times", "--only",
                            "nothing"], capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "usage" in proc.stderr

@@ -39,10 +39,17 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.serving.api", "gvl_tpu_torch.ops.quant_matmul",
              "gvl_tpu_torch.nn.quant", "gvl_tpu_torch.models.siglip",
              "gvl_tpu_torch.models.siglip_fused", "gvl_tpu_torch.runtime.resize",
-             "gvl_tpu_torch.perception.semantic"):
+             "gvl_tpu_torch.perception.semantic", "gvl_tpu_torch.training.retriever_train",
+             "gvl_tpu_torch.agent.retriever", "gvl_tpu_torch.models.sam",
+             "gvl_tpu_torch.perception.segmenter", "gvl_tpu_torch.perception.ocr_model",
+             "gvl_tpu_torch.perception.ocr", "gvl_tpu_torch.audio.mel",
+             "gvl_tpu_torch.audio.event_model", "gvl_tpu_torch.models.whisper",
+             "gvl_tpu_torch.training.asr_train", "gvl_tpu_torch.audio.processor",
+             "gvl_tpu_torch.runtime.wav"):
     assert name in names, name
 import chip_smoke
 import launch_costs
+import card_figures
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print(len(names), "modules")
@@ -135,6 +142,57 @@ def test_entry_points_raise_without_a_card(no_card):
     assert Qwen3Engine(cfg, state, device="cpu").device.type == "cpu"
 
 
+def test_perception_entry_points_raise_without_a_card(no_card):
+    from gvl_tpu_torch.agent.config import RetrievalConfig
+    from gvl_tpu_torch.agent.retriever import TimelineRetriever, make_embedder
+    from gvl_tpu_torch.audio.event_model import (
+        TorchAudioEventDetector,
+        TrainedAudioEmbedder,
+        load_event_params,
+    )
+    from gvl_tpu_torch.audio.processor import create_audio_processor
+    from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig
+    from gvl_tpu_torch.models.whisper import WhisperConfig, load_whisper
+    from gvl_tpu_torch.nn.layers import init_state, load_module
+    from gvl_tpu_torch.perception.ocr import OCRConfig, OCRPipeline, create_ocr_pipeline
+    from gvl_tpu_torch.perception.ocr_model import TorchOCREngine
+    from gvl_tpu_torch.perception.segmenter import (
+        SAMConfig,
+        TorchSegmenterBackend,
+        create_sam_segmenter,
+    )
+    from gvl_tpu_torch.training.asr_train import TrainedByteASR
+    from gvl_tpu_torch.training.retriever_train import TrainedTextEmbedder
+
+    outputs = REPO / "outputs"
+    events = load_event_params(outputs / "audio_event_params.npz")
+    with torch.device("meta"):
+        tiny_sam = PromptableSegmenter(SamConfig.tiny())
+    calls = [
+        lambda: TrainedTextEmbedder.from_dir(outputs / "retriever"),
+        lambda: make_embedder(RetrievalConfig()),
+        lambda: TimelineRetriever(RetrievalConfig()),
+        lambda: TorchSegmenterBackend(SAMConfig()),
+        lambda: create_sam_segmenter(use_model=True),
+        lambda: create_sam_segmenter(checkpoint=str(outputs / "sam_params.npz")),
+        lambda: TorchOCREngine(),
+        lambda: create_ocr_pipeline("native"),
+        lambda: OCRPipeline(OCRConfig(backend="jax")),
+        lambda: TorchAudioEventDetector(events),
+        lambda: TrainedAudioEmbedder(events),
+        lambda: TrainedByteASR.from_dir(outputs / "asr"),
+        lambda: load_whisper(WhisperConfig.tiny_random(), {}),
+        lambda: create_audio_processor(asr_checkpoint=str(outputs / "asr")),
+        lambda: create_audio_processor(event_checkpoint=str(outputs / "audio_event_params.npz")),
+        lambda: init_state(tiny_sam, torch.Generator()),
+        lambda: load_module(tiny_sam, {}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert TorchOCREngine(device="cpu").device.type == "cpu"
+
+
 def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():
     from gvl_tpu_torch.ops import attention, cache_update, decode_attention, quant_matmul
 
@@ -175,6 +233,14 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_chip_smoke(tmp_path, {"PYTHONPATH": ""})
     assert proc.returncode != 0
     assert "gvl_tpu_torch" in proc.stderr and '"ok"' not in proc.stdout
+
+
+def test_card_figures_fails_without_a_card():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "card_figures.py", "qa"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"device"' not in proc.stdout
 
 
 def test_launch_costs_fails_without_a_card():
