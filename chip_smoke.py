@@ -62,10 +62,23 @@ Run from the root of the repository, on a machine with one CUDA card and
     greedy tokens (the flash kernel against its plain version on the
     card), the OCR nets' logits and the event net's probabilities (no
     flash kernel: the card against the CPU on the same weights); wall ms
-    per call of each encoder.
+    per call of each encoder;
+12. the ``qa_lm`` arm end to end (``gvl_tpu_torch.pipeline``): seeded
+    random checkpoints of the segmenter, event net, byte ASR and retriever
+    at their trained geometry, written in the repository's format (the
+    trained files are not in the card's copy, and each ladder would take
+    its fake without them), every ladder asserted to resolve to its model;
+    ``process_video`` on one synthetic clip with audio and 8 synthetic
+    samples of the arm answered through ``FullPipelineRunner`` on the
+    trained QA model (wall ms per stage and per answer, launches per
+    answer), then the same through the plain path (timelines, knowledge
+    bases and prompts equal byte for byte, answers up to one), device ms
+    and busy share per stage (profiler), BENCH_r05's pipeline QA figure
+    (``evaluate_qa_lm(pipeline=True)``, n 32 at seeds 77 and 1234, within
+    4 of 38/64), and ``gvl_tpu_torch.entry.entry()`` at the 8B geometry.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 11) and read just after it; each run must have launched
+path of phases 3 to 12) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -141,6 +154,19 @@ SCORE_TOL = 1e-4
 OCR_LOGIT_SHARE = 1e-3      # card against the CPU, same weights
 EVENT_PROB_TOL = 1e-4       # card against the CPU, same weights
 ASR_STATE_TOL = 1e-4
+# phase 12: the qa_lm arm end to end on the trained QA model, its encoders at
+# their trained geometry with seeded random weights written as checkpoints
+# (seed 12); the arm's synthetic samples (loader "arm", seed 42, the first 8:
+# 4 visual, 2 speech and 2 audio-implication questions over 10 and 20 s clips)
+ARM_SEED, ARM_LOADER, ARM_LOADER_SEED, ARM_SAMPLES = 12, "arm", 42, 8
+ARM_ANSWER_SLACK = 1        # kernel vs plain path answers that may differ (bf16 ties)
+# added to the seeded event net's speech logit, so that the byte ASR, gated on
+# speech windows, runs on the clips (random logits lie within a few units)
+ARM_SPEECH_MARGIN = 30.0
+# BENCH_r05's qa_lm_pipeline_acc 0.594: evaluate_qa_lm(pipeline=True), n 32 at
+# seeds 77 and 1234, max_len 4096, 38 of 64 answers
+PIPELINE_SEEDS, PIPELINE_SAMPLES, PIPELINE_MAX_LEN = (77, 1234), 32, 4096
+PIPELINE_WANT, PIPELINE_SLACK = 38, 4
 
 _T0 = time.perf_counter()
 
@@ -1029,7 +1055,7 @@ class Replay:
 def run_qa(dev):
     import torch
 
-    from gvl_tpu_torch.agent.config import GenerationConfig
+    from gvl_tpu_torch.agent.config import ReasoningCoreConfig
     from gvl_tpu_torch.agent.core import create_qa_backend
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
     from gvl_tpu_torch.models.qwen3 import Qwen3Engine
@@ -1084,7 +1110,7 @@ def run_qa(dev):
                                     "At what timestamp is the boss first detected? "
                                     "Answer with the [MM:SS] timestamp."},
     ]
-    gen_cfg = GenerationConfig(max_new_tokens=48, temperature=0.0)
+    gen_cfg = ReasoningCoreConfig(max_new_tokens=48, temperature=0.0)
     text = "".join(backend.stream(messages, gen_cfg))
     plain_text = "".join(type(backend)(plain, backend.tokenizer).stream(messages, gen_cfg))
     log("qa", f"Qwen3ChatBackend.stream: {text!r} (plain path equal: {text == plain_text})")
@@ -1796,6 +1822,323 @@ def run_perception(dev):
     return launches
 
 
+
+@contextlib.contextmanager
+def arm_encoders(plain: bool):
+    """The arm's encoders, as ``process_video`` builds them, with every byte
+    ASR's transcriptions counted: yields a dict of its calls, the segments
+    they returned and the flash_attention launches they made.  With
+    ``plain``, every attention goes through its plain version
+    (``set_flash_kernel(model, False)``)."""
+    from gvl_tpu_torch.audio import processor
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.perception import batch
+
+    build_segmenter, build_audio_stack = batch.build_segmenter, processor.build_audio_stack
+    asr = {"calls": 0, "segments": 0, "flash_attention": 0}
+
+    def segmenter(*a, **kw):
+        seg = build_segmenter(*a, **kw)
+        if plain:
+            set_flash_kernel(seg.backend.model, False)
+        return seg
+
+    def audio_stack(*a, **kw):
+        proc, embedder = build_audio_stack(*a, **kw)
+        if plain:
+            set_flash_kernel(proc.asr.model, False)
+        transcribe = proc.transcribe
+
+        def counted(*args, **kwargs):
+            before = flash_attention.launches
+            segments = transcribe(*args, **kwargs)
+            asr["calls"] += 1
+            asr["segments"] += len(segments)
+            asr["flash_attention"] += flash_attention.launches - before
+            return segments
+
+        proc.transcribe = counted
+        return proc, embedder
+
+    batch.build_segmenter, processor.build_audio_stack = segmenter, audio_stack
+    try:
+        yield asr
+    finally:
+        batch.build_segmenter, processor.build_audio_stack = build_segmenter, build_audio_stack
+
+
+def let_speech_through(ckpts, margin: float) -> None:
+    """Adjusts two of the seeded checkpoints so that the arm's gated byte ASR
+    runs and writes text, which random weights alone do not make it do: the
+    event net's speech logit is raised by ``margin``, so every window loud
+    enough to be heard is classified SPEECH (the arm transcribes speech spans
+    only); the byte ASR's embedding rows of its special tokens are zeroed,
+    so that greedy decoding (its head tied to the embeddings) picks bytes
+    and not the end of the text."""
+    from pathlib import Path
+
+    from gvl_tpu_torch.audio.event_model import EVENT_CLASSES
+    from gvl_tpu_torch.utils.checkpoints import load_flat_npz, save_flat_npz
+
+    tree = load_flat_npz(ckpts.events)
+    tree["params"]["head2"]["bias"][EVENT_CLASSES.index("speech")] += margin
+    save_flat_npz(tree, ckpts.events)
+    path = Path(ckpts.asr, "params.npz")
+    tree = load_flat_npz(path)
+    tree["decoder"]["embed_tokens"][256:] = 0.0
+    save_flat_npz(tree, path)
+
+
+def serve_arm(runner, samples) -> tuple[list, dict]:
+    """Every sample through the runner: its clip's perception (memoized per
+    clip), then its answer; raises on a sample that failed.  Returns the
+    answers and the kernel launches of perception and of the answers."""
+    results = []
+    launches = {part: dict.fromkeys(kernel_launches(), 0) for part in ("perception", "answers")}
+
+    def counted(part, call):
+        before = kernel_launches()
+        out = call()
+        for name, n in kernel_launches().items():
+            launches[part][name] += n - before[name]
+        return out
+
+    for sample in samples:
+        counted("perception", lambda: runner._get_processed(sample.video_path))
+        result = counted("answers", lambda: runner.run_inference(sample))
+        if "error" in result:
+            raise AssertionError(f"arm: {sample.sample_id} failed: {result['error']}")
+        results.append(result)
+    return results, launches
+
+
+def run_arm(dev):
+    """Phase 12: the qa_lm arm end to end: perception on the port's encoders,
+    the timeline and knowledge base, and answers through the loop, the
+    reasoning core and the QA engine; then the same through the plain path,
+    and BENCH_r05's pipeline-rendered QA figure."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.audio.event_model import TorchAudioEventDetector
+    from gvl_tpu_torch.audio.processor import build_audio_stack
+    from gvl_tpu_torch.device_times import call_profile
+    from gvl_tpu_torch.entry import entry
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner
+    from gvl_tpu_torch.eval.samples import SyntheticLoader
+    from gvl_tpu_torch.fusion import KnowledgeBaseBuilder, TimelineIndexer
+    from gvl_tpu_torch.io.ingest import resolve_video_source
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.perception.batch import build_segmenter
+    from gvl_tpu_torch.perception.encoders import write_random_checkpoints
+    from gvl_tpu_torch.perception.ocr import create_ocr_pipeline
+    from gvl_tpu_torch.perception.ocr_model import TorchOCREngine
+    from gvl_tpu_torch.perception.segmenter import TorchSegmenterBackend
+    from gvl_tpu_torch.pipeline import run_audio_analysis, run_ocr_extraction, \
+        run_sam_detection
+    from gvl_tpu_torch.training.asr_train import TrainedByteASR
+    from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm
+    from gvl_tpu_torch.training.retriever_train import TrainedTextEmbedder
+    from gvl_tpu_torch.utils.profiler import PromptLog
+
+    start = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_arm_")
+    ckpts = write_random_checkpoints(workdir.name, dev, ARM_SEED)
+    let_speech_through(ckpts, ARM_SPEECH_MARGIN)
+    samples = SyntheticLoader(ARM_LOADER, ARM_LOADER_SEED).synthetic_samples(ARM_SAMPLES)
+    clip = next(s.video_path for s in samples if "audio=1" in s.video_path)
+
+    def arm_runner():
+        runner = FullPipelineRunner(get_model_config("qa_lm"), use_cache=False, device=dev,
+                                    embedding_model=ckpts.retriever)
+        cfg = runner.preset
+        cfg.perception.sam_checkpoint = ckpts.segmenter
+        cfg.perception.ocr_backend = "jax"          # TorchOCREngine, seeded random weights
+        cfg.audio.event_checkpoint = ckpts.events
+        cfg.audio.asr_checkpoint = ckpts.asr
+        return runner
+
+    runner = arm_runner()
+    cfg = runner.preset
+    # every ladder resolves to its model, none to its fake
+    segmenter = build_segmenter(cfg, device=dev)
+    ocr = create_ocr_pipeline(cfg.perception.ocr_backend, device=dev)
+    audio, _ = build_audio_stack(cfg.audio, device=dev)
+    ladders = {"segmenter": type(segmenter.backend), "OCR": type(ocr.engine),
+               "ASR": type(audio.asr), "events": type(audio.event_backend)}
+    want = {"segmenter": TorchSegmenterBackend, "OCR": TorchOCREngine,
+            "ASR": TrainedByteASR, "events": TorchAudioEventDetector}
+    if ladders != want:
+        raise AssertionError(f"arm: ladders resolved to {ladders}, not {want}")
+    del segmenter, ocr, audio
+    log("arm", f"seeded checkpoints (seed {ARM_SEED}) written in "
+        f"{time.perf_counter() - start:.1f} s; ladders: "
+        f"{ {k: v.__name__ for k, v in ladders.items()} }; QA model "
+        f"{cfg.reasoning.llm_checkpoint}; {len(samples)} samples of loader '{ARM_LOADER}'")
+
+    # the kernel path: process_video on one clip, then every sample's answer
+    torch.manual_seed(ARM_SEED)
+    reset_launches()
+    with arm_encoders(plain=False) as asr:
+        processed = runner._get_processed(clip)
+        flash_first = flash_attention.launches
+        core = processed.loop.reasoning_core
+        prompts = core.backend.engine = PromptLog(core.backend.engine)
+        results, parts = serve_arm(runner, samples)
+    torch.cuda.synchronize()
+    launches = served_launches("arm", ("flash_attention", "decode_attention", "cache_append"))
+    speech = [e.description for e in processed.timeline.events
+              if e.modality.value == "speech"]
+    log("arm", f"byte ASR: {asr['calls']} calls over the {len(runner._processed)} clips, "
+        f"{asr['segments']} segments, {asr['flash_attention']} flash_attention launches "
+        f"(of the {launches['flash_attention']} counted); {len(speech)} speech events in "
+        f"{clip}'s timeline, first {speech[0][:60] if speech else None!r}")
+    if not speech or asr["flash_attention"] == 0:
+        raise AssertionError(f"arm: the byte ASR did not transcribe {clip} on its kernel: "
+                             f"{len(speech)} speech events, {asr}")
+    if type(core.retriever._embedder) is not TrainedTextEmbedder:
+        raise AssertionError(f"arm: retriever embedder {type(core.retriever._embedder)}")
+    smi = nvidia_smi()
+    stages = ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in processed.timings.items())
+    log("arm", f"process_video({clip}): {len(processed.timestamps)} frames, "
+        f"{len(processed.timeline.events)} events, "
+        f"{len(processed.knowledge_base.entities)} entities; stages (wall, host clock): "
+        f"{stages}; {flash_first} flash_attention launches; {smi}")
+    per_clip = {}
+    for pv in runner._processed.values():
+        for k, v in pv.timings.items():
+            per_clip.setdefault(k, []).append(1e3 * v)
+    log("arm", "stages, mean wall ms over the "
+        f"{len(runner._processed)} clips: "
+        + ", ".join(f"{k} {np.mean(v):.1f}" for k, v in per_clip.items()))
+    gen_ms = [1e3 * r["timings"]["generation"] for r in results]
+    served = ("flash_attention", "decode_attention", "cache_append")
+    log("arm", f"{len(results)} answers: {np.mean(gen_ms):.1f} ms wall per answer "
+        f"(min {min(gen_ms):.1f}, max {max(gen_ms):.1f}), prompts "
+        f"{min(map(len, prompts.prompts))}-{max(map(len, prompts.prompts))} bytes; "
+        "launches per answer: "
+        + ", ".join(f"{k} {parts['answers'][k] / len(results):.1f}" for k in served)
+        + f"; per clip's perception (the {len(runner._processed) - 1} other clips): "
+        + ", ".join(f"{k} {parts['perception'][k] / (len(runner._processed) - 1):.1f}"
+                    for k in served))
+    for sample, result in zip(samples, results):
+        log("arm", f"{sample.sample_id}: truth {sample.ground_truth!r}, predicted "
+            f"{result['predicted']!r}")
+
+    with uncounted():
+        # the plain path: every attention through its plain version, the QA
+        # engine on its plain route, the same clips and questions; no kernel
+        # may launch in it, or it would compare the kernel path with itself
+        before = kernel_launches()
+        engine = prompts.engine
+        plain_runner = arm_runner()
+        plain = PromptLog(Qwen3Engine(engine.config.plain(), engine.model.state_dict(),
+                                      eos_token_id=EOS_ID, device=dev))
+        tower = core.retriever._embedder.tower
+        set_flash_kernel(tower, False)
+        core.backend.engine = plain
+        torch.manual_seed(ARM_SEED)
+        try:
+            with arm_encoders(plain=True) as plain_asr:
+                plain_runner._get_processed(clip)
+                plain_results, _ = serve_arm(plain_runner, samples)
+        finally:
+            set_flash_kernel(tower, True)
+            core.backend.engine = prompts
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in kernel_launches().items() if n != before[k]}
+    if launched:
+        raise AssertionError(f"arm: the plain path launched kernels: {launched}")
+    if plain_runner._processed[clip].loop.reasoning_core is not core:
+        raise AssertionError("arm: the plain path answered through another reasoning core "
+                             "than the one whose engine and retriever it made plain")
+    if (plain_asr["calls"], plain_asr["segments"]) != (asr["calls"], asr["segments"]):
+        raise AssertionError(f"arm: byte ASR on the plain path {plain_asr}, on the kernel "
+                             f"path {asr}")
+    for video, pv in runner._processed.items():
+        other = plain_runner._processed[video]
+        if (pv.timeline.build_structured_transcript()
+                != other.timeline.build_structured_transcript()
+                or pv.knowledge_base.export_for_llm() != other.knowledge_base.export_for_llm()):
+            raise AssertionError(f"arm: timeline or knowledge base of {video} differs "
+                                 "between the kernel and the plain path")
+    if plain.prompts != prompts.prompts:
+        differ = sum(a != b for a, b in zip(plain.prompts, prompts.prompts))
+        raise AssertionError(f"arm: {differ} of {len(prompts.prompts)} prompts differ "
+                             "between the kernel and the plain path")
+    agree = sum(a["raw_response"] == b["raw_response"]
+                for a, b in zip(results, plain_results))
+    log("arm", f"plain path: timelines, knowledge bases and {len(prompts.prompts)} prompts "
+        f"equal byte for byte; answers equal {agree}/{len(results)}")
+    if agree < len(results) - ARM_ANSWER_SLACK:
+        raise AssertionError(f"arm: kernel and plain paths agree on {agree} of "
+                             f"{len(results)} answers")
+
+    with uncounted():
+        # device ms and busy share per stage and per answer (profiler, CUDA)
+        frames = resolve_video_source(clip, fps=cfg.inference.fps)
+        profiles = {
+            "sam_detection": lambda: run_sam_detection(
+                frames, cfg, TimelineIndexer(), KnowledgeBaseBuilder(), device=dev),
+            "audio_analysis": lambda: run_audio_analysis(clip, TimelineIndexer(), cfg,
+                                                         device=dev),
+            "ocr_extraction": lambda: run_ocr_extraction(frames, TimelineIndexer(), cfg,
+                                                         device=dev),
+            "answer": lambda: core.reason(
+                samples[0].get_prompt(), timeline_indexer=processed.timeline,
+                knowledge_base=processed.knowledge_base, track_conversation=False),
+        }
+        for name, fn in profiles.items():
+            got = call_profile(fn, repeats=1)
+            log("arm", f"{name}: wall {got['wall_ms']:.1f} ms, device {got['device_ms']:.2f}"
+                f" ms (busy {got['busy_share']:.1%}), {got['kernel_launches']:.0f} CUDA "
+                f"launches; top {json.dumps({k: round(v, 3) for k, v in list(got['top_kernels_ms'].items())[:3]})}")
+
+    # BENCH_r05's pipeline figure through the arm's QA engine
+    with uncounted():
+        correct = {}
+        for seed in PIPELINE_SEEDS:
+            t0 = time.perf_counter()
+            got = evaluate_qa_lm(n_samples=PIPELINE_SAMPLES, seed=seed, engine=engine,
+                                 pipeline=True, max_len=PIPELINE_MAX_LEN)
+            correct[seed] = round(got["accuracy"] * PIPELINE_SAMPLES)
+            log("arm", f"pipeline QA seed {seed}: {correct[seed]}/{PIPELINE_SAMPLES} "
+                f"(accuracy {got['accuracy']:.4f}), by family "
+                f"{json.dumps(got['by_family'], sort_keys=True)}, "
+                f"{time.perf_counter() - t0:.1f} s")
+    total = sum(correct.values())
+    log("arm", f"pipeline QA: {total}/{PIPELINE_SAMPLES * len(PIPELINE_SEEDS)} "
+        f"({total / (PIPELINE_SAMPLES * len(PIPELINE_SEEDS)):.4f}; BENCH_r05 "
+        f"{PIPELINE_WANT}/64 = 0.594); {nvidia_smi()}")
+    if abs(total - PIPELINE_WANT) > PIPELINE_SLACK:
+        raise AssertionError(f"arm: pipeline QA {total} correct, not within "
+                             f"{PIPELINE_SLACK} of BENCH_r05's {PIPELINE_WANT}")
+
+    # the port's entry(): the 8B layer geometry at depth 4, zero weights
+    with uncounted():
+        before = flash_attention.launches
+        fn, args = entry(dev)
+        logits = fn(*args)
+        torch.cuda.synchronize()
+        ok = (tuple(logits.shape) == (1, 128, 151936) and bool(torch.isfinite(logits).all())
+              and flash_attention.launches > before)
+        log("arm", f"entry(): logits {tuple(logits.shape)}, max |logit| "
+            f"{logits.abs().max().item():.3g}, {flash_attention.launches - before} "
+            "flash_attention launches")
+        del fn, args, logits
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("arm: entry() gave no finite logits of the expected shape")
+    workdir.cleanup()
+    return launches
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1841,8 +2184,10 @@ def main() -> int:
     del encoder, prepared
     torch.cuda.empty_cache()
     served.append(run_perception(dev))
+    torch.cuda.empty_cache()
+    served.append(run_arm(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-11): {launches}")
+    log("launches", f"served paths (phases 3-12): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

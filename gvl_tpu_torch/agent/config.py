@@ -1,9 +1,16 @@
-"""The reasoning core's system prompt and sampling defaults (copied from
-:mod:`gvl_tpu.agent.config`)."""
+"""Reasoning-core configuration: budgets, retrieval, sampling, system prompt
+(the port's copy of :mod:`gvl_tpu.agent.config`).
+
+Token budgets (timeline 5000 / visual 2000 / total 8000), a ±30 s
+retrieval window, top-10 semantic retrieval, dynamic-resolution pixel
+bounds, sampling (512 new tokens, T=0.7, top_p=0.8, top_k=20), a 5-minute
+temporal window, and the trigger vocabularies.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
 
 SYSTEM_PROMPT = """You are an expert analyst of gameplay videos. Your context includes:
 1. A timeline of time-tagged events covering the whole video (visual detections, speech transcription, on-screen text, audio events)
@@ -44,24 +51,58 @@ Keep the **Reasoning:** section even for follow-up questions, focused on the new
 
 
 @dataclass
-class GenerationConfig:
-    """The sampling fields of ``gvl_tpu.agent.config.ReasoningCoreConfig``
-    that :meth:`Qwen3ChatBackend.stream` reads."""
+class ReasoningCoreConfig:
+    """Configuration for the reasoning core and its host-side machinery."""
 
+    # model
+    model_name: str = "Qwen/Qwen3-VL-8B-Instruct"
+    dtype: str = "bfloat16"
+    use_flash_attention: bool = True
+
+    # context budgets (tokens)
+    max_timeline_tokens: int = 5000
+    max_visual_tokens: int = 2000
+    max_total_tokens: int = 8000
+
+    # retrieval
+    retrieval_window_sec: float = 30.0
+    semantic_top_k: int = 10
+    # "auto" → self-trained paraphrase tower (outputs/retriever) when
+    # shipped, hashing otherwise; "hashing" forces the lexical embedder;
+    # a directory path loads a trained tower or the JAX MiniLM port
+    embedding_model: str = "auto"
+    embedding_dim: int = 256
+
+    # dynamic-resolution pixel bounds
+    min_pixels: int = 256 * 32 * 32
+    max_pixels: int = 512 * 32 * 32
+
+    # sampling
     max_new_tokens: int = 512
     temperature: float = 0.7
     top_p: float = 0.8
     top_k: int = 20
 
+    # projector dimensions (encoder -> LLM hidden)
+    siglip_dim: int = 1152
+    internvideo_dim: int = 1408
+    videomae_dim: int = 768
+    audiomae_dim: int = 1024
+    wav2vec2_dim: int = 1024
+    llm_hidden_dim: int = 4096
 
-@dataclass
-class RetrievalConfig:
-    """The retrieval fields of ``gvl_tpu.agent.config.ReasoningCoreConfig``
-    that :class:`gvl_tpu_torch.agent.retriever.TimelineRetriever` and
-    :func:`~gvl_tpu_torch.agent.retriever.make_embedder` read (any object
-    with these attributes will do)."""
+    # temporal context
+    temporal_window_minutes: float = 5.0
+    max_hico_tokens: int = 2048
 
-    retrieval_window_sec: float = 30.0
-    semantic_top_k: int = 10
-    embedding_model: str = "auto"
-    embedding_dim: int = 256
+    # trigger detection
+    trigger_confidence_threshold: float = 0.8
+    trigger_concepts: list = field(default_factory=lambda: [
+        "player", "enemy", "health_bar", "boss", "death",
+    ])
+    audio_trigger_events: list = field(default_factory=lambda: [
+        "speech", "explosion", "alert", "damage",
+    ])
+
+    system_prompt: str = SYSTEM_PROMPT
+

@@ -1,18 +1,326 @@
-"""Chat backend of the reasoning core over the port's Qwen3 engine.
+"""The reasoning core: retrieval -> prompt assembly -> generation -> scoring
+(the port's copy of :mod:`gvl_tpu.agent.core`).
 
-Counterpart of ``gvl_tpu.agent.core.Qwen3ChatBackend`` and
-``messages_to_plain_text``, plus :func:`create_qa_backend`, the port's
-form of the QA-model branch of ``gvl_tpu.agent.core.create_reasoning_core``.
-LoRA adapters are not ported yet.
+- :class:`ReasoningCore` renders the prompt from the timeline, the
+  knowledge base and the conversation, streams the backend's answer and
+  runs the two-pass tool-call loop; its messages are held byte-identical
+  to the JAX package's (``tests/test_torch_reasoning.py``).
+- :class:`Qwen3ChatBackend` drives the port's Qwen3 engine with the Qwen
+  chat template; :func:`create_qa_backend` serves the self-trained
+  byte-level QA model behind it.
+- :class:`TemplateFakeBackend` and :class:`TimelineGroundedFakeBackend`
+  are the deterministic no-weights backends.
+
+The Qwen3-VL backend and the HF-checkpoint branch of
+:func:`create_reasoning_core` are not ported (ROADMAP A10); LoRA adapters
+wait for ROADMAP A2.
 """
 
 from __future__ import annotations
 
 import logging
+import re
+from typing import Any, Iterator, Optional, Protocol, Union
 
 import numpy as np
+import torch
+
+from gvl_tpu_torch.agent.config import ReasoningCoreConfig
+from gvl_tpu_torch.agent.confidence import ConfidenceScorer
+from gvl_tpu_torch.agent.conversation import ConversationHistory
+from gvl_tpu_torch.agent.retriever import TimelineRetriever
+from gvl_tpu_torch.agent.tools import ToolCallParser
 
 logger = logging.getLogger(__name__)
+
+
+class VisualInputProcessor:
+    """Dynamic-resolution frame dicts + region-token text (reference
+    :1572-1644)."""
+
+    def __init__(self, config: ReasoningCoreConfig):
+        self.config = config
+
+    def process_frame(self, image: Any, detail_level: str = "auto") -> dict:
+        if detail_level == "low":
+            min_pix, max_pix = 128 * 32 * 32, 256 * 32 * 32
+        elif detail_level == "high":
+            min_pix, max_pix = 512 * 32 * 32, 1024 * 32 * 32
+        else:
+            min_pix, max_pix = self.config.min_pixels, self.config.max_pixels
+        return {
+            "type": "image",
+            "image": image,
+            "min_pixels": min_pix,
+            "max_pixels": max_pix,
+        }
+
+    @staticmethod
+    def process_region_tokens(regions: list[dict]) -> str:
+        if not regions:
+            return ""
+        lines = ["Detected regions in frame:"]
+        for i, region in enumerate(regions):
+            label = region.get("label", f"region_{i}")
+            bbox = region.get("bbox", [])
+            conf = region.get("confidence", 0.0)
+            if bbox:
+                lines.append(f"  - {label}: bbox={bbox}, confidence={conf:.2f}")
+            else:
+                lines.append(f"  - {label}: confidence={conf:.2f}")
+        return "\n".join(lines)
+
+
+class ChatBackend(Protocol):
+    def stream(
+        self,
+        messages: list[dict],
+        config: ReasoningCoreConfig,
+        inputs_embeds_prefix: Optional[np.ndarray] = None,
+    ) -> Iterator[str]: ...
+
+
+def _messages_text(messages: list[dict]) -> str:
+    chunks = []
+    for message in messages:
+        content = message.get("content", "")
+        if isinstance(content, str):
+            chunks.append(content)
+        else:
+            chunks.extend(
+                part.get("text", "") for part in content
+                if isinstance(part, dict) and part.get("type") == "text"
+            )
+    return "\n".join(chunks)
+
+
+class TemplateFakeBackend:
+    """Deterministic, context-grounded response generator (no weights)."""
+
+    def stream(self, messages, config, inputs_embeds_prefix=None):
+        text = _messages_text(messages)
+        timestamps = re.findall(r"\[(\d{2}:\d{2})\]", text)
+        question_match = re.search(r"## Question\n(.+)", text)
+        question = question_match.group(1).strip() if question_match else "the scene"
+        cite = f"[{timestamps[0]}]" if timestamps else "the available context"
+        n_events = len(timestamps)
+        reasoning = (
+            f"**Reasoning:** The timeline context contains {n_events} "
+            f"time-tagged events relevant to \"{question[:60]}\". "
+            f"The earliest relevant observation occurs at {cite}."
+        )
+        answer = (
+            f"**Answer:** Based on the timeline, the relevant activity "
+            f"occurs at {cite}."
+        )
+        for piece in (reasoning + "\n\n" + answer).split(" "):
+            yield piece + " "
+
+
+def _lev_le1(a: str, b: str) -> bool:
+    """Levenshtein(a, b) <= 1 (cheap OCR-noise tolerance)."""
+    if a == b:
+        return True
+    la, lb = len(a), len(b)
+    if abs(la - lb) > 1:
+        return False
+    if la > lb:
+        a, b, la, lb = b, a, lb, la
+    # a is shorter or equal; try one substitution / one insertion
+    i = j = diff = 0
+    while i < la and j < lb:
+        if a[i] == b[j]:
+            i += 1
+            j += 1
+            continue
+        diff += 1
+        if diff > 1:
+            return False
+        if la == lb:
+            i += 1
+        j += 1
+    return diff + (lb - j) <= 1
+
+
+def _tokens(text: str) -> list[str]:
+    return re.findall(r"[a-z0-9]+", text.lower())
+
+
+class TimelineGroundedFakeBackend:
+    """Deterministic no-weights backend that READS the prompt it is given.
+
+    Parses the question, MCQ options and retrieved timeline lines out of
+    the rendered chat messages — the same information a real LLM sees —
+    and answers from that context alone, in the mandated
+    ``**Reasoning:**``/``**Answer:**`` format with ``[MM:SS]`` citations:
+
+    - presence questions ("Does a boss appear …?") scan the retrieved
+      events for the asked term (edit-distance ≤ 1 per token, so OCR'd
+      text still matches);
+    - MCQ options are scored by fuzzy token overlap against the events,
+      with "None of …" chosen when nothing else grounds;
+    - open questions cite the earliest retrieved event.
+
+    A correct answer therefore proves the retrieval → prompt assembly →
+    generation → parsing loop works end to end; the harness scoring >0 on
+    grounded synthetic samples is a regression gate, not an accident.
+    """
+
+    _PRESENCE_RE = re.compile(
+        r"(?:does|do|is|are)\b.*?\b(?:a|an|the|any)\s+([\w /-]+?)\s+"
+        r"(?:appear|present|visible|show|occur)", re.IGNORECASE)
+
+    def _parse_prompt(self, text: str):
+        ctx = re.search(r"## Timeline Context\n(.*?)(?:\n## |\Z)",
+                        text, re.DOTALL)
+        events: list[tuple[str, str]] = []   # (MM:SS, line text)
+        if ctx:
+            for line in ctx.group(1).splitlines():
+                m = re.match(r"\[(\d{1,2}:\d{2})\]\s*(.*)", line.strip())
+                if m:
+                    events.append((m.group(1), m.group(2)))
+        # single-frame mode (BenchmarkModelRunner): no timeline — the
+        # "[Visual Analysis]" detections are the groundable context
+        va = re.search(r"\[Visual Analysis\]\n(.*?)(?:\n\n|\Z)",
+                       text, re.DOTALL)
+        if va:
+            for line in va.group(1).splitlines():
+                m = re.match(r"-\s*Detected:\s*(.+?)\s*\(", line.strip())
+                if m:
+                    events.append(("", m.group(1)))
+        qm = re.search(r"## Question\n(.+)\Z", text, re.DOTALL)
+        q_block = qm.group(1).strip() if qm else text[-500:]
+        options = re.findall(r"^\s*\(?([A-H])\)\s*(.+)$", q_block,
+                             re.MULTILINE)
+        question = re.split(r"\n\s*Options:", q_block)[0].strip()
+        return question, options, events
+
+    @staticmethod
+    def _term_in_events(term: str, events) -> Optional[str]:
+        """Timestamp of the first event containing every token of
+        ``term`` (edit distance ≤ 1 per token), else None."""
+        want = _tokens(term)
+        if not want:
+            return None
+        for ts, line in events:
+            have = _tokens(line)
+            if all(any(_lev_le1(w, h) for h in have) for w in want):
+                return ts
+        return None
+
+    def _score_option(self, option: str, events) -> tuple[float, str]:
+        """(best fraction of option tokens grounded in one event, ts)."""
+        want = _tokens(option)
+        if not want:
+            return 0.0, ""
+        best, best_ts = 0.0, ""
+        for ts, line in events:
+            have = _tokens(line)
+            hit = sum(any(_lev_le1(w, h) for h in have) for w in want)
+            frac = hit / len(want)
+            if frac > best:
+                best, best_ts = frac, ts
+        return best, best_ts
+
+    def stream(self, messages, config, inputs_embeds_prefix=None):
+        question, options, events = self._parse_prompt(
+            _messages_text(messages))
+        opt_texts = [t.strip() for _, t in options]
+        is_binary = (len(opt_texts) == 2 and
+                     {t.lower() for t in opt_texts} == {"yes", "no"})
+
+        if is_binary or (not options and re.search(
+                r"\byes or no\b", question, re.IGNORECASE)):
+            m = self._PRESENCE_RE.search(question)
+            term = m.group(1) if m else None
+            if term is None:
+                quoted = re.search(r"['\"]([^'\"]+)['\"]", question)
+                term = quoted.group(1) if quoted else question
+            ts = self._term_in_events(term, events)
+            if ts is not None:
+                cite = f" at [{ts}]" if ts else " in the current frame"
+                reasoning = (
+                    f"**Reasoning:** The retrieved context contains a "
+                    f"matching observation of \"{term.strip()}\"{cite}.")
+                answer = (f"**Answer:** Yes — \"{term.strip()}\" appears"
+                          f"{cite}.")
+            else:
+                reasoning = (
+                    f"**Reasoning:** None of the {len(events)} retrieved "
+                    f"timeline events mention \"{term.strip()}\".")
+                answer = (f"**Answer:** No — \"{term.strip()}\" does not "
+                          f"appear in the retrieved timeline.")
+        elif options and (imp := re.search(
+                r"sound at \[(\d{2}:\d{2})\] imply", question)):
+            # audio-implication MCQ (VERDICT r3 #8): look up the audio
+            # event AT the cited timestamp and answer with its gameplay
+            # implication — the option text never matches the timeline
+            # surface, so generic token-overlap scoring cannot solve it
+            from gvl_tpu_torch.audio.event_model import CLASS_IMPLICATIONS
+
+            ts = imp.group(1)
+            desc = next(
+                (line for ets, line in events
+                 if ets == ts and "audio" in line.lower()), "")
+            m = re.search(r"\(Audio:\s*([^)]+)\)", desc)
+            implied = CLASS_IMPLICATIONS.get(m.group(1).strip()) if m \
+                else None
+            pick = 0
+            if implied is not None:
+                want = _tokens(implied)
+                overlap = [
+                    sum(any(_lev_le1(w, h) for h in _tokens(t))
+                        for w in want) / max(len(want), 1)
+                    for t in opt_texts]
+                pick = int(max(range(len(opt_texts)),
+                               key=lambda i: overlap[i]))
+                reasoning = (
+                    f"**Reasoning:** The timeline shows \"{m.group(1)}\" "
+                    f"at [{ts}], which implies {implied}.")
+            else:
+                reasoning = (
+                    f"**Reasoning:** No audio event is recorded at "
+                    f"[{ts}] in the retrieved timeline.")
+            answer = (f"**Answer:** {options[pick][0]}) "
+                      f"{opt_texts[pick]}")
+        elif options:
+            none_idx = [i for i, t in enumerate(opt_texts)
+                        if re.match(r"none\b", t, re.IGNORECASE)]
+            scored = []
+            for i, text in enumerate(opt_texts):
+                if i in none_idx:
+                    scored.append((0.0, ""))
+                else:
+                    scored.append(self._score_option(text, events))
+            best = max(range(len(opt_texts)), key=lambda i: scored[i][0])
+            if scored[best][0] < 0.5 and none_idx:
+                pick = none_idx[0]
+                reasoning = (
+                    "**Reasoning:** No retrieved timeline event grounds "
+                    "any of the listed options.")
+            else:
+                pick = best
+                ts = scored[best][1]
+                reasoning = (
+                    f"**Reasoning:** Option {options[pick][0]} "
+                    f"(\"{opt_texts[pick]}\") is supported by the "
+                    f"timeline at [{ts}]." if ts else
+                    f"**Reasoning:** Option {options[pick][0]} best "
+                    f"matches the retrieved context.")
+            answer = (f"**Answer:** {options[pick][0]}) "
+                      f"{opt_texts[pick]}")
+        else:
+            cite = f"[{events[0][0]}]" if events else "the available context"
+            reasoning = (
+                f"**Reasoning:** The timeline context contains "
+                f"{len(events)} time-tagged events relevant to "
+                f"\"{question[:60]}\". The earliest relevant observation "
+                f"occurs at {cite}.")
+            answer = (f"**Answer:** Based on the timeline, the relevant "
+                      f"activity occurs at {cite}.")
+
+        for piece in (reasoning + "\n\n" + answer).split(" "):
+            yield piece + " "
 
 
 def messages_to_plain_text(messages: list[dict]) -> list[dict]:
@@ -35,7 +343,7 @@ class Qwen3ChatBackend:
 
     ``stream(messages, config)`` yields text pieces as they decode;
     ``config`` carries ``max_new_tokens``, ``temperature``, ``top_p`` and
-    ``top_k`` (e.g. :class:`gvl_tpu_torch.agent.config.GenerationConfig`).
+    ``top_k`` (e.g. :class:`gvl_tpu_torch.agent.config.ReasoningCoreConfig`).
 
     With ``spec_engine`` (a :class:`~gvl_tpu_torch.models.speculative.
     SpeculativeEngine` or ``PromptLookupEngine``), text-only turns decode
@@ -112,6 +420,326 @@ class Qwen3ChatBackend:
                 emitted = len(text)
 
 
+class ReasoningCore:
+    """Retrieval-augmented multimodal reasoning with multi-turn memory.
+
+    Method surface (as ``gvl_tpu.agent.core.ReasoningCore``):
+    ``reason`` / ``reason_streaming`` / ``build_prompt`` /
+    ``format_timeline_context`` / ``index_timeline`` / conversation
+    save-load.
+    """
+
+    def __init__(
+        self,
+        config: Optional[ReasoningCoreConfig] = None,
+        backend: Optional[ChatBackend] = None,
+        knowledge_searcher=None,
+        device: str | torch.device = "cuda",
+    ):
+        self.config = config or ReasoningCoreConfig()
+        self.backend = backend or TimelineGroundedFakeBackend()
+        self.retriever = TimelineRetriever(self.config, device=device)
+        self.visual_processor = VisualInputProcessor(self.config)
+        self.conversation_history = ConversationHistory()
+        self.confidence_scorer = ConfidenceScorer()
+        self._knowledge_searcher = knowledge_searcher
+        self.tool_parser = ToolCallParser(knowledge_searcher)
+        self._last_retrieved_events: list = []
+        # p50 TTFT is a tracked north-star metric (BASELINE.md)
+        self.last_ttft_sec: Optional[float] = None
+        self._ttft_history: list = []
+
+    # ------------------------------------------------------------ indexing
+
+    def index_timeline(self, timeline_indexer) -> None:
+        self.retriever.index_timeline(timeline_indexer)
+
+    # ------------------------------------------------------------- prompts
+
+    def format_timeline_context(
+        self, events: list, max_tokens: Optional[int] = None
+    ) -> str:
+        """Compact event lines under a ~4 chars/token budget."""
+        if not events:
+            return "No relevant events found in timeline."
+        char_limit = (max_tokens or self.config.max_timeline_tokens) * 4
+        lines, used = [], 0
+        for event in sorted(events, key=lambda e: e.timestamp):
+            line = (
+                event.format_compact()
+                if hasattr(event, "format_compact")
+                else f"[{int(event.timestamp // 60):02d}:"
+                     f"{int(event.timestamp % 60):02d}] {event.description}"
+            )
+            if used + len(line) > char_limit:
+                lines.append("... (more events truncated)")
+                break
+            lines.append(line)
+            used += len(line)
+        return "\n".join(lines)
+
+    def build_prompt(
+        self,
+        query: str,
+        timeline_context: str,
+        current_frame: Any = None,
+        region_tokens: Optional[str] = None,
+        knowledge_base_context: Optional[str] = None,
+        include_conversation_history: bool = True,
+        web_search_results: Optional[str] = None,
+    ) -> list[dict]:
+        """Assemble the chat message list (system + history + user turn)."""
+        system_text = self.config.system_prompt
+        if (
+            include_conversation_history
+            and self.conversation_history.get_turn_count() > 0
+        ):
+            system_text += (
+                "\n\nYou have access to the conversation history. Use it to "
+                "understand follow-up questions and maintain context."
+            )
+        ctx = getattr(self._knowledge_searcher, "game_context", None)
+        if ctx is not None and getattr(ctx, "game_name", None):
+            system_text += f"\n\nCurrent game: **{ctx.game_name}**"
+            if getattr(ctx, "game_genre", None):
+                system_text += f" ({ctx.game_genre})"
+
+        messages: list[dict] = [
+            {"role": "system", "content": [{"type": "text", "text": system_text}]}
+        ]
+        if include_conversation_history:
+            messages.extend(self.conversation_history.get_messages_for_chat())
+
+        user_content: list[dict] = []
+        if current_frame is not None:
+            user_content.append(self.visual_processor.process_frame(current_frame))
+
+        context_parts = []
+        if timeline_context:
+            context_parts.append("## Timeline Context\n" + timeline_context)
+        if region_tokens:
+            context_parts.append("## Visual Regions\n" + region_tokens)
+        if knowledge_base_context:
+            # export_for_llm already emits the section header; only add
+            # one for bare-context callers (was double-headed before)
+            kb = knowledge_base_context
+            if not kb.lstrip().startswith("## Entity Knowledge Base"):
+                kb = "## Entity Knowledge Base\n" + kb
+            context_parts.append(kb)
+        if web_search_results:
+            context_parts.append(web_search_results)
+        if (
+            include_conversation_history
+            and self.conversation_history.is_follow_up_query(query)
+        ):
+            conv = self.conversation_history.get_context_for_prompt(
+                max_recent_turns=4
+            )
+            if conv:
+                context_parts.append("## Recent Conversation\n" + conv)
+        if context_parts:
+            user_content.append(
+                {"type": "text", "text": "\n\n".join(context_parts)}
+            )
+        user_content.append(
+            {"type": "text", "text": f"\n## Question\n{query}"}
+        )
+        messages.append({"role": "user", "content": user_content})
+        return messages
+
+    # ------------------------------------------------------------- reason
+
+    def _prepare(
+        self,
+        query: str,
+        timeline_indexer,
+        knowledge_base,
+        region_detections,
+        video_timestamp,
+        track_conversation: bool,
+        current_frame,
+    ) -> tuple[list[dict], Optional[float]]:
+        if self.conversation_history.is_follow_up_query(query):
+            if video_timestamp is None:
+                video_timestamp = (
+                    self.conversation_history.get_last_mentioned_timestamp()
+                )
+        elif video_timestamp is None:
+            # record the moment the user asked about so follow-ups anchor
+            video_timestamp = self.retriever.parse_timestamp(query)
+        if timeline_indexer is not None:
+            self.retriever.index_timeline(timeline_indexer)
+        events = self.retriever.hybrid_retrieve(query, timeline_indexer)
+        self._last_retrieved_events = events
+        # byte-level engines (the trained QA-LM rung) have 1 token ==
+        # 1 byte, so the reference's ~4-chars/token budgets overflow
+        # their cache ~4x on event-dense videos and the backend's
+        # emergency trim then cuts real context.  When the backend
+        # declares its byte capacity, fit each section to it up front.
+        # No backend declares one (ROADMAP C3): kept equal to the JAX
+        # package, whose prompts this one is held to byte for byte.
+        byte_budget = getattr(self.backend, "context_byte_budget", None)
+        if byte_budget:
+            avail = max(int(byte_budget) - self.config.max_new_tokens
+                        - 256, 512)        # 256 = ChatML + question slack
+            timeline_context = self.format_timeline_context(
+                events, max_tokens=max(avail * 35 // 100 // 4, 64))
+        else:
+            timeline_context = self.format_timeline_context(events)
+
+        region_tokens = (
+            self.visual_processor.process_region_tokens(region_detections)
+            if region_detections else None
+        )
+        kb_context = (
+            knowledge_base.export_for_llm(max_entities=15, max_relationships=20)
+            if knowledge_base is not None else None
+        )
+        if byte_budget and kb_context:
+            kb_cap = avail * 30 // 100
+            if len(kb_context) > kb_cap:
+                kb_context = kb_context[:kb_cap] + "\n... (truncated)"
+        messages = self.build_prompt(
+            query=query,
+            timeline_context=timeline_context,
+            current_frame=current_frame,
+            region_tokens=region_tokens,
+            knowledge_base_context=kb_context,
+            include_conversation_history=track_conversation,
+        )
+        return messages, video_timestamp
+
+    def reason(
+        self,
+        query: str,
+        current_frame: Any = None,
+        timeline_indexer=None,
+        knowledge_base=None,
+        region_detections: Optional[list[dict]] = None,
+        video_timestamp: Optional[float] = None,
+        track_conversation: bool = True,
+        return_confidence: bool = False,
+        inputs_embeds_prefix: Optional[np.ndarray] = None,
+    ) -> Union[str, tuple[str, float]]:
+        """Full pipeline; returns the response (optionally with confidence)."""
+        pieces = list(
+            self.reason_streaming(
+                query,
+                current_frame=current_frame,
+                timeline_indexer=timeline_indexer,
+                knowledge_base=knowledge_base,
+                region_detections=region_detections,
+                video_timestamp=video_timestamp,
+                track_conversation=track_conversation,
+                inputs_embeds_prefix=inputs_embeds_prefix,
+            )
+        )
+        response = "".join(pieces).strip()
+        confidence = self.confidence_scorer.score_response(
+            query, response, context_events=self._last_retrieved_events
+        )
+        return (response, confidence) if return_confidence else response
+
+    def reason_streaming(
+        self,
+        query: str,
+        current_frame: Any = None,
+        timeline_indexer=None,
+        knowledge_base=None,
+        region_detections: Optional[list[dict]] = None,
+        video_timestamp: Optional[float] = None,
+        track_conversation: bool = True,
+        inputs_embeds_prefix: Optional[np.ndarray] = None,
+    ) -> Iterator[str]:
+        """Stream response pieces; runs the two-pass tool-call loop."""
+        import time as _time
+
+        t_start = _time.perf_counter()
+        messages, video_timestamp = self._prepare(
+            query, timeline_indexer, knowledge_base, region_detections,
+            video_timestamp, track_conversation, current_frame,
+        )
+
+        pieces: list[str] = []
+        first = True
+        for piece in self.backend.stream(
+            messages, self.config, inputs_embeds_prefix=inputs_embeds_prefix
+        ):
+            if first:
+                self.last_ttft_sec = _time.perf_counter() - t_start
+                self._ttft_history.append(self.last_ttft_sec)
+                first = False
+            pieces.append(piece)
+            yield piece
+        response = "".join(pieces)
+
+        # tool-call pass: execute, re-prompt, stream the final answer
+        if self.tool_parser.has_tool_calls(response):
+            cleaned, results = self.tool_parser.execute_all_tools(response)
+            tool_block = self.tool_parser.format_tool_results_for_prompt(results)
+            followup = self.build_prompt(
+                query=query,
+                timeline_context=self.format_timeline_context(
+                    self._last_retrieved_events
+                ),
+                current_frame=current_frame,
+                include_conversation_history=track_conversation,
+                web_search_results=tool_block,
+            )
+            yield "\n"
+            pieces = ["\n"]
+            for piece in self.backend.stream(followup, self.config):
+                pieces.append(piece)
+                yield piece
+            response = cleaned + "".join(pieces)
+
+        if track_conversation:
+            self.conversation_history.add_user_message(
+                query, video_timestamp=video_timestamp
+            )
+            confidence = self.confidence_scorer.score_response(
+                query, response, context_events=self._last_retrieved_events
+            )
+            self.conversation_history.add_assistant_message(
+                response.strip(), confidence=confidence
+            )
+
+    # -------------------------------------------------------- conversation
+
+    def clear_conversation(self) -> None:
+        self.conversation_history.clear()
+
+    def save_conversation(self, path: str) -> None:
+        self.conversation_history.save(path)
+
+    def load_conversation(self, path: str) -> None:
+        self.conversation_history = ConversationHistory.load(path)
+
+    def get_ttft_stats(self) -> dict:
+        """p50/p95 time-to-first-token over this session."""
+        if not self._ttft_history:
+            return {"count": 0, "p50_sec": None, "p95_sec": None}
+        import numpy as _np
+
+        arr = _np.asarray(self._ttft_history)
+        return {
+            "count": len(arr),
+            "p50_sec": float(_np.percentile(arr, 50)),
+            "p95_sec": float(_np.percentile(arr, 95)),
+            "last_sec": float(arr[-1]),
+        }
+
+    def get_conversation_summary(self) -> dict:
+        last = self.conversation_history.get_last_assistant_response()
+        return {
+            "turn_count": self.conversation_history.get_turn_count(),
+            "timestamps_mentioned":
+                self.conversation_history.get_mentioned_timestamps(),
+            "last_query": self.conversation_history.get_last_user_query(),
+            "last_response": (last[:100] + "...") if last else None,
+        }
+
+
 def create_qa_backend(checkpoint_path, device="cuda") -> Qwen3ChatBackend:
     """The self-trained byte-level QA model behind a chat backend, served
     by the port's engine on ``device``."""
@@ -122,3 +750,41 @@ def create_qa_backend(checkpoint_path, device="cuda") -> Qwen3ChatBackend:
     config, state_dict = load_qa_lm(checkpoint_path, device=device)
     engine = Qwen3Engine(config, state_dict, eos_token_id=EOS_ID, device=device)
     return Qwen3ChatBackend(engine, ByteTokenizer())
+
+
+def create_reasoning_core(
+    config: Optional[ReasoningCoreConfig] = None,
+    checkpoint_path: Optional[str] = None,
+    lora_path: Optional[str] = None,
+    knowledge_searcher=None,
+    vl_checkpoint_path: Optional[str] = None,
+    device: str | torch.device = "cuda",
+) -> ReasoningCore:
+    """Factory (``gvl_tpu.agent.core.create_reasoning_core``): the QA model
+    when ``checkpoint_path`` is a qa_lm checkpoint, served on ``device``,
+    the grounded fake when no checkpoint is given.
+
+    The Qwen3-VL branch and the HF-checkpoint branch (with its speculative,
+    prompt-lookup and session engines) are not ported: they raise (ROADMAP
+    A10), as does a LoRA adapter for the QA model (ROADMAP A2).
+    """
+    from pathlib import Path
+
+    from gvl_tpu_torch.training.qa_lm_train import is_qa_lm_checkpoint
+
+    config = config or ReasoningCoreConfig()
+    if vl_checkpoint_path:
+        raise NotImplementedError(
+            f"{vl_checkpoint_path}: the Qwen3-VL backend is not ported yet (ROADMAP A10)")
+    if checkpoint_path and is_qa_lm_checkpoint(checkpoint_path):
+        if lora_path and Path(lora_path, "adapter_config.json").exists():
+            raise NotImplementedError(
+                f"{lora_path}: LoRA adapters are not ported yet (ROADMAP A2)")
+        backend = create_qa_backend(checkpoint_path, device=device)
+    elif checkpoint_path:
+        raise NotImplementedError(
+            f"{checkpoint_path}: HF text checkpoints are not ported yet (ROADMAP A10)")
+    else:
+        backend = TimelineGroundedFakeBackend()
+    return ReasoningCore(config, backend=backend,
+                         knowledge_searcher=knowledge_searcher, device=device)

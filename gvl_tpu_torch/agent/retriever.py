@@ -6,9 +6,7 @@ is cosine top-k over event-description embeddings from a
 :class:`TextEmbedder`: the trained byte tower
 (:class:`~gvl_tpu_torch.training.retriever_train.TrainedTextEmbedder`) when
 ``outputs/retriever`` is there, else the feature-hashing embedder.  The
-timeline is duck-typed: anything with ``events`` (or ``_events``) whose
-items have ``description`` and ``timestamp``, and, for time windows,
-``query_around_timestamp``.
+timeline is a :class:`gvl_tpu_torch.fusion.timeline.TimelineIndexer`.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ from typing import Optional, Protocol, Sequence
 import numpy as np
 import torch
 
-from gvl_tpu_torch.agent.config import RetrievalConfig
+from gvl_tpu_torch.agent.config import ReasoningCoreConfig
 
 logger = logging.getLogger(__name__)
 
@@ -54,7 +52,7 @@ class HashingTextEmbedder:
         return out / np.maximum(norms, 1e-12)
 
 
-def make_embedder(config: RetrievalConfig,
+def make_embedder(config: ReasoningCoreConfig,
                   device: str | torch.device = "cuda") -> Optional[TextEmbedder]:
     """The embedder ladder of ``gvl_tpu.agent.retriever.make_embedder``:
     "auto" → the trained tower when ``outputs/retriever`` is there, else
@@ -107,7 +105,7 @@ class TimelineRetriever:
         re.compile(r"around\s+(\d+(?:\.\d+)?)\s*(?:sec|seconds?|s)?"),
     ]
 
-    def __init__(self, config: RetrievalConfig, embedder: Optional[TextEmbedder] = None,
+    def __init__(self, config: ReasoningCoreConfig, embedder: Optional[TextEmbedder] = None,
                  device: str | torch.device = "cuda"):
         self.config = config
         self._embedder = embedder if embedder is not None else make_embedder(config, device)

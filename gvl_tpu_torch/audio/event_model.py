@@ -6,7 +6,8 @@ the window's log-RMS as a side input classifies each second into
 :data:`EVENT_CLASSES`; every window of a clip goes through one forward on
 the card.  The convolutions pad as Flax's "SAME" does
 (:class:`~gvl_tpu_torch.perception.ocr_model.SameConv`).  The procedural
-audio and the trainer stay in the JAX package.
+event audio (:func:`synth_event`, for the synthetic clips' soundtrack) is
+copied; the trainer stays in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,6 +65,128 @@ class EventModelConfig:
     def n_frames(self) -> int:
         # log_mel_spectrogram drops the final frame (Whisper convention)
         return self.window_samples // 160 - 1
+
+
+# --------------------------------------------------------------------------
+# Procedural audio synthesis (fully offline training data)
+# --------------------------------------------------------------------------
+
+def _colored_noise(rng: np.random.Generator, n: int, rolloff: float) -> np.ndarray:
+    """Noise with a 1/f**rolloff spectral envelope."""
+    spec = rng.normal(size=n // 2 + 1) + 1j * rng.normal(size=n // 2 + 1)
+    freqs = np.maximum(np.arange(n // 2 + 1, dtype=np.float64), 1.0)
+    spec = spec / freqs ** rolloff
+    wav = np.fft.irfft(spec, n)
+    return (wav / (np.abs(wav).max() + 1e-9)).astype(np.float32)
+
+
+def _tone(n: int, sr: int, f0: float, harmonics: int = 1,
+          decay: float = 0.0) -> np.ndarray:
+    t = np.arange(n) / sr
+    wav = np.zeros(n, np.float32)
+    for h in range(1, harmonics + 1):
+        wav += np.sin(2 * np.pi * f0 * h * t).astype(np.float32) / h
+    if decay > 0:
+        wav *= np.exp(-decay * t).astype(np.float32)
+    return wav / (np.abs(wav).max() + 1e-9)
+
+
+def synth_event(rng: np.random.Generator, cls: str,
+                config: EventModelConfig) -> np.ndarray:
+    """One window of procedural audio for an event class ∈ EVENT_CLASSES."""
+    n, sr = config.window_samples, config.sample_rate
+    t = np.arange(n) / sr
+    if cls == "silence":
+        return (rng.normal(0, rng.uniform(1e-5, 4e-4), n)
+                ).astype(np.float32)
+    if cls == "speech":
+        if rng.random() < 0.5:
+            # the OTHER procedural speech in this codebase: the byte
+            # ASR's formant synthesis.  Without this variant the event
+            # classifier labels ASR-style speech as music/impact (the
+            # measured cross-subsystem mismatch on audio-enabled
+            # synthetic clips), which breaks event-gated transcription.
+            from gvl_tpu_torch.training.asr_train import (
+                SpeakerProfile,
+                synth_speech,
+            )
+
+            words = ("enemy ahead", "take cover", "press it", "run now",
+                     "over here", "watch out", "go left", "help me")
+            text = " ".join(str(rng.choice(words))
+                            for _ in range(int(rng.integers(1, 3))))
+            wav = synth_speech(rng, text,
+                               profile=SpeakerProfile.sample(rng),
+                               total_seconds=config.window_seconds
+                               ).astype(np.float64)[:n]
+            if len(wav) < n:
+                wav = np.pad(wav, (0, n - len(wav)))
+            level = rng.uniform(0.05, 0.4)
+            wav = wav / (np.abs(wav).max() + 1e-9) * level
+            return wav.astype(np.float32)
+        # harmonic source with wandering f0 + syllabic (3-8 Hz) AM +
+        # formant-ish band emphasis via modulated harmonics amplitude
+        f0 = rng.uniform(90, 280)
+        drift = np.cumsum(rng.normal(0, 0.4, n)) / sr
+        phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.1 * np.sin(
+            2 * np.pi * rng.uniform(2, 5) * t)) + drift) / sr
+        wav = np.zeros(n, np.float64)
+        for h, amp in ((1, 1.0), (2, 0.7), (3, 0.9), (4, 0.4), (5, 0.25)):
+            wav += amp * np.sin(h * phase)
+        syllab = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(3, 8) * t
+                                   + rng.uniform(0, 6.28)))
+        # pauses between "words"
+        gate = (np.sin(2 * np.pi * rng.uniform(0.8, 1.6) * t
+                       + rng.uniform(0, 6.28)) > -0.6).astype(np.float64)
+        wav = wav * syllab * gate + rng.normal(0, 0.02, n)
+        level = rng.uniform(0.05, 0.4)
+    elif cls == "music":
+        # sustained chord (root + third + fifth, harmonic-rich) + vibrato
+        root = rng.uniform(110, 440)
+        wav = np.zeros(n, np.float64)
+        for ratio in (1.0, 1.26, 1.5):
+            vib = 1 + 0.01 * np.sin(2 * np.pi * rng.uniform(4, 7) * t)
+            wav += _tone(n, sr, root * ratio, harmonics=4) * vib
+        if rng.random() < 0.5:  # rhythmic pulse
+            wav *= 0.7 + 0.3 * (np.sin(2 * np.pi * rng.uniform(1, 3) * t)
+                                > 0)
+        level = rng.uniform(0.05, 0.5)
+    elif cls == "impact":
+        # wideband burst with exponential decay + low-frequency thump,
+        # placed at a random onset inside the window
+        wav = np.zeros(n, np.float64)
+        onset = int(rng.uniform(0, 0.6) * n)
+        dur = int(rng.uniform(0.1, 0.4) * sr)
+        burst = _colored_noise(rng, dur, rng.uniform(0.0, 0.5))
+        burst = burst * np.exp(-rng.uniform(6, 20) * np.arange(dur) / sr)
+        thump = _tone(dur, sr, rng.uniform(40, 90), harmonics=2,
+                      decay=rng.uniform(8, 18))
+        wav[onset:onset + dur] = burst + 0.8 * thump
+        wav += rng.normal(0, 0.01, n)
+        level = rng.uniform(0.2, 0.9)
+    elif cls == "ui":
+        # repeating pure beeps or a rising 2-3 note arpeggio chirp
+        wav = np.zeros(n, np.float64)
+        f = rng.uniform(700, 2400)
+        notes = int(rng.integers(2, 5))
+        dur = int(rng.uniform(0.05, 0.12) * sr)
+        gap = int(rng.uniform(0.04, 0.2) * sr)
+        pos = int(rng.uniform(0, 0.3) * n)
+        for k in range(notes):
+            if pos + dur > n:
+                break
+            step = 1.26 ** k if rng.random() < 0.6 else 1.0
+            wav[pos:pos + dur] = _tone(dur, sr, f * step, harmonics=2,
+                                       decay=rng.uniform(0, 20))
+            pos += dur + gap
+        level = rng.uniform(0.1, 0.6)
+    else:  # ambient
+        wav = _colored_noise(rng, n, rng.uniform(0.8, 1.8)).astype(
+            np.float64)
+        wav *= 1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t)
+        level = rng.uniform(0.01, 0.12)
+    wav = wav / (np.abs(wav).max() + 1e-9) * level
+    return wav.astype(np.float32)
 
 
 class AudioEventNet(nn.Module):

@@ -520,3 +520,37 @@ def create_audio_processor(
                                                 device=device)
         logger.info("audio events: trained classifier from %s", event_checkpoint)
     return AudioProcessor(config, asr_backend=asr_backend, event_backend=event_backend)
+
+
+def build_audio_stack(preset_audio, device: str | torch.device = "cuda"
+                      ) -> tuple[AudioProcessor, Callable]:
+    """(processor, chunk_embedder) from the preset's checkpoint ladder
+    (``gvl_tpu.audio.processor.build_audio_stack``; ``preset_audio`` is the
+    :class:`gvl_tpu_torch.config.presets.AudioConfig` section), its models
+    on ``device``: ASR ``whisper_checkpoint`` (the HF Whisper rung: not
+    ported, raises, ROADMAP A10) > ``asr_checkpoint`` (the trained byte
+    ASR) > the deterministic fake; events from ``event_checkpoint`` when
+    it resolves.  Chunk embeddings: ``wav2vec2_checkpoint`` (not ported,
+    raises, ROADMAP A10) > the event net's pooled features (with
+    ``event_checkpoint``) > :class:`HashAudioEmbedder`, the last two only
+    while ``use_wav2vec`` is on, as in JAX."""
+    from gvl_tpu_torch.utils.checkpoints import resolve_repo_path
+
+    config = AudioConfig(sample_rate=getattr(preset_audio, "sample_rate", 16000))
+    whisper_dir = resolve_repo_path(getattr(preset_audio, "whisper_checkpoint", None))
+    event_ckpt = resolve_repo_path(getattr(preset_audio, "event_checkpoint", None))
+    asr_ckpt = resolve_repo_path(getattr(preset_audio, "asr_checkpoint", None))
+    processor = create_audio_processor(whisper_dir, config, event_checkpoint=event_ckpt,
+                                       asr_checkpoint=asr_ckpt, device=device)
+    embedder: Callable = HashAudioEmbedder(1024)
+    if getattr(preset_audio, "use_wav2vec", True):
+        w2v_dir = resolve_repo_path(getattr(preset_audio, "wav2vec2_checkpoint", None))
+        if w2v_dir:
+            raise NotImplementedError(
+                f"{w2v_dir}: the wav2vec2 chunk-embedder rung is not ported yet (ROADMAP A10)")
+        if event_ckpt:
+            from gvl_tpu_torch.audio.event_model import TrainedAudioEmbedder
+
+            embedder = TrainedAudioEmbedder.from_checkpoint(event_ckpt, device=device)
+            logger.info("audio embeddings: trained event-model features from %s", event_ckpt)
+    return processor, embedder

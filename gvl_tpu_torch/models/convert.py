@@ -308,3 +308,73 @@ def whisper_params_from_jax(tree: dict, config) -> dict[str, torch.Tensor]:
         out.update(_mlp(layer, pre))
     out.update(_norm(dec["final_norm"], "decoder.final_norm"))
     return out
+
+
+def projector_params_from_jax(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX ``ProjectorBank``'s params (``{modality: {fc_in, fc_out}}``,
+    or its flat-npz tree) → one ``MultiModalProjector`` state dict per
+    modality."""
+    params = tree["params"] if "params" in tree else tree
+    return {name: {**_dense(node["fc_in"], "fc_in"), **_dense(node["fc_out"], "fc_out")}
+            for name, node in params.items()}
+
+
+# --------------------------------------------------------------------------
+# The way back: a state dict as the JAX package's tree
+# --------------------------------------------------------------------------
+
+def _leaves(tree: dict, path: tuple = ()) -> list:
+    out = []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.extend(_leaves(value, path + (key,)))
+        else:
+            out.append((path + (key,), value))
+    return out
+
+
+def tree_from_state(convert, skeleton: dict, state: dict) -> dict:
+    """The JAX tree that ``convert`` (a converter of this module, with its
+    other arguments bound) maps to ``state``.
+
+    ``skeleton`` is the tree's layout: nested dicts whose leaves are shapes.
+    The converters only move elements (transposes, reshapes, renames), so
+    ``convert`` is run once on a tree whose every element holds its own
+    address (leaf number and flat offset, exact in f64); each state tensor
+    then says where its elements came from.  Raises unless every element
+    of the tree is written exactly once."""
+    leaves = _leaves(skeleton)
+    probe: dict = {}
+    for i, (path, shape) in enumerate(leaves):
+        node = probe
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        size = int(np.prod(shape, dtype=np.int64))
+        node[path[-1]] = (np.arange(size, dtype=np.float64) + i * 2.0 ** 32).reshape(shape)
+    addresses = convert(probe)
+    if addresses.keys() != state.keys():
+        raise KeyError(f"state keys differ from the converter's: "
+                       f"{sorted(set(addresses) ^ set(state))[:4]}")
+    flat = [np.zeros(int(np.prod(shape, dtype=np.int64)), np.float32) for _, shape in leaves]
+    seen = [np.zeros(len(f), bool) for f in flat]
+    for key, where in addresses.items():
+        ids = where.numpy().astype(np.int64).ravel()
+        values = state[key].detach().float().cpu().numpy().ravel()
+        if len(values) != len(ids):
+            raise ValueError(f"{key}: {len(values)} values for {len(ids)} addresses")
+        for leaf in np.unique(ids >> 32):
+            pick = (ids >> 32) == leaf
+            offsets = ids[pick] & 0xFFFFFFFF
+            if seen[leaf][offsets].any() or len(np.unique(offsets)) != len(offsets):
+                raise ValueError(f"{key}: an element of the tree is written twice")
+            flat[leaf][offsets] = values[pick]
+            seen[leaf][offsets] = True
+    if not all(s.all() for s in seen):
+        raise ValueError("the converter leaves an element of the tree unwritten")
+    tree: dict = {}
+    for (path, shape), values in zip(leaves, flat):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = values.reshape(shape)
+    return tree

@@ -68,6 +68,80 @@ def random_encoders(device: str | torch.device = "cuda", seed: int = 0) -> Encod
     )
 
 
+
+@dataclass
+class Checkpoints:
+    segmenter: str         # flat npz, as outputs/sam_params.npz
+    events: str            # flat npz, as outputs/audio_event_params.npz
+    asr: str               # directory, as outputs/asr
+    retriever: str         # directory, as outputs/retriever
+
+
+def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
+                             seed: int = 0) -> Checkpoints:
+    """Checkpoints of the segmenter, event net, byte ASR and retriever at
+    their trained geometry, in the repository's own format, holding seeded
+    random weights drawn as :func:`random_encoders` draws them.
+
+    They stand in for the trained files of ``outputs/`` wherever those are
+    not at hand, so that the arm's checkpoint ladders resolve to the models
+    and not to their fakes.  Each state dict becomes the JAX package's tree
+    through :func:`gvl_tpu_torch.models.convert.tree_from_state`, on the
+    layouts of ``checkpoint_layouts.json`` (the key paths and shapes of the
+    trained files)."""
+    import json
+    from dataclasses import asdict
+    from pathlib import Path
+
+    from gvl_tpu_torch.audio.event_model import AudioEventNet, EventModelConfig
+    from gvl_tpu_torch.models import convert
+    from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig
+    from gvl_tpu_torch.models.siglip import SigLIPTextConfig, SigLIPTextTower
+    from gvl_tpu_torch.models.whisper import WhisperModel
+    from gvl_tpu_torch.nn.layers import init_state
+    from gvl_tpu_torch.training.asr_train import asr_config
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz, split_key
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    layouts = json.loads((Path(__file__).with_name("checkpoint_layouts.json")).read_text())
+
+    def skeleton(family: str) -> dict:
+        tree: dict = {}
+        for key, shape in layouts[family].items():
+            *parents, leaf = split_key(key)
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = tuple(shape)
+        return tree
+
+    def write(family, model_cls, config, to_jax, path):
+        with torch.device("meta"):
+            state = init_state(model_cls(config), gen, device)
+        save_flat_npz(convert.tree_from_state(to_jax, skeleton(family), state), path)
+
+    out = Path(out_dir)
+    (out / "asr").mkdir(parents=True, exist_ok=True)
+    (out / "retriever").mkdir(parents=True, exist_ok=True)
+    text_cfg, sam_cfg, asr_cfg = SigLIPTextConfig(**RETRIEVER_CONFIG), SamConfig(), asr_config()
+    paths = Checkpoints(str(out / "sam_params.npz"), str(out / "audio_event_params.npz"),
+                        str(out / "asr"), str(out / "retriever"))
+    write("retriever", SigLIPTextTower, text_cfg,
+          lambda t: convert.siglip_text_params_from_jax(t, text_cfg.num_layers),
+          out / "retriever" / "params.npz")
+    (out / "retriever" / "retriever_config.json").write_text(
+        json.dumps({"model": asdict(text_cfg)}, indent=2))
+    write("segmenter", PromptableSegmenter, sam_cfg,
+          lambda t: convert.sam_params_from_jax(t, sam_cfg), paths.segmenter)
+    write("events", AudioEventNet, EventModelConfig(), convert.event_params_from_jax,
+          paths.events)
+    write("asr", WhisperModel, asr_cfg, lambda t: convert.whisper_params_from_jax(t, asr_cfg),
+          out / "asr" / "params.npz")
+    (out / "asr" / "asr_config.json").write_text(json.dumps({"model": asdict(asr_cfg)},
+                                                            indent=2))
+    return paths
+
 _SUBJECTS = ("the player", "an enemy", "the boss", "a health pickup", "the hero",
              "a monster", "the final boss", "some loot")
 _ACTIONS = ("appears", "moves left", "moves right", "takes damage", "is defeated",

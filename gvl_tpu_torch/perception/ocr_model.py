@@ -404,7 +404,7 @@ class TorchOCREngine:
                 self.config = dataclasses.replace(self.config, rec_arch=arch)
         else:
             logger.warning("TorchOCREngine with random weights: pass checkpoint=")
-            generator = generator or torch.Generator().manual_seed(0)
+            generator = generator or torch.Generator(device=self.device).manual_seed(0)
         nets = {}
         for name, make in (("detector", TextDetectorNet), ("recognizer", make_recognizer)):
             with torch.device("meta"):

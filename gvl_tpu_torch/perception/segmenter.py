@@ -206,7 +206,7 @@ class TorchSegmenterBackend:
         with torch.device("meta"):
             model = PromptableSegmenter(self.model_config)
         if state is None:
-            state = init_state(model, generator or torch.Generator().manual_seed(0),
+            state = init_state(model, generator or torch.Generator(self.device).manual_seed(0),
                                self.device)
         self.model = load_module(model, state, self.device)
         self._hash_tokenize = hash_tokenize

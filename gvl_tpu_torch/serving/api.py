@@ -1,4 +1,4 @@
-"""HTTP serving for gameplay-video QA: the LLM routes.
+"""HTTP serving for gameplay-video QA.
 
 Counterpart of :mod:`gvl_tpu.serving.api`, stdlib only (ThreadingHTTPServer
 and JSON).
@@ -9,6 +9,12 @@ Endpoints
 - ``GET  /metrics``           engine counters, TTFT percentiles, sessions,
                               device memory
 - ``GET  /status``            per-video loop status
+- ``POST /process``           ``{"video": path}`` -> run (or reuse) perception
+                              through :func:`gvl_tpu_torch.pipeline.process_video`
+- ``POST /query``             ``{"video": path, "question": str,
+                              "timestamp"?: float}`` -> answer
+- ``POST /query/stream``      the same, chunked text/plain streaming
+- ``GET  /timeline?video=..`` timeline statistics + transcript
 - ``POST /generate``          ``{"prompt_ids": [int], "max_new_tokens"?}``
                               -> tokens through the shared continuous-batching
                               engine (see :meth:`InferenceService.attach_engine`)
@@ -17,10 +23,9 @@ Endpoints
                               -> multi-turn generation with a per-session KV
                               cache; ``prefilled`` reports the delta ingested
 
-The video routes (``POST /process``, ``/query``, ``/query/stream`` and
-``GET /timeline``) need the port's ``process_video`` (ROADMAP A5); until it
-lands they raise ``NotImplementedError``, which the handler answers with a
-500.  Concurrent ``/generate`` callers share one decode loop.
+The video routes process each video once with the service's preset
+(``config``) on its ``device``.  Concurrent ``/generate`` callers share one
+decode loop.
 """
 
 from __future__ import annotations
@@ -41,10 +46,6 @@ logger = logging.getLogger(__name__)
 MAX_NEW_TOKENS_LIMIT = 2048
 
 
-_NO_VIDEO = ("the video routes need the port's process_video, which is not "
-             "ported yet (ROADMAP A5)")
-
-
 def _max_new_tokens(body: dict) -> int:
     value = int(body.get("max_new_tokens", 128))
     if value < 1:
@@ -55,8 +56,13 @@ def _max_new_tokens(body: dict) -> int:
 class InferenceService:
     """Owns processed videos and routes questions to their loops."""
 
-    def __init__(self):
+    def __init__(self, config=None, device: str | torch.device = "cuda"):
+        from gvl_tpu_torch.config import load_preset
+
+        self.config = config or load_preset("light")
+        self.device = device
         self._videos: dict[str, object] = {}
+        self._lock = threading.Lock()
         self._engine_server = None
         self._tokenizer = None
         self._session_factory = None
@@ -200,18 +206,62 @@ class InferenceService:
             prompt_ids, max_new, session_key=body.get("session_key"))
 
     def process(self, video: str) -> dict:
-        raise NotImplementedError(_NO_VIDEO)
+        from gvl_tpu_torch.pipeline import process_video
+
+        with self._lock:
+            if video not in self._videos:
+                self._videos[video] = process_video(video, self.config,
+                                                    device=self.device)
+        processed = self._videos[video]
+        return {
+            "video": video,
+            "timeline": processed.timeline.get_statistics(),
+        }
 
     def query(self, video: str, question: str,
               timestamp: Optional[float] = None) -> dict:
-        raise NotImplementedError(_NO_VIDEO)
+        from gvl_tpu_torch.pipeline import answer_query
+
+        if video not in self._videos:
+            self.process(video)
+        processed = self._videos[video]
+        if timestamp is None:
+            timestamp = (
+                processed.loop.reasoning_core.retriever.parse_timestamp(
+                    question)
+            )
+        answer = answer_query(processed, question, timestamp)
+        summary = processed.loop.reasoning_core.get_conversation_summary()
+        return {
+            "video": video,
+            "question": question,
+            "answer": answer,
+            "turn_count": summary["turn_count"],
+        }
 
     def query_stream(self, video: str, question: str,
                      timestamp: Optional[float] = None):
-        raise NotImplementedError(_NO_VIDEO)
+        from gvl_tpu_torch.pipeline import answer_query_streaming
+
+        if video not in self._videos:
+            self.process(video)
+        processed = self._videos[video]
+        if timestamp is None:
+            timestamp = (
+                processed.loop.reasoning_core.retriever.parse_timestamp(
+                    question)
+            )
+        yield from answer_query_streaming(processed, question, timestamp)
 
     def timeline(self, video: str) -> dict:
-        raise NotImplementedError(_NO_VIDEO)
+        if video not in self._videos:
+            self.process(video)
+        processed = self._videos[video]
+        return {
+            "video": video,
+            "statistics": processed.timeline.get_statistics(),
+            "transcript": processed.timeline.build_structured_transcript(),
+        }
 
     def status(self) -> dict:
         return {

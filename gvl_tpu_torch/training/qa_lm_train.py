@@ -4,8 +4,10 @@ Counterpart of the serving parts of :mod:`gvl_tpu.training.qa_lm_train`:
 the model's geometry, the procedural grounded-QA samples (the same bytes
 for the same seed as the JAX package), ChatML rendering and encoding,
 checkpoint loading, and :func:`evaluate_qa_lm`, the held-out accuracy
-through the real engine.  The trainer, the lookup pretraining samples and
-the pipeline-rendered family are not ported yet.
+through the real engine, also over the pipeline-rendered family (prompts
+rendered by :class:`~gvl_tpu_torch.agent.core.ReasoningCore` over a real
+timeline and knowledge base).  The trainer and the lookup pretraining
+samples are not ported yet.
 """
 
 from __future__ import annotations
@@ -473,6 +475,319 @@ def encode_sample(sample: QASample, tokenizer: ByteTokenizer,
 
 
 # --------------------------------------------------------------------------
+# Pipeline-rendered family 
+# --------------------------------------------------------------------------
+#
+# The r3 qa_lm arm scored 0.500 through the real phase-1 pipeline while
+# acing its own hardened eval: the pipeline's rendered prompts (loader
+# question templates + lettered options + perception-produced timeline /
+# KB furniture + agent-loop suffixes) were out of the training
+# distribution.  This family renders training samples through the REAL
+# serving machinery — ``ReasoningCore.build_prompt`` over a real
+# ``TimelineIndexer`` and ``KnowledgeBaseBuilder`` — with question/
+# option shapes copied from ``BenchmarkLoader.synthetic_samples`` and
+# the ``PerceptionReasoningLoop`` query suffixes, so train == serve at
+# the byte level.  Ground truth is verified against the RENDERED text
+# (what retrieval actually kept), never the intended scenario alone.
+
+# mirror benchmarks/loaders/base.py _SYNTH_CONCEPTS and
+# gvl_tpu/io/video.py SyntheticVideo.SPEECH_LINES (import-free so the
+# producer thread stays dependency-light)
+PIPELINE_CONCEPTS = ("enemy", "boss", "item")
+PIPELINE_SPEECH_LINES = ("enemy ahead take cover", "press the button now",
+                         "grab the key and run", "the bridge is out")
+
+_PIPELINE_TLS = None
+
+
+def _pipeline_core():
+    """Thread-local ReasoningCore with the cheap hashing retriever (the
+    producer thread must never enqueue device work while training holds
+    the chip; retrieval CONTENT differences are harmless because truth
+    is derived from the rendered prompt)."""
+    global _PIPELINE_TLS
+    import threading
+
+    if _PIPELINE_TLS is None:
+        _PIPELINE_TLS = threading.local()
+    core = getattr(_PIPELINE_TLS, "core", None)
+    if core is None:
+        from gvl_tpu_torch.agent.config import ReasoningCoreConfig
+        from gvl_tpu_torch.agent.core import ReasoningCore, TemplateFakeBackend
+
+        cfg = ReasoningCoreConfig(embedding_model="hashing")
+        core = ReasoningCore(cfg, backend=TemplateFakeBackend(), device="cpu")
+        _PIPELINE_TLS.core = core
+    return core
+
+
+def _asr_garble(rng: np.random.Generator, text: str) -> str:
+    """Simulate the byte-ASR's transcript noise (char dropouts /
+    substitutions, junk alnum prefix from non-speech audio in the
+    window) — e.g. the real pipeline renders 'enemy ahead take cover'
+    as 'a0t0n19 enemy ahead take cove con'."""
+    chars = []
+    alphabet = "abcdefghijklmnopqrstuvwxyz0123456789"
+    for ch in text:
+        r = rng.random()
+        if r < 0.03:
+            continue                       # dropout
+        if r < 0.06 and ch != " ":
+            ch = alphabet[int(rng.integers(0, len(alphabet)))]
+        chars.append(ch)
+    out = "".join(chars)
+    if rng.random() < 0.5:
+        junk = "".join(alphabet[int(rng.integers(0, len(alphabet)))]
+                       for _ in range(int(rng.integers(3, 8))))
+        out = f"{junk} {out}"
+    if rng.random() < 0.35:
+        junk = "".join(alphabet[int(rng.integers(0, len(alphabet)))]
+                       for _ in range(int(rng.integers(2, 5))))
+        out = f"{out} {junk}"
+    return out
+
+
+def _letters_prompt(question: str, options: list[str]) -> str:
+    """BenchmarkSample.get_prompt's exact rendering."""
+    prompt = question + "\n\nOptions:"
+    for i, option in enumerate(options):
+        prompt += f"\n{chr(ord('A') + i)}) {option}"
+    return prompt + "\n\nAnswer with the letter of the correct option."
+
+
+def _loop_suffixes(rng: np.random.Generator) -> str:
+    """PerceptionReasoningLoop.process_frame query suffix composition."""
+    parts = []
+    r = rng.random()
+    if r < 0.55:
+        parts.append("[Temporal Context: No temporal context available.]")
+    elif r < 0.8:
+        n = int(rng.integers(1, 32))
+        t0 = float(rng.uniform(0, 18))
+        dur = float(rng.uniform(1, 20))
+        parts.append(f"[Temporal Context: Temporal context: {n} frames, "
+                     f"{dur:.1f}s duration ({t0:.1f}s to {t0 + dur:.1f}s)]")
+    mm = []
+    if rng.random() < 0.25:
+        mm.append(f"[{int(rng.integers(1, 12))} visual region embeddings "
+                  f"available]")
+    if rng.random() < 0.7:
+        mm.append(f"[{int(rng.integers(1, 4))} audio embeddings available]")
+    if mm:
+        parts.append("[Multimodal Context: " + ", ".join(mm) + "]")
+    return ("\n\n" + "\n".join(parts)) if parts else ""
+
+
+def _build_pipeline_scene(rng: np.random.Generator, duration: float,
+                          labels: list[str], speech: Optional[str],
+                          extra_audio: Optional[tuple] = None):
+    """(TimelineIndexer, KnowledgeBaseBuilder) like the qa_lm arm's
+    perception produces on a concept_demo clip: detection events near
+    t=0 (later duplicates merge away), audio events from the event
+    classifier, a noisy quoted ASR transcript, HUD OCR sometimes, and a
+    KB of several tracked instances per label with inferred spatial
+    relationships at the last processed frame."""
+    from gvl_tpu_torch.fusion.knowledge_base import KnowledgeBaseBuilder
+    from gvl_tpu_torch.fusion.timeline import ModalityType, TimelineIndexer
+
+    indexer = TimelineIndexer()
+    for label in labels:
+        t = 0.0 if rng.random() < 0.8 else float(rng.uniform(0, 3))
+        # entity_id keeps same-timestamp detections as SEPARATE lines
+        # (the real perception path tags detections with tracker ids, so
+        # the merger never folds "player detected; boss detected")
+        indexer.add_event(t, ModalityType.VISUAL, f"{label} detected",
+                          entity_id=f"{label}_000",
+                          confidence=float(rng.uniform(0.6, 0.99)))
+    # the REAL phase loaders only render a soundtrack for the audio
+    # question families (synthetic://...&audio=1); binary/concept-MCQ
+    # clips have ZERO audio timeline lines.  The r5 phase runs measured
+    # the v5 arm at 0.44 while its in-distribution pipeline eval said
+    # 0.83 — the training scenes were audio-dense where serving is
+    # audio-silent, and the model reverted to its "Yes" prior on the
+    # sparser prompts.  Match the serving marginal: audio-question
+    # scenes keep their events; other scenes are mostly silent.
+    has_audio_question = extra_audio is not None or speech is not None
+    audio_less = not has_audio_question and rng.random() < 0.85
+    n_audio = 0 if audio_less else int(rng.integers(1, 5))
+    times = rng.uniform(0, duration, n_audio)
+    taken = set()
+    if extra_audio is not None:
+        # the implication family's target event: keep its [MM:SS] second
+        # unambiguous so the rendered line is the unique ground truth
+        t_imp, ev_imp = extra_audio
+        taken.add(int(t_imp))
+        indexer.add_event(float(t_imp), ModalityType.AUDIO, ev_imp,
+                          confidence=float(rng.uniform(0.6, 0.99)))
+    for t in times:
+        if int(t) in taken:
+            continue
+        taken.add(int(t))
+        pool = (AUDIO_EVENTS if extra_audio is None else
+                [e for e in AUDIO_EVENTS if e != extra_audio[1]])
+        ev = str(rng.choice(pool))
+        indexer.add_event(float(t), ModalityType.AUDIO, ev,
+                          confidence=float(rng.uniform(0.5, 0.99)))
+    if speech is not None:
+        indexer.add_event(float(rng.uniform(0.0, 1.5)),
+                          ModalityType.SPEECH, _asr_garble(rng, speech),
+                          confidence=float(rng.uniform(0.5, 0.95)))
+    if rng.random() < 0.25:
+        word = str(rng.choice(HUD_WORDS))
+        indexer.add_event(float(rng.uniform(0, duration)),
+                          ModalityType.OCR,
+                          f"{word} {int(rng.integers(0, 999))}",
+                          confidence=float(rng.uniform(0.7, 0.99)))
+    indexer.merge_and_dedupe()
+
+    kb = KnowledgeBaseBuilder()
+    t_last = max(duration - 2.0, 1.0)
+    # serving KBs sometimes carry position-less states (fallback
+    # segmenter paths) and often export an EMPTY relationships section
+    with_pos = rng.random() < 0.8
+    for label in labels:
+        for k in range(int(rng.integers(2, 7))):
+            eid = f"{label}_{k:03d}"
+            x = float(rng.uniform(30, 280))
+            y = float(rng.uniform(30, 200))
+            w = float(rng.uniform(10, 70))
+            h = float(rng.uniform(10, 70))
+            kb.register_entity(eid, label, timestamp=0.0)
+            kb.update_entity_state(
+                eid, t_last,
+                position=(x, y) if with_pos else None,
+                bbox=((x - w / 2, y - h / 2, x + w / 2, y + h / 2)
+                      if with_pos else None))
+    if rng.random() < 0.7:
+        kb.infer_relationships_at(t_last)
+    return indexer, kb
+
+
+def generate_pipeline_sample(rng: np.random.Generator,
+                             max_attempts: int = 4) -> QASample:
+    """One serving-distribution sample through the real prompt path."""
+    core = _pipeline_core()
+    for _ in range(max_attempts):
+        duration = float(rng.choice((8.0, 10.0, 16.0, 20.0)))
+        r = rng.random()
+        speech = None
+        imp_target = None
+        if r < 0.35:                                  # binary presence
+            family = "binary"
+            present = str(rng.choice(PIPELINE_CONCEPTS))
+            if rng.random() < 0.5:
+                asked, truth_opt = present, "Yes"
+            else:
+                asked = str(rng.choice([c for c in PIPELINE_CONCEPTS
+                                        if c != present]))
+                truth_opt = "No"
+            labels = ["player", present]
+            question = (f"Does a {asked} appear at any point in this "
+                        "video? Answer Yes or No.")
+            options = ["Yes", "No"]
+        elif r < 0.62:                                # concept MCQ
+            family = "mcq"
+            present = (str(rng.choice(PIPELINE_CONCEPTS))
+                       if rng.random() < 0.75 else None)
+            labels = ["player"] + ([present] if present else [])
+            options = list(PIPELINE_CONCEPTS) + ["None of these"]
+            truth_opt = present if present else "None of these"
+            question = ("Besides the player, which of the following "
+                        "entities appears in this video?")
+        elif r < 0.84:                                # audio-line MCQ
+            family = "audio_mcq"
+            speech = str(rng.choice(PIPELINE_SPEECH_LINES))
+            labels = ["player", str(rng.choice(PIPELINE_CONCEPTS))]
+            options = list(PIPELINE_SPEECH_LINES)
+            truth_opt = speech
+            question = ("What does the voice in this clip say? "
+                        "Pick the option matching the spoken line.")
+        else:                                         # audio implication
+            # the answer is the event's gameplay IMPLICATION, not its
+            # timeline surface: lookup alone cannot
+            # solve it — the model also applies the event→implication
+            # map (the reference's analyze_audio_events capability)
+            family = "audio_imp"
+            labels = ["player", str(rng.choice(PIPELINE_CONCEPTS))]
+            ev = str(rng.choice(AUDIO_EVENTS))
+            t_imp = float(rng.uniform(1.0, duration - 1.0))
+            imp_target = (t_imp, ev)
+            truth_opt = CLASS_IMPLICATIONS.get(
+                ev, "only ambient background is audible")
+            options = [v for v in CLASS_IMPLICATIONS.values()
+                       if v != truth_opt][:3] + [truth_opt]
+            rng.shuffle(options)
+            question = (f"What does the sound at [{_mmss(int(t_imp))}] "
+                        "imply about the gameplay?")
+
+        indexer, kb = _build_pipeline_scene(rng, duration, labels, speech,
+                                            extra_audio=imp_target)
+        query = _letters_prompt(question, options) + _loop_suffixes(rng)
+        messages, _ = core._prepare(query, indexer, kb, None, None,
+                                    False, None)
+
+        def text_of(message):
+            content = message.get("content")
+            if isinstance(content, str):
+                return content
+            return "\n".join(part.get("text", "") for part in content
+                             if isinstance(part, dict))
+
+        system = next((text_of(m) for m in messages
+                       if m.get("role") == "system"), "")
+        user = "\n".join(text_of(m) for m in messages
+                         if m.get("role") == "user")
+
+        # verify truth against the RENDERED prompt (retrieval may drop
+        # lines); regenerate on the rare miss instead of mislabeling
+        if family == "binary":
+            seen = f"{asked} detected" in user
+            if (truth_opt == "Yes") != seen or (
+                    truth_opt == "No" and asked in user):
+                continue
+        elif family == "mcq":
+            if present is not None and f"{present} detected" not in user:
+                continue
+            if present is None and any(
+                    f"{c} detected" in user for c in PIPELINE_CONCEPTS):
+                continue
+        elif family == "audio_imp":
+            tag = f"[{_mmss(int(imp_target[0]))}]"
+            want_line = f"{tag} (Audio: {imp_target[1]})"
+            if (want_line not in user
+                    or user.count(f"{tag} (Audio:") != 1):
+                continue              # merged/dropped/ambiguous line
+        else:
+            if '"' not in user:       # transcript line dropped
+                continue
+
+        letter = chr(ord("A") + options.index(truth_opt))
+        if family == "binary":
+            if truth_opt == "Yes":
+                answer = (f"**Answer:** A) Yes — a {asked} is detected "
+                          f"([00:00]).")
+            else:
+                answer = (f"**Answer:** B) No — the timeline never "
+                          f"mentions a {asked}.")
+        elif family == "mcq":
+            if truth_opt == "None of these":
+                answer = (f"**Answer:** {letter}) None of these — only "
+                          "the player appears in the timeline.")
+            else:
+                answer = f"**Answer:** {letter}) {truth_opt} ([00:00])"
+        elif family == "audio_imp":
+            answer = (f"**Answer:** {letter}) {truth_opt} "
+                      f"([{_mmss(int(imp_target[0]))}]: "
+                      f"{imp_target[1]})")
+        else:
+            answer = f"**Answer:** {letter}) {truth_opt}"
+        return QASample(system, [], question, answer, letter,
+                        f"pipeline_{family}", rendered_user=user)
+    # pathological rng streak: fall back to a base sample
+    return _generate_base_sample(rng)
+
+
+# --------------------------------------------------------------------------
 # Checkpoint and held-out evaluation
 # --------------------------------------------------------------------------
 
@@ -495,6 +810,12 @@ def load_qa_lm(ckpt_dir, device="cuda") -> tuple[Qwen3Config, dict]:
     return cfg, {k: v.to(dev) for k, v in state.items()}
 
 
+
+def is_qa_lm_checkpoint(path) -> bool:
+    from pathlib import Path
+
+    return bool(path) and (Path(path) / "qa_lm_config.json").exists()
+
 def evaluate_qa_lm(
     state_dict: Optional[dict] = None,
     model_cfg: Optional[Qwen3Config] = None,
@@ -506,6 +827,7 @@ def evaluate_qa_lm(
     serving_sections: bool = True,
     n_events_range: tuple[int, int] = (6, 14),
     short_system: bool = False,
+    pipeline: bool = False,
     max_len: int = 3072,
     device="cuda",
 ) -> dict:
@@ -525,11 +847,14 @@ def evaluate_qa_lm(
     per_family: dict[str, list[int]] = {}
     answers, sample_families = [], []
     for _ in range(n_samples):
-        fam = str(rng.choice(families)) if families else None
-        sample = generate_qa_sample(rng, family=fam,
-                                    serving_sections=serving_sections,
-                                    n_events_range=n_events_range,
-                                    short_system=short_system)
+        if pipeline:
+            sample = generate_pipeline_sample(rng)
+        else:
+            fam = str(rng.choice(families)) if families else None
+            sample = generate_qa_sample(rng, family=fam,
+                                        serving_sections=serving_sections,
+                                        n_events_range=n_events_range,
+                                        short_system=short_system)
         # same front-trim budget as training
         tokens, _, prompt_len = encode_sample(sample, tokenizer, max_len)
         ids = [int(t) for t in tokens[:prompt_len]]

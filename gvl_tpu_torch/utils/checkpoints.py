@@ -57,3 +57,24 @@ def resolve_repo_path(path) -> Optional[str]:
         return str(p)
     rooted = REPO_ROOT / p
     return str(rooted) if rooted.exists() else None
+
+
+def _escape(part: str) -> str:
+    return part.replace("\\", "\\\\").replace("/", "\\/")
+
+
+def save_flat_npz(tree: dict, path) -> None:
+    """A nested dict of arrays as a flat-npz checkpoint (the JAX package's
+    ``save_flat_npz``): ``/``-joined key paths, ``/`` in a name escaped."""
+    flat = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            name = prefix + [_escape(str(key))]
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                flat["/".join(name)] = np.asarray(value)
+
+    walk(tree, [])
+    np.savez(path, **flat)

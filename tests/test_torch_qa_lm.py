@@ -18,7 +18,7 @@ from gvl_tpu.agent.core import messages_to_plain_text as jax_plain_text
 from gvl_tpu.models.byte_tokenizer import ByteTokenizer as JaxByteTokenizer
 from gvl_tpu.models.qwen3 import Qwen3Engine as JaxEngine
 from gvl_tpu.training import qa_lm_train as jax_qa
-from gvl_tpu_torch.agent.config import GenerationConfig
+from gvl_tpu_torch.agent import config as port_config
 from gvl_tpu_torch.agent.core import (
     Qwen3ChatBackend,
     create_qa_backend,
@@ -118,7 +118,7 @@ def test_chat_backend_stream_same_text(qa_models):
     assert messages_to_plain_text(messages) == jax_plain_text(messages)
     want = list(JaxBackend(jax_engine, JaxByteTokenizer()).stream(
         messages, ReasoningCoreConfig(max_new_tokens=24, temperature=0.0)))
-    got = list(backend.stream(messages, GenerationConfig(max_new_tokens=24,
+    got = list(backend.stream(messages, port_config.ReasoningCoreConfig(max_new_tokens=24,
                                                          temperature=0.0)))
     assert got == want and "".join(got)
 
@@ -140,7 +140,7 @@ def test_backend_trims_and_drops_prefix_like_jax():
     long_user = "".join(f"[{i:02d}:00] enemy detected\n" for i in range(60))
     messages = [{"role": "system", "content": "sys"},
                 {"role": "user", "content": long_user}]
-    cfg = GenerationConfig(max_new_tokens=32, temperature=0.0)
+    cfg = port_config.ReasoningCoreConfig(max_new_tokens=32, temperature=0.0)
     prefix = np.zeros((4, 32), np.float32)    # wrong width: dropped
     port_engine, jax_fake = _FakeEngine(), _FakeEngine()
     got = list(Qwen3ChatBackend(port_engine, ByteTokenizer()).stream(

@@ -24,7 +24,8 @@ from gvl_tpu.fusion.timeline import ModalityType, TimelineIndexer
 from gvl_tpu.models import siglip as jsig
 from gvl_tpu.training import retriever_train as jrt
 from gvl_tpu_torch.agent import retriever as tret
-from gvl_tpu_torch.agent.config import RetrievalConfig
+from gvl_tpu_torch.agent import config as port_config
+from gvl_tpu_torch.fusion import timeline as port_timeline
 from gvl_tpu_torch.models import siglip as tsig
 from gvl_tpu_torch.models.convert import siglip_text_params_from_jax
 from gvl_tpu_torch.nn.layers import load_module
@@ -114,39 +115,48 @@ def test_make_embedder_takes_the_same_rung(name, monkeypatch):
     # about 20 s on a CPU host)
     monkeypatch.setitem(__import__("sys").modules, "sentence_transformers", None)
     want = jret.make_embedder(ReasoningCoreConfig(embedding_model=name))
-    got = tret.make_embedder(RetrievalConfig(embedding_model=name), device="cpu")
+    got = tret.make_embedder(port_config.ReasoningCoreConfig(embedding_model=name), device="cpu")
     assert type(got).__name__ == type(want).__name__
 
 
 def test_make_embedder_minilm_rung_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="A10"):
-        tret.make_embedder(RetrievalConfig(embedding_model=str(tmp_path)), device="cpu")
+        tret.make_embedder(port_config.ReasoningCoreConfig(embedding_model=str(tmp_path)),
+                           device="cpu")
 
 
-def _timeline(descs):
-    idx = TimelineIndexer()
+def _timeline(descs, package=None):
+    """The same events in JAX's timeline, or in the port's (``package``)."""
+    indexer, modality = ((TimelineIndexer, ModalityType) if package is None else
+                         (package.TimelineIndexer, package.ModalityType))
+    idx = indexer()
     for i, d in enumerate(descs):
-        idx.add_event(timestamp=7.0 * i, modality=ModalityType.VISUAL, description=d)
+        idx.add_event(timestamp=7.0 * i, modality=modality.VISUAL, description=d)
     return idx
+
+
+def _events(events):
+    return [(e.timestamp, e.modality.value, e.description) for e in events]
 
 
 @pytest.mark.parametrize("rung", ["trained", "hashing"])
 def test_hybrid_retrieve_same_events(embedders, rung):
     queries, descs = _pairs(24, seed=1)
-    idx = _timeline(descs)
+    idx, port_idx = _timeline(descs), _timeline(descs, port_timeline)
     if rung == "trained":
         jax_emb, port_emb = embedders
     else:
         jax_emb, port_emb = jret.HashingTextEmbedder(256), tret.HashingTextEmbedder(256)
     want_r = jret.TimelineRetriever(ReasoningCoreConfig(), embedder=jax_emb)
-    got_r = tret.TimelineRetriever(RetrievalConfig(), embedder=port_emb)
+    got_r = tret.TimelineRetriever(port_config.ReasoningCoreConfig(), embedder=port_emb)
     want_r.index_timeline(idx)
-    got_r.index_timeline(idx)
+    got_r.index_timeline(port_idx)
     asks = queries[:8] + ["what happened at 00:42", "around 70 seconds what did the boss do",
                           "at 1:02:03 the hero", "show events at 21 sec"]
     for q in asks:
         assert got_r.parse_timestamp(q) == want_r.parse_timestamp(q)
-        for kw in ({}, {"timeline_indexer": idx}):
-            want = [id(e) for e in want_r.hybrid_retrieve(q, **kw)]
-            got = [id(e) for e in got_r.hybrid_retrieve(q, **kw)]
+        for want_kw, got_kw in (({}, {}), ({"timeline_indexer": idx},
+                                           {"timeline_indexer": port_idx})):
+            want = _events(want_r.hybrid_retrieve(q, **want_kw))
+            got = _events(got_r.hybrid_retrieve(q, **got_kw))
             assert got == want, q

@@ -20,7 +20,7 @@ import torch
 from gvl_tpu.models.qwen3 import Qwen3Config as JaxConfig
 from gvl_tpu.models.qwen3 import Qwen3Model as JaxModel
 from gvl_tpu.serving.batch_engine import ContinuousBatchingEngine as JaxBatchEngine
-from gvl_tpu_torch.agent.config import GenerationConfig
+from gvl_tpu_torch.agent.config import ReasoningCoreConfig
 from gvl_tpu_torch.agent.core import Qwen3ChatBackend
 from gvl_tpu_torch.models import qwen3 as port
 from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
@@ -286,9 +286,11 @@ def test_http_service_on_localhost(tiny):
         assert metrics["engine"]["requests_completed"] == 5
         assert _request(port_, "GET", "/health")[1]["llm_engine"] is True
         assert _request(port_, "POST", "/generate", {"max_new_tokens": 2})[0] == 400
+        # the video routes run process_video on the service's device, the
+        # card by default: without one it refuses, never falling back
         status, reply = _request(port_, "POST", "/query",
                                  {"video": "clip.mp4", "question": "?"})
-        assert status == 500 and "A5" in reply["error"]
+        assert status == 500 and "device='cpu'" in reply["error"]
         assert _request(port_, "GET", "/nowhere")[0] == 404
     finally:
         httpd.shutdown()
@@ -331,7 +333,7 @@ def test_backend_routes_spec_engine_then_session_then_engine():
     calls = []
     engine, spec, session = (_Fake(t, calls) for t in ("engine", "spec", "session"))
     messages = [{"role": "user", "content": "hi"}]
-    cfg = GenerationConfig(max_new_tokens=8, temperature=0.0)
+    cfg = ReasoningCoreConfig(max_new_tokens=8, temperature=0.0)
     prefix = np.zeros((2, 16), np.float32)
     route = [
         (Qwen3ChatBackend(engine, ByteTokenizer(), spec_engine=spec, session=session), None, "spec"),

@@ -275,7 +275,7 @@ def test_chat_backend_stream_ends_cleanly_at_the_cache_end():
     """The same through Qwen3ChatBackend: with max_new_tokens above half
     the cache the backend keeps limit // 2 prompt tokens, so prompt +
     answer pass the cache; the stream ends where the cache does."""
-    from gvl_tpu_torch.agent.config import GenerationConfig
+    from gvl_tpu_torch.agent.config import ReasoningCoreConfig
     from gvl_tpu_torch.agent.core import Qwen3ChatBackend
     from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
 
@@ -295,7 +295,7 @@ def test_chat_backend_stream_ends_cleanly_at_the_cache_end():
     messages = [{"role": "user", "content": "".join(
         f"[{i:02d}:00] enemy detected\n" for i in range(12))}]
     backend = Qwen3ChatBackend(Recording(), ByteTokenizer())
-    list(backend.stream(messages, GenerationConfig(max_new_tokens=100,
+    list(backend.stream(messages, ReasoningCoreConfig(max_new_tokens=100,
                                                    temperature=0.0)))
     assert len(seen["ids"]) == tcfg.max_cache_length // 2
     want = JaxEngine(jcfg, params, eos_token_id=-1, dtype=jnp.float32).generate(
