@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Two figures of the port that ``chip_smoke.py`` leaves out to keep its time.
+"""Figures of the port that ``chip_smoke.py`` leaves out to keep its time.
 
-    python3 card_figures.py qa      # the QA model's held-out accuracy
-    python3 card_figures.py fused   # the fused W8A8 tower against bf16
+    python3 card_figures.py qa                  # the QA model's held-out accuracy
+    python3 card_figures.py fused               # the fused W8A8 tower against bf16
+    python3 card_figures.py --cpu gvp_light open_vocab clip
 
 Run from the root of the repository, on a machine with one CUDA card and
-``nvcc``.
+``nvcc``; ``--cpu`` runs the figures on the CPU instead (the trained-weight
+figures below read ``outputs/``, which the card's copy leaves out).
 
 ``qa``: ``evaluate_qa_lm`` on the in-repo QA model (``outputs/qa_lm``)
 through the port's ``Qwen3Engine``, n 32 at each of seeds 77, 1234 and
@@ -22,8 +24,27 @@ initialiser draws it, which ``bench.py``'s tower uses (lecun normal:
 a normal truncated at two standard deviations, rescaled to variance
 1/fan_in).
 
-Prints the card's name and power limit, one line per reading, and one
-JSON object as its last line.
+``gvp_light``: the ``gvp_light`` arm (the ``light`` preset without the
+segmenter: zero-shot mini-SigLIP labels, whole-frame embeddings, OCR,
+audio; the grounded fake answers) through the port's
+``FullPipelineRunner`` on the trained weights of ``outputs/``, over the
+synthetic samples of the phase runners' loaders (n 16 each, seed 42):
+phase 1 (``glitchbench``, ``physgame``) and phase 3 (``longvideobench``,
+``mlvu``), n 32 a phase, as VERDICT.md read the JAX package (0.938 in
+both).
+
+``open_vocab``: ``bench.py``'s ``bench_open_vocab`` (8 base scenes, seed
+4321): the trained composite's detection and label accuracy under the
+canonical prompts and the unseen paraphrases, with the lexicon resolver
+and with the raw towers (BENCH_r05: 0.70 / 0.824, 0.6 / 0.857, 0.25 /
+0.455).
+
+``clip``: ``bench.py``'s ``bench_clip_encoder`` (48 base clips, seed 1234):
+direction, kind and event accuracy of the trained clip classifier and the
+frame-shuffled control (BENCH_r05: 0.979, 1.0, 1.0; 0.171).
+
+Prints the device (the card's name and power limit, or the CPU), one line
+per reading, and one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -103,25 +124,108 @@ def fused_figure(dev) -> dict:
     return out
 
 
-FIGURES = {"qa": qa_figure, "fused": fused_figure}
+GVP_PHASES = {"phase 1": ("glitchbench", "physgame"), "phase 3": ("longvideobench", "mlvu")}
+GVP_SAMPLES, GVP_SEED = 16, 42
+OPEN_VOCAB_SCENES, CLIP_COUNT = 8, 48
+
+
+def _trained(*paths) -> None:
+    """The trained-weight figures read ``outputs/``; without those files the
+    ladders would take their fakes, so refuse instead."""
+    missing = [p for p in paths if not (REPO / p).exists()]
+    if missing:
+        raise SystemExit(f"card_figures: trained weights missing: {missing}")
+
+
+def gvp_light_figure(dev) -> dict:
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner, check_correctness
+    from gvl_tpu_torch.eval.samples import SyntheticLoader
+
+    _trained("outputs/minisiglip", "outputs/ocr_params.npz", "outputs/audio_event_params.npz",
+             "outputs/asr", "outputs/retriever")
+    out = {}
+    for phase, loaders in GVP_PHASES.items():
+        start = time.perf_counter()
+        runner = FullPipelineRunner(get_model_config("gvp_light"), use_cache=False, device=dev)
+        per_loader = {}
+        for name in loaders:
+            samples = SyntheticLoader(name, GVP_SEED).synthetic_samples(GVP_SAMPLES)
+            hits = []
+            for sample in samples:
+                result = runner.run_inference(sample)
+                if "error" in result:
+                    raise RuntimeError(f"{sample.sample_id}: {result['error']}")
+                hits.append(check_correctness(result["predicted"], sample))
+            per_loader[name] = {"correct": int(sum(hits)), "n": len(hits),
+                                "wrong": [s.sample_id for s, h in zip(samples, hits) if not h]}
+        correct = sum(v["correct"] for v in per_loader.values())
+        n = sum(v["n"] for v in per_loader.values())
+        print(f"gvp_light {phase} ({', '.join(loaders)}, seed {GVP_SEED}): {correct}/{n} "
+              f"= {correct / n:.4f} (VERDICT.md, JAX: 0.938); wrong "
+              f"{[w for v in per_loader.values() for w in v['wrong']]}; "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        out[phase] = {"correct": correct, "n": n, "accuracy": correct / n,
+                      "by_loader": per_loader}
+    return out
+
+
+def open_vocab_figure(dev) -> dict:
+    from gvl_tpu_torch.perception.open_vocab import OpenVocabSamBackend
+    from gvl_tpu_torch.training.siglip_train import UNSEEN_PROMPTS, evaluate_open_vocab
+
+    _trained("outputs/sam_params.npz", "outputs/minisiglip", "outputs/retriever")
+    seg, mini = str(REPO / "outputs" / "sam_params.npz"), str(REPO / "outputs" / "minisiglip")
+    backend = OpenVocabSamBackend.from_trained_checkpoints(seg, mini, device=dev)
+    raw = OpenVocabSamBackend.from_trained_checkpoints(seg, mini, retriever_dir=None,
+                                                       device=dev)
+    runs = {"canonical": (backend, None), "paraphrase": (backend, UNSEEN_PROMPTS),
+            "paraphrase, raw tower": (raw, UNSEEN_PROMPTS)}
+    out = {}
+    for name, (b, prompts) in runs.items():
+        m = evaluate_open_vocab(b, n_scenes=OPEN_VOCAB_SCENES, style="base", prompts=prompts)
+        print(f"open vocab {name} ({OPEN_VOCAB_SCENES} base scenes): detection "
+              f"{m['det_correct']:.4f}, label {m['label_acc']:.4f}, localized "
+              f"{m['localized']:.4f}, {m['n_instances']} instances", flush=True)
+        out[name] = m
+    return out
+
+
+def clip_figure(dev) -> dict:
+    from gvl_tpu_torch.training.videomae_train import evaluate_clip_encoder, load_clip_encoder
+
+    _trained("outputs/videomae")
+    _, model = load_clip_encoder(REPO / "outputs" / "videomae", device=dev)
+    m = evaluate_clip_encoder(model, n_clips=CLIP_COUNT, style="base")
+    ctrl = evaluate_clip_encoder(model, n_clips=CLIP_COUNT, style="base", shuffle_frames=True)
+    print(f"clip encoder ({CLIP_COUNT} base clips): direction {m['direction_acc']:.4f}, kind "
+          f"{m['kind_acc']:.4f}, event {m['event_acc']:.4f}; shuffled frames: direction on "
+          f"moving clips {ctrl['direction_acc_moving']:.4f}", flush=True)
+    return {"trained": m, "shuffled": ctrl}
+
+
+FIGURES = {"qa": qa_figure, "fused": fused_figure, "gvp_light": gvp_light_figure,
+           "open_vocab": open_vocab_figure, "clip": clip_figure}
 
 
 def main(argv) -> int:
-    names = argv or list(FIGURES)
+    cpu = "--cpu" in argv
+    names = [a for a in argv if a != "--cpu"] or list(FIGURES)
     if any(n not in FIGURES for n in names):
-        print(f"usage: python3 card_figures.py [{'|'.join(FIGURES)}] ...", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("card_figures: no CUDA device; these figures are read on the card only",
+        print(f"usage: python3 card_figures.py [--cpu] [{'|'.join(FIGURES)}] ...",
               file=sys.stderr)
+        return 2
+    if not cpu and not torch.cuda.is_available():
+        print("card_figures: no CUDA device; these figures are read on the card "
+              "(or pass --cpu)", file=sys.stderr)
         return 1
     from gvl_tpu_torch import resolve_device
 
-    dev = resolve_device("cuda")
+    dev = resolve_device("cpu" if cpu else "cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip()
+    smi = "CPU" if cpu else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     out = {"device": smi}
     for name in names:

@@ -75,10 +75,26 @@ Run from the root of the repository, on a machine with one CUDA card and
     bases and prompts equal byte for byte, answers up to one), device ms
     and busy share per stage (profiler), BENCH_r05's pipeline QA figure
     (``evaluate_qa_lm(pipeline=True)``, n 32 at seeds 77 and 1234, within
-    4 of 38/64), and ``gvl_tpu_torch.entry.entry()`` at the 8B geometry.
+    4 of 38/64), and ``gvl_tpu_torch.entry.entry()`` at the 8B geometry;
+13. the ``gvp_light`` and ``gvp_full`` arms end to end (the ``light``
+    preset's segmenter-free route: zero-shot mini-SigLIP labels of motion
+    proposals and whole-frame embeddings; then the segmenter, region
+    embeddings, HiCo at its head of 176 and 8 fps; then with VideoMAE on):
+    seeded random checkpoints of the mini-SigLIP pair, the clip classifier
+    and HiCo beside phase 12's (HiCo's fixed ``outputs/hico_params.npz``
+    is met by serving from a working directory that holds the seeded file
+    there; the repository's files are not touched), the labeler's and the
+    clip heads' biases nudged so that the random models emit events, every
+    ladder asserted to resolve to its model, the arms served through
+    ``FullPipelineRunner`` with the flash kernel's launches counted per
+    model, then each run again through its plain path
+    (``nn.layers.plain_attention``: no kernel may launch) with timelines,
+    knowledge bases, the grounded fake's messages and answers equal and
+    confidences within 1e-4; per stage of one clip of each run, the wall
+    (``StageTimer``), device ms, busy share, launches and top kernels.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 12) and read just after it; each run must have launched
+path of phases 3 to 13) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -93,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import logging
 import math
 import re
 import subprocess
@@ -167,6 +184,23 @@ ARM_SPEECH_MARGIN = 30.0
 # seeds 77 and 1234, max_len 4096, 38 of 64 answers
 PIPELINE_SEEDS, PIPELINE_SAMPLES, PIPELINE_MAX_LEN = (77, 1234), 32, 4096
 PIPELINE_WANT, PIPELINE_SLACK = 38, 4
+# phase 13: the gvp_light and gvp_full arms (grounded fake answers) on seeded
+# random checkpoints of every encoder, the mini-SigLIP pair, the clip
+# classifier and HiCo at their trained geometry (seed 13); the samples of
+# phase 1's first loader ("glitchbench", seed 42): the first 8 for gvp_light,
+# the first 4 for gvp_full and the first 2 with VideoMAE on (the synthetic
+# clips are drawn at 2 fps, so gvp_full's 8 fps decodes 20 or 40 frames)
+GVP_SEED, GVP_LOADER, GVP_LOADER_SEED = 13, "glitchbench", 42
+GVP_LIGHT_SAMPLES, GVP_FULL_SAMPLES, GVP_VIDEOMAE_SAMPLES = 8, 4, 2
+GVP_CONF_TOL = 1e-4         # zero-shot and motion confidences, kernel vs plain path (f32)
+GVP_EMBED_SHARE = 1e-4      # SigLIP and VideoMAE embeddings: share of their largest |value|
+# the seeded MAP head's output bias is moved this far along the text
+# embedding of one class, so that random towers name motion proposals (their
+# cosines otherwise fall below the labeler's 0.5), and the seeded clip heads'
+# biases of one direction and one kind are raised, so that the motion events'
+# confidence passes 0.6
+ZERO_SHOT_CLASS, ZERO_SHOT_MARGIN = "enemy", 100.0
+MOTION_DIRECTION, MOTION_KIND, MOTION_MARGIN = "E", "enemy", 30.0
 
 _T0 = time.perf_counter()
 
@@ -445,17 +479,27 @@ def check_kernels(dev) -> list[dict]:
             library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
 
     # the perception encoders' attention, f32 as those models run (PERF.md
-    # rows 1c-1f): the segmenter's image encoder (32 frames), its mask
+    # rows 1c-1k): the segmenter's image encoder (32 frames), its mask
     # decoder's cross-attention (32 frames x 4 concepts, head 32 padded to
     # 64 by the wrapper), the byte ASR's encoder and its cached decode's
-    # cross-attention (4 windows, one query row per step)
+    # cross-attention (4 windows, one query row per step); the mini-SigLIP's
+    # towers (8 crops, its MAP head, a caption pool of 7), VideoMAE (3
+    # windows), HiCo's pool (8 clips, head 176 padded to 192) and head 192
+    # itself
     for shape, b, h, sq, sk, d in (
             ("segmenter image encoder: q/k/v [32,6,256,64] f32", 32, 6, 256, 256, 64),
             ("segmenter mask decoder cross-attention: q [128,8,8,32], k/v [128,8,257,32] "
              "f32 (head padded to 64)", 128, 8, 8, 257, 32),
             ("byte ASR encoder: q/k/v [4,4,300,64] f32", 4, 4, 300, 300, 64),
             ("byte ASR decode cross-attention: q [4,4,1,64], k/v [4,4,300,64] f32",
-             4, 4, 1, 300, 64)):
+             4, 4, 1, 300, 64),
+            ("mini-SigLIP image tower: q/k/v [8,6,64,64] f32", 8, 6, 64, 64, 64),
+            ("mini-SigLIP MAP head: q [8,6,1,64], k/v [8,6,64,64] f32", 8, 6, 1, 64, 64),
+            ("mini-SigLIP text tower: q/k/v [7,6,32,64] f32", 7, 6, 32, 32, 64),
+            ("VideoMAE: q/k/v [3,4,392,64] f32", 3, 4, 392, 392, 64),
+            ("HiCo FRAME to CLIP pool: q [8,8,1,176], k/v [8,8,16,176] f32 (head padded "
+             "to 192)", 8, 8, 1, 16, 176),
+            ("head 192: q/k/v [4,8,256,192] f32", 4, 8, 256, 256, 192)):
         qt = randn(b, h, sq, d)
         kt, vt = randn(b, h, sk, d), randn(b, h, sk, d)
         err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt),
@@ -2139,6 +2183,383 @@ def run_arm(dev):
     workdir.cleanup()
     return launches
 
+
+# --------------------------------------------------------------------------
+# phase 13: the gvp_light and gvp_full arms
+# --------------------------------------------------------------------------
+
+def let_labels_through(ckpts, dev, margin: float) -> None:
+    """Moves the seeded mini-SigLIP's MAP-head output bias ``margin`` along
+    the labeler's text embedding of ``ZERO_SHOT_CLASS``, so that the random
+    image tower names the motion proposals of a clip (its cosines alone stay
+    below the labeler's 0.5 threshold); every other weight, and so the
+    tower's dependence on its input, is kept."""
+    from gvl_tpu_torch.perception.frame_labeler import MiniSigLIPFrameLabeler
+    from gvl_tpu_torch.utils.checkpoints import load_flat_npz, save_flat_npz
+
+    labeler = MiniSigLIPFrameLabeler(ckpts.minisiglip, device=dev)
+    target = labeler._text_emb[labeler.classes.index(ZERO_SHOT_CLASS)].cpu().numpy()
+    path = Path(ckpts.minisiglip, "params.npz")
+    tree = load_flat_npz(path)
+    tree["vision"]["head"]["o_proj"]["bias"] += margin * target
+    save_flat_npz(tree, path)
+
+
+def let_motion_through(ckpts, margin: float) -> None:
+    """Raises the seeded clip classifier's logits of ``MOTION_DIRECTION`` and
+    ``MOTION_KIND`` by ``margin``, so that its motion events pass the 0.6
+    confidence the pipeline writes them at."""
+    from gvl_tpu_torch.training.videomae_train import CONCEPTS, DIRECTION_NAMES
+    from gvl_tpu_torch.utils.checkpoints import load_flat_npz, save_flat_npz
+
+    path = Path(ckpts.videomae, "params.npz")
+    tree = load_flat_npz(path)
+    tree["dir_head"]["bias"][DIRECTION_NAMES.index(MOTION_DIRECTION)] += margin
+    tree["kind_head"]["bias"][CONCEPTS.index(MOTION_KIND)] += margin
+    save_flat_npz(tree, path)
+
+
+@contextlib.contextmanager
+def b1_by_model():
+    """Yields a dict of the flash_attention launches made inside the forward
+    of each model of the gvp arms (global module hooks; a model nested in
+    another counts in both)."""
+    import torch
+
+    from gvl_tpu_torch.models.sam import PromptableSegmenter
+    from gvl_tpu_torch.models.siglip import MAPHead, SigLIPTextTower, SigLIPVisionTower
+    from gvl_tpu_torch.models.videomae import VideoMAEEncoder
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.temporal.hico import _CrossAttnPool
+
+    def name_of(m):
+        if isinstance(m, SigLIPVisionTower):
+            return "mini-SigLIP image tower (MAP head included)"
+        if isinstance(m, MAPHead):
+            return "mini-SigLIP MAP head"
+        if isinstance(m, SigLIPTextTower):
+            return ("mini-SigLIP text tower" if m.config.max_position == 32
+                    else "retriever text tower")
+        if isinstance(m, VideoMAEEncoder):
+            return "VideoMAE"
+        if isinstance(m, _CrossAttnPool):
+            return "HiCo pool (head 176)"
+        if isinstance(m, PromptableSegmenter):
+            return "segmenter"
+        return None
+
+    counts, open_calls = {}, {}
+
+    def pre(module, args):
+        if name_of(module):
+            open_calls[id(module)] = flash_attention.launches
+
+    def post(module, args, out):
+        if id(module) in open_calls:
+            name = name_of(module)
+            counts[name] = counts.get(name, 0) + flash_attention.launches - open_calls.pop(
+                id(module))
+
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post))
+    try:
+        yield counts
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+class HiCoLoads(logging.Handler):
+    """Records where every HiCo compressor took its weights from."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def gvp_runner(arm: str, ckpts, dev, videomae: bool):
+    """The arm's runner on the ``light`` preset with every ladder pointed at
+    the seeded checkpoints (OCR: a seeded ``TorchOCREngine``)."""
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner
+
+    runner = FullPipelineRunner(get_model_config(arm), use_cache=False, device=dev,
+                                embedding_model=ckpts.retriever)
+    p = runner.preset.perception
+    p.sam_checkpoint, p.siglip_checkpoint = ckpts.segmenter, ckpts.minisiglip
+    p.videomae_checkpoint, p.use_videomae, p.ocr_backend = ckpts.videomae, videomae, "jax"
+    runner.preset.audio.event_checkpoint = ckpts.events
+    runner.preset.audio.asr_checkpoint = ckpts.asr
+    return runner
+
+
+def gvp_ladders(what: str, cfg, dev, ckpts) -> None:
+    """Fails unless every ladder the run's preset reaches resolves to its
+    model on the seeded checkpoints."""
+    import numpy as np
+
+    from gvl_tpu_torch.audio.event_model import TorchAudioEventDetector
+    from gvl_tpu_torch.audio.processor import build_audio_stack
+    from gvl_tpu_torch.perception.batch import build_segmenter, build_siglip_encoder
+    from gvl_tpu_torch.perception.ocr import create_ocr_pipeline
+    from gvl_tpu_torch.perception.ocr_model import TorchOCREngine
+    from gvl_tpu_torch.perception.segmenter import TorchSegmenterBackend
+    from gvl_tpu_torch.perception.semantic import TorchSigLIPBackend
+    from gvl_tpu_torch.temporal.clip_encoder import build_clip_encoder
+    from gvl_tpu_torch.temporal.hico import TemporalCompressionModule
+    from gvl_tpu_torch.training.asr_train import TrainedByteASR
+    from gvl_tpu_torch.training.siglip_train import is_minisiglip_checkpoint
+    from gvl_tpu_torch.training.videomae_train import TrainedClipEncoder
+    from gvl_tpu_torch.utils.checkpoints import load_flat_npz, resolve_repo_path
+
+    encoder = build_siglip_encoder(cfg, device=dev)
+    audio, _ = build_audio_stack(cfg.audio, device=dev)
+    got = {"SigLIP encoder": type(encoder.backend), "OCR": type(
+        create_ocr_pipeline(cfg.perception.ocr_backend, device=dev).engine),
+        "ASR": type(audio.asr), "events": type(audio.event_backend)}
+    want = {"SigLIP encoder": TorchSigLIPBackend, "OCR": TorchOCREngine,
+            "ASR": TrainedByteASR, "events": TorchAudioEventDetector}
+    if cfg.perception.use_sam:
+        got["segmenter"] = type(build_segmenter(cfg, device=dev).backend)
+        want["segmenter"] = TorchSegmenterBackend
+    if cfg.perception.use_videomae:
+        got["clip encoder"] = type(build_clip_encoder(cfg, device=dev))
+        want["clip encoder"] = TrainedClipEncoder
+    labeler_ckpt = resolve_repo_path(cfg.perception.siglip_checkpoint)
+    if (got != want or encoder.config.embedding_dim != 384 or labeler_ckpt != ckpts.minisiglip
+            or not is_minisiglip_checkpoint(labeler_ckpt)):
+        raise AssertionError(f"{what}: ladders resolved to {got}, encoder width "
+                             f"{encoder.config.embedding_dim}, labeler {labeler_ckpt}; "
+                             f"want {want}, 384, {ckpts.minisiglip}")
+    if cfg.temporal.use_hico:
+        module = TemporalCompressionModule(device=dev)
+        seeded = load_flat_npz(ckpts.hico)["params"]["temporal_pe"]
+        if not np.array_equal(module.compressor.temporal_pe.detach().cpu().numpy(), seeded):
+            raise AssertionError(f"{what}: HiCo did not load the seeded {ckpts.hico}")
+    log("gvp", f"{what}: ladders {({k: v.__name__ for k, v in got.items()})}, labeler and "
+        f"encoder on {labeler_ckpt}" + (", HiCo on the seeded compressor"
+                                        if cfg.temporal.use_hico else ""))
+
+
+def serve_gvp(runner, samples, plain: bool):
+    """Every sample through the runner (kernel or plain path), the grounded
+    fake's messages recorded; returns (results, launches, messages, B1 by
+    model, HiCo's weight sources)."""
+    from gvl_tpu_torch.nn.layers import plain_attention
+    from gvl_tpu_torch.perception import frame_labeler
+    from gvl_tpu_torch.utils.profiler import MessageLog
+
+    frame_labeler._LABELER_CACHE.clear()   # each path builds its own labeler
+    hico_loads = HiCoLoads()
+    hico_logger = logging.getLogger("gvl_tpu_torch.temporal.hico")
+    hico_logger.addHandler(hico_loads)
+    hico_logger.setLevel(logging.INFO)
+    try:
+        with (plain_attention() if plain else contextlib.nullcontext()), \
+                b1_by_model() as by_model:
+            core = runner._get_processed(samples[0].video_path).loop.reasoning_core
+            inner = core.backend.backend if isinstance(core.backend, MessageLog) \
+                else core.backend
+            core.backend = messages = MessageLog(inner)
+            results, launches = serve_arm(runner, samples)
+    finally:
+        hico_logger.removeHandler(hico_loads)
+    return results, launches, messages.messages, by_model, hico_loads.messages
+
+
+def compare_gvp(what: str, runner, results, messages, plain_runner, plain_results,
+                plain_messages) -> None:
+    """Kernel path against plain path: events, transcripts, knowledge
+    bases, messages and answers equal; confidences within GVP_CONF_TOL,
+    embeddings within GVP_EMBED_SHARE of their largest value."""
+    import numpy as np
+
+    for video, pv in runner._processed.items():
+        other = plain_runner._processed[video]
+        events = [(e.timestamp, e.modality.value, e.description, e.entity_id)
+                  for e in pv.timeline.events]
+        if events != [(e.timestamp, e.modality.value, e.description, e.entity_id)
+                      for e in other.timeline.events]:
+            raise AssertionError(f"{what}: the timelines of {video} differ")
+        conf = max((abs(a.confidence - b.confidence)
+                    for a, b in zip(pv.timeline.events, other.timeline.events)), default=0.0)
+        if conf > GVP_CONF_TOL:
+            raise AssertionError(f"{what}: confidences of {video} differ by {conf:.3g}")
+        if (pv.timeline.build_structured_transcript()
+                != other.timeline.build_structured_transcript()
+                or pv.knowledge_base.export_for_llm() != other.knowledge_base.export_for_llm()):
+            raise AssertionError(f"{what}: transcript or knowledge base of {video} differs")
+        for name in ("siglip_embeddings", "videomae_embeddings"):
+            got, want = getattr(pv, name), getattr(other, name)
+            if [t for t, _ in got] != [t for t, _ in want]:
+                raise AssertionError(f"{what}: {name} of {video} at other times")
+            if want:
+                want = np.stack([e for _, e in want])
+                share = np.abs(np.stack([e for _, e in got]) - want).max() / np.abs(want).max()
+                if share > GVP_EMBED_SHARE:
+                    raise AssertionError(f"{what}: {name} of {video} differ by {share:.3g} of "
+                                         "their largest value")
+    if messages != plain_messages:
+        raise AssertionError(f"{what}: the messages handed to the backend differ")
+    answers = [r["raw_response"] for r in results]
+    if answers != [r["raw_response"] for r in plain_results]:
+        raise AssertionError(f"{what}: the grounded fake answered differently")
+
+
+def profile_gvp(what: str, runner, video: str, dev) -> None:
+    """Each stage of one clip, called as process_video calls it: the
+    StageTimer wall of the served run beside the profiled wall, device ms,
+    busy share, CUDA launches and the top device kernels."""
+    from gvl_tpu_torch.device_times import call_profile
+    from gvl_tpu_torch.fusion import KnowledgeBaseBuilder, TimelineIndexer
+    from gvl_tpu_torch.io.ingest import resolve_video_source
+    from gvl_tpu_torch.perception.batch import build_segmenter
+    from gvl_tpu_torch.perception.frame_labeler import emit_zero_shot_labels
+    from gvl_tpu_torch.pipeline import (
+        extract_siglip_embeddings,
+        extract_videomae_embeddings,
+        run_audio_analysis,
+        run_hico,
+        run_ocr_extraction,
+        run_sam_detection,
+    )
+
+    cfg, served = runner.preset, runner._processed[video].timings
+    frames = resolve_video_source(video, fps=cfg.inference.fps)
+    segmenter = build_segmenter(cfg, device=dev)
+    stages = {
+        "sam_detection": lambda: run_sam_detection(
+            frames, cfg, TimelineIndexer(), KnowledgeBaseBuilder(), device=dev),
+        "zero_shot_labels": lambda: emit_zero_shot_labels(frames, cfg, TimelineIndexer(),
+                                                          device=dev),
+        "siglip_embeddings": lambda: extract_siglip_embeddings(frames, segmenter, cfg, dev),
+        "videomae_embeddings": lambda: extract_videomae_embeddings(
+            frames, cfg, TimelineIndexer(), device=dev),
+        "audio_analysis": lambda: run_audio_analysis(video, TimelineIndexer(), cfg, device=dev),
+        "ocr_extraction": lambda: run_ocr_extraction(frames, TimelineIndexer(), cfg, device=dev),
+        "temporal_compression": lambda: run_hico(frames, TimelineIndexer(), cfg, device=dev),
+    }
+    if cfg.perception.use_sam:
+        segmenter = run_sam_detection(frames, cfg, TimelineIndexer(), KnowledgeBaseBuilder(),
+                                      device=dev)
+    log("gvp", f"{what}: {video}, {len(frames)} frames; StageTimer (served run): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in served.items()))
+    with uncounted():
+        for name, fn in stages.items():
+            if name not in served:
+                continue
+            got = call_profile(fn, repeats=1)
+            log("gvp", f"{what} {name}: StageTimer {1e3 * served[name]:.1f} ms, profiled "
+                f"wall {got['wall_ms']:.1f} ms, device {got['device_ms']:.2f} ms (busy "
+                f"{got['busy_share']:.1%}), {got['kernel_launches']:.0f} CUDA launches; top "
+                f"{json.dumps({k: round(v, 3) for k, v in list(got['top_kernels_ms'].items())[:3]})}")
+
+
+def run_gvp(dev):
+    """Phase 13: the gvp_light and gvp_full arms (and gvp_full with VideoMAE
+    on) end to end on seeded checkpoints, each against its plain path."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.eval.samples import SyntheticLoader
+    from gvl_tpu_torch.perception.encoders import write_random_checkpoints
+
+    start = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_gvp_")
+    ckpts = write_random_checkpoints(Path(workdir.name, "outputs"), dev, GVP_SEED)
+    let_labels_through(ckpts, dev, ZERO_SHOT_MARGIN)
+    let_motion_through(ckpts, MOTION_MARGIN)
+    loader = SyntheticLoader(GVP_LOADER, GVP_LOADER_SEED)
+    samples = loader.synthetic_samples(max(GVP_LIGHT_SAMPLES, GVP_FULL_SAMPLES,
+                                           GVP_VIDEOMAE_SAMPLES))
+    runs = (("gvp_light", "gvp_light", False, samples[:GVP_LIGHT_SAMPLES]),
+            ("gvp_full", "gvp_full", False, samples[:GVP_FULL_SAMPLES]),
+            ("gvp_full + VideoMAE", "gvp_full", True, samples[:GVP_VIDEOMAE_SAMPLES]))
+    log("gvp", f"seeded checkpoints (seed {GVP_SEED}) written in {workdir.name}/outputs and "
+        f"nudged in {time.perf_counter() - start:.1f} s; samples of loader '{GVP_LOADER}' "
+        f"(seed {GVP_LOADER_SEED}): {[len(r[3]) for r in runs]}")
+    here = os.getcwd()
+    # HiCo reads outputs/hico_params.npz, which resolves against the working
+    # directory first: the seeded file there, the repository's untouched
+    os.chdir(workdir.name)
+    total = {}
+    try:
+        for what, arm, videomae, samples in runs:
+            t0 = time.perf_counter()
+            runner = gvp_runner(arm, ckpts, dev, videomae)
+            gvp_ladders(what, runner.preset, dev, ckpts)
+            torch.manual_seed(GVP_SEED)
+            reset_launches()
+            results, parts, messages, by_model, hico_loads = serve_gvp(runner, samples, False)
+            torch.cuda.synchronize()
+            launches = served_launches(what, ("flash_attention",))
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            events = [e for pv in runner._processed.values() for e in pv.timeline.events]
+            zero_shot = sum(1 for e in events if (e.entity_id or "").startswith("zs_"))
+            # the timeline merges nearby events of one modality, so a HiCo token
+            # and a motion event can share one merged description
+            motion = sum(1 for e in events if e.modality.value == "temporal"
+                         and " moving " in f" {e.description} ")
+            hico = sum(1 for e in events if "Temporal context" in e.description)
+            log("gvp", f"{what}: {len(results)} answers over {len(runner._processed)} clips "
+                f"({sum(len(pv.timestamps) for pv in runner._processed.values())} frames), "
+                f"{len(events)} events: {zero_shot} zero-shot, {motion} motion, {hico} HiCo; "
+                f"flash_attention launches by model {by_model}; HiCo loads {set(hico_loads)}; "
+                f"stages, mean wall ms: " + ", ".join(
+                    f"{k} {np.mean([1e3 * pv.timings[k] for pv in runner._processed.values()]):.1f}"
+                    for k in next(iter(runner._processed.values())).timings))
+            p = runner.preset
+            want_b1 = (["mini-SigLIP image tower (MAP head included)", "mini-SigLIP MAP head"]
+                       + (["mini-SigLIP text tower"] if not p.perception.use_sam else [])
+                       + (["HiCo pool (head 176)"] if p.temporal.use_hico else [])
+                       + (["VideoMAE"] if p.perception.use_videomae else []))
+            silent = [name for name in want_b1 if not by_model.get(name)]
+            if silent:
+                raise AssertionError(f"{what}: no flash_attention launch from {silent}")
+            if not p.perception.use_sam and not zero_shot:
+                raise AssertionError(f"{what}: no zero-shot label events")
+            if p.perception.use_videomae and not motion:
+                raise AssertionError(f"{what}: no TEMPORAL motion events")
+            if p.temporal.use_hico and (not hico or not hico_loads or any(
+                    Path(m.rsplit(" from ", 1)[-1]).resolve() != Path(ckpts.hico).resolve()
+                    for m in hico_loads)):
+                raise AssertionError(f"{what}: HiCo events {hico}, loads {hico_loads}: not "
+                                     f"the seeded {ckpts.hico}")
+            for sample, result in zip(samples, results):
+                log("gvp", f"{what} {sample.sample_id}: truth {sample.ground_truth!r}, "
+                    f"predicted {result['predicted']!r}")
+
+            with uncounted():
+                # the plain path: a runner of its own, every attention through
+                # its plain version; it may launch no kernel
+                before = kernel_launches()
+                plain_runner = gvp_runner(arm, ckpts, dev, videomae)
+                torch.manual_seed(GVP_SEED)
+                plain_results, _, plain_messages, _, _ = serve_gvp(plain_runner, samples, True)
+                torch.cuda.synchronize()
+                launched = {k: n - before[k] for k, n in kernel_launches().items()
+                            if n != before[k]}
+            if launched:
+                raise AssertionError(f"{what}: the plain path launched kernels: {launched}")
+            compare_gvp(what, runner, results, messages, plain_runner, plain_results,
+                        plain_messages)
+            log("gvp", f"{what}: plain path launched no kernel; timelines, knowledge bases, "
+                f"{len(messages)} prompts and {len(results)} answers equal, confidences within "
+                f"{GVP_CONF_TOL}; {time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+            profile_gvp(what, runner, samples[0].video_path, dev)
+    finally:
+        os.chdir(here)
+        workdir.cleanup()
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2186,8 +2607,10 @@ def main() -> int:
     served.append(run_perception(dev))
     torch.cuda.empty_cache()
     served.append(run_arm(dev))
+    torch.cuda.empty_cache()
+    served.append(run_gvp(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-12): {launches}")
+    log("launches", f"served paths (phases 3-13): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), f32 or bf16, head_dim 64, 80 or
-// 128 (80: SigLIP so400m's 72, zero-padded by the wrapper to the next multiple
-// of 16).
+// Flash-attention forward for Hopper (sm_90a), f32 or bf16, head_dim 64, 80,
+// 128 or 192 (80: SigLIP so400m's 72, and 192: HiCo's 176, each zero-padded by
+// the wrapper to the next of these sizes).
 //
 // Replaces the TPU kernel gvl_tpu/ops/attention.py:flash_attention (Pallas
 // bodies _attn_kernel and _attn_single_kernel): softmax(q k^T * scale) v with
@@ -59,7 +59,12 @@ constexpr int kWarps = 4;  // warps of one key group: 16 kM query rows each
 // tile's keys (8 warps per SM); at D 128 one m-tile per warp and 32-key
 // tiles keep it within shared memory and registers.  The bf16 blocks fit
 // two or three to an SM, and their registers would not take a second key
-// group.
+// group.  D 192 (HiCo's 176 padded; 9 % of padding against 45 % at the TPU
+// kernel's 256) takes one m-tile per warp at either type: the output alone is
+// 96 f32 registers a lane, and two m-tiles would spill.  Its f32 block holds
+// 196 KB of shared memory (Q hi/lo 50, K/V hi/lo 50 at 32-key tiles, the
+// staging ring 96), one block per SM; at 256 the same tiles would need
+// 260 KB, past the 227 KB a block may hold.
 template <typename T, int D>
 struct Tiles;
 template <>
@@ -69,11 +74,15 @@ struct Tiles<float, 80> { static constexpr int kM = 2, kBK = 64, kSt = 2, kGroup
 template <>
 struct Tiles<float, 128> { static constexpr int kM = 1, kBK = 32, kSt = 2, kGroups = 1; };
 template <>
+struct Tiles<float, 192> { static constexpr int kM = 1, kBK = 32, kSt = 2, kGroups = 1; };
+template <>
 struct Tiles<__nv_bfloat16, 64> { static constexpr int kM = 2, kBK = 64, kSt = 3, kGroups = 1; };
 template <>
 struct Tiles<__nv_bfloat16, 80> { static constexpr int kM = 2, kBK = 64, kSt = 3, kGroups = 1; };
 template <>
 struct Tiles<__nv_bfloat16, 128> { static constexpr int kM = 2, kBK = 64, kSt = 2, kGroups = 1; };
+template <>
+struct Tiles<__nv_bfloat16, 192> { static constexpr int kM = 1, kBK = 64, kSt = 2, kGroups = 1; };
 
 template <typename T, int D>
 constexpr int kThreadsOf = 32 * kWarps * Tiles<T, D>::kGroups;
@@ -481,11 +490,15 @@ extern "C" int gvl_flash_attention(const void* q, const void* k, const void* v,
     return launch<float, 80>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
   if (dtype == kF32 && head_dim == 128)
     return launch<float, 128>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
+  if (dtype == kF32 && head_dim == 192)
+    return launch<float, 192>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
   if (dtype == kBF16 && head_dim == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
   if (dtype == kBF16 && head_dim == 80)
     return launch<__nv_bfloat16, 80>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
   if (dtype == kBF16 && head_dim == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
+  if (dtype == kBF16 && head_dim == 192)
+    return launch<__nv_bfloat16, 192>(q, k, v, out, batch, hq, hkv, sq, sk, kv_len, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

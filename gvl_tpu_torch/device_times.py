@@ -30,7 +30,10 @@ from ``torch.profiler`` (CUPTI) instead:
    and the top device kernels; the bf16 tower beside it;
 5. the ``qa_lm`` arm's perception encoders at their trained geometry with
    seeded random weights (:mod:`gvl_tpu_torch.perception.encoders`): the
-   flash kernel's device time per launch at their attention shapes, and
+   flash kernel's device time per launch at their attention shapes and at
+   those of the gvp arms' models (the mini-SigLIP's towers, VideoMAE,
+   HiCo's pool with head 176, whose call also counts the wrapper's pads,
+   and head 192), and
    for one call of each encoder's entry point (the retriever on 128 texts,
    the segmenter on 32 frames x 4 concepts, the OCR engine on 8 HUD
    frames, event detection on 8 s, transcription of 4 windows of 6 s)
@@ -313,20 +316,29 @@ def call_profile(fn, repeats: int = 3) -> dict:
 def perception_profile(dev) -> dict:
     """Part 5: the perception encoders' attention shapes and entry points."""
     from gvl_tpu_torch.audio.processor import AudioConfig, AudioProcessor
-    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.ops.attention import HEAD_DIMS, flash_attention
     from gvl_tpu_torch.perception import encoders as E
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = {"segmenter image encoder [32,6,256,64]": (32, 6, 256, 256, 64),
               "mask decoder cross [128,8,8->257,32]": (128, 8, 8, 257, 32),
               "ASR encoder [4,4,300,64]": (4, 4, 300, 300, 64),
-              "ASR decode cross [4,4,1->300,64]": (4, 4, 1, 300, 64)}
+              "ASR decode cross [4,4,1->300,64]": (4, 4, 1, 300, 64),
+              "mini-SigLIP image tower [8,6,64,64]": (8, 6, 64, 64, 64),
+              "mini-SigLIP MAP head [8,6,1->64,64]": (8, 6, 1, 64, 64),
+              "mini-SigLIP text tower [7,6,32,64]": (7, 6, 32, 32, 64),
+              "VideoMAE [3,4,392,64]": (3, 4, 392, 392, 64),
+              "HiCo pool [8,8,1->16,176]": (8, 8, 1, 16, 176),
+              "head 192 [4,8,256,192]": (4, 8, 256, 256, 192)}
     attention = {}
     for name, (b, h, sq, sk, d) in shapes.items():
         q = torch.randn(b, h, sq, d, generator=gen, device=dev)
         k, v = (torch.randn(b, h, sk, d, generator=gen, device=dev) for _ in range(2))
         attention[name] = kernel_device_ms(lambda: flash_attention(q, k, v),
                                            ("flash_attention_kernel",))
+        if d not in HEAD_DIMS:   # and with the wrapper's head pads and slice
+            attention[f"{name}, all kernels of the call"] = kernel_device_ms(
+                lambda: flash_attention(q, k, v), ("",))
     print(f"flash_attention at the encoders' shapes, device ms per launch: {attention}",
           flush=True)
     enc = E.random_encoders(dev, seed=11)

@@ -1,11 +1,13 @@
 """Ablation arms for evaluation: which capabilities are on, independent of
 the hardware preset (the port's copy of ``benchmarks/model_configs.py``).
 
-The port runs the ``qa_lm`` arm end to end (:mod:`gvl_tpu_torch.eval.
-model_inference`), and ``synthetic_gate`` and ``baseline_plain`` on the
-same path; ``gvp_light`` switches SigLIP on (ROADMAP A6) and ``gvp_full``
-SigLIP, HiCo and the adapters (A6, A8, A2), which the port's
-``process_video`` refuses.
+Every arm runs end to end through the port's ``FullPipelineRunner``
+(:mod:`gvl_tpu_torch.eval.model_inference`) on the ``light`` preset:
+``qa_lm`` on the trained QA model, ``gvp_light`` (no segmenter: zero-shot
+mini-SigLIP labels and whole-frame embeddings) and ``gvp_full`` (segmenter,
+region embeddings, HiCo, projectors at 8 fps) answering with the grounded
+fake, as in JAX, where their ``llm_checkpoint`` is empty.  ``use_lora``
+reaches no ``process_video`` path in either package (no adapter is loaded).
 """
 
 from __future__ import annotations

@@ -168,6 +168,19 @@ def siglip_text_params_from_jax(tree: dict, num_layers: int) -> dict[str, torch.
     return out
 
 
+def minisiglip_params_from_jax(tree: dict, vision_config, text_config) -> dict[str, torch.Tensor]:
+    """A Flax ``MiniSigLIP`` tree (``vision``, ``text``, ``logit_scale``,
+    ``logit_bias``) → the port's ``MiniSigLIP`` state dict."""
+    params = tree["params"] if "params" in tree else tree
+    out = {f"vision.{k}": v for k, v in
+           siglip_params_from_jax(params["vision"], vision_config.num_layers).items()}
+    out.update({f"text.{k}": v for k, v in
+                siglip_text_params_from_jax(params["text"], text_config.num_layers).items()})
+    out["logit_scale"] = _tensor(params["logit_scale"])
+    out["logit_bias"] = _tensor(params["logit_bias"])
+    return out
+
+
 _FUSED_MATRICES = ("w_qkv", "w_o", "w1", "w2")
 _FUSED_SCALARS = ("ln1_inv", "attn_inv", "ln2_inv", "gelu_inv")
 
@@ -317,6 +330,51 @@ def projector_params_from_jax(tree: dict) -> dict[str, dict[str, torch.Tensor]]:
     params = tree["params"] if "params" in tree else tree
     return {name: {**_dense(node["fc_in"], "fc_in"), **_dense(node["fc_out"], "fc_out")}
             for name, node in params.items()}
+
+
+# --------------------------------------------------------------------------
+# Temporal: VideoMAE, the trained clip classifier, HiCo
+# --------------------------------------------------------------------------
+
+def videomae_params_from_jax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """A Flax ``VideoMAEEncoder`` tree → the port's ``VideoMAEEncoder``."""
+    params = tree["params"] if "params" in tree else tree
+    out = _dense(params["patch_embed"]["proj"], "patch_embed.proj")
+    for i in range(config.num_layers):
+        layer, pre = params[f"layers_{i}"], f"layers.{i}"
+        for name in ("norm_before", "norm_after"):
+            out.update(_norm(layer[name], f"{pre}.{name}"))
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj", "fc1", "fc2"):
+            out.update(_dense(layer[name], f"{pre}.{name}"))
+    return out
+
+
+def clip_classifier_params_from_jax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """The trained clip classifier's tree (``encoder`` and the
+    ``dir_head``, ``kind_head``, ``event_head`` Dense heads) → the port's
+    ``ClipClassifier``."""
+    params = tree["params"] if "params" in tree else tree
+    out = {f"encoder.{k}": v for k, v in videomae_params_from_jax(params["encoder"],
+                                                                   config).items()}
+    for head in ("dir_head", "kind_head", "event_head"):
+        out.update(_dense(params[head], head))
+    return out
+
+
+def hico_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """A Flax ``HierarchicalCompressor`` tree (``temporal_pe`` and the
+    cross-attention pools it holds: ``frame_to_clip``, ``clip_to_video``)
+    → the port's ``HierarchicalCompressor`` state dict."""
+    params = tree["params"] if "params" in tree else tree
+    out = {"temporal_pe": _tensor(params["temporal_pe"])}
+    for pool in ("frame_to_clip", "clip_to_video"):
+        if pool not in params:
+            continue
+        node = params[pool]
+        out[f"{pool}.query"] = _tensor(node["query"])
+        out.update(_attention(node, pool))
+        out.update(_norm(node["norm"], f"{pool}.norm"))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -106,16 +106,23 @@ class MAPHead(nn.Module):
         self.fc1 = nn.Linear(d, config.intermediate_size)
         self.fc2 = nn.Linear(config.intermediate_size, d)
 
+    use_flash_kernel = True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return map_head(dict(self.named_parameters()), x, self.num_heads, self.eps)
+        from gvl_tpu_torch.nn.layers import flash_kernel_on
+
+        return map_head(dict(self.named_parameters()), x, self.num_heads, self.eps,
+                        kernel=flash_kernel_on(self))
 
 
 def map_head(p: dict[str, torch.Tensor], x: torch.Tensor, num_heads: int,
-             eps: float) -> torch.Tensor:
+             eps: float, kernel: bool = True) -> torch.Tensor:
     """The MAP head as a function of its state dict (``probe``,
     ``q_proj.weight``, ...): ``[B, S, D]`` → ``[B, D]``, computed in the
-    promoted type of x and the weights (as Flax promotes)."""
-    from gvl_tpu_torch.ops.attention import flash_attention
+    promoted type of x and the weights (as Flax promotes); its attention
+    through the flash kernel's wrapper, or its plain version without
+    ``kernel``."""
+    from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
 
     x = x.to(torch.promote_types(x.dtype, p["q_proj.weight"].dtype))
     batch, _, d = x.shape
@@ -128,8 +135,9 @@ def map_head(p: dict[str, torch.Tensor], x: torch.Tensor, num_heads: int,
         return t.view(batch, -1, num_heads, dh).transpose(1, 2).contiguous()
 
     probe = p["probe"].expand(batch, 1, d).to(x.dtype)
-    attn = flash_attention(heads(dense("q_proj", probe)), heads(dense("k_proj", x)),
-                           heads(dense("v_proj", x)))
+    attend = flash_attention if kernel else attention_reference
+    attn = attend(heads(dense("q_proj", probe)), heads(dense("k_proj", x)),
+                  heads(dense("v_proj", x)))
     hidden = dense("o_proj", attn.transpose(1, 2).reshape(batch, 1, d))
     normed = F.layer_norm(hidden.float(), (d,), p["norm.weight"].float(),
                           p["norm.bias"].float(), eps).to(hidden.dtype)

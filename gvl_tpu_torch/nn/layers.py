@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -56,16 +57,37 @@ def _dense(in_dim: int, out_dim: int, quant: bool, quant_static: bool,
     return nn.Linear(in_dim, out_dim, bias=use_bias)
 
 
+_PLAIN_ATTENTION = [False]
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within this block every attention of the encoder family (:func:`attend`
+    and the SigLIP MAP head) takes the plain version, whatever its module's
+    ``use_flash_kernel``: a whole pipeline's plain path, built as it is
+    served, which the card holds its kernel path to."""
+    _PLAIN_ATTENTION[0] = True
+    try:
+        yield
+    finally:
+        _PLAIN_ATTENTION[0] = False
+
+
+def flash_kernel_on(module: nn.Module) -> bool:
+    """Whether ``module``'s attention goes through the flash kernel's wrapper."""
+    return module.use_flash_kernel and not _PLAIN_ATTENTION[0]
+
+
 def attend(module: nn.Module, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            **kw) -> torch.Tensor:
     """``[B, H, S, dh]`` attention for ``module``: through the flash kernel's
     wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
     or straight through the plain version when ``module.use_flash_kernel``
-    is off, which is how a model's kernel path is held to its plain path on
-    the card (:func:`set_flash_kernel`)."""
+    is off or inside :func:`plain_attention`, which is how a model's kernel
+    path is held to its plain path on the card (:func:`set_flash_kernel`)."""
     from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
 
-    fn = flash_attention if module.use_flash_kernel else attention_reference
+    fn = flash_attention if flash_kernel_on(module) else attention_reference
     return fn(q, k, v, **kw)
 
 

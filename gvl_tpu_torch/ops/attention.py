@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from gvl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128)   # head sizes the kernel is built for
+HEAD_DIMS = (64, 80, 128, 192)   # head sizes the kernel is built for
 
 
 def attention_reference(
@@ -102,10 +102,11 @@ def flash_attention(
     version on CPU tensors.  Arguments as :func:`attention_reference`.
 
     The kernel takes f32 or bf16 (one type for q, k and v), head_dim 64,
-    80 or 128 and contiguous tensors; anything else raises.  Another
-    head_dim up to 128 (72 in SigLIP so400m) is zero-padded to the next of
-    those and the output sliced back, as the JAX package pads heads to 128
-    lanes; the softmax scale stays at the true head_dim.  Each launch adds
+    80, 128 or 192 and contiguous tensors; anything else raises.  Another
+    head_dim up to 192 (72 in SigLIP so400m, 176 in HiCo) is zero-padded to
+    the next of those and the output sliced back, as the JAX package pads
+    heads to a multiple of 128 lanes; the softmax scale stays at the true
+    head_dim.  Each launch adds
     one to ``flash_attention.launches``.
     """
     if q.is_cpu:

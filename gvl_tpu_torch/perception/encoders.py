@@ -75,13 +75,20 @@ class Checkpoints:
     events: str            # flat npz, as outputs/audio_event_params.npz
     asr: str               # directory, as outputs/asr
     retriever: str         # directory, as outputs/retriever
+    minisiglip: str        # directory, as outputs/minisiglip
+    videomae: str          # directory, as outputs/videomae (the clip classifier)
+    hico: str              # flat npz, as outputs/hico_params.npz (FRAME → CLIP pool)
 
 
 def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
                              seed: int = 0) -> Checkpoints:
-    """Checkpoints of the segmenter, event net, byte ASR and retriever at
-    their trained geometry, in the repository's own format, holding seeded
-    random weights drawn as :func:`random_encoders` draws them.
+    """Checkpoints of the segmenter, event net, byte ASR, retriever,
+    mini-SigLIP pair (vision 384 x 6 layers x 6 heads at 128 px, text 384 x
+    4 layers), clip classifier (VideoMAE 256 x 6 layers x 4 heads, 16
+    frames at 112 px, and its three heads) and HiCo compressor (1408 wide,
+    8 heads; the FRAME → CLIP pool, as the trained file holds) at their
+    trained geometry, in the repository's own format, holding seeded random
+    weights drawn as :func:`random_encoders` draws them.
 
     They stand in for the trained files of ``outputs/`` wherever those are
     not at hand, so that the arm's checkpoint ladders resolve to the models
@@ -122,11 +129,12 @@ def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
         save_flat_npz(convert.tree_from_state(to_jax, skeleton(family), state), path)
 
     out = Path(out_dir)
-    (out / "asr").mkdir(parents=True, exist_ok=True)
-    (out / "retriever").mkdir(parents=True, exist_ok=True)
+    for sub in ("asr", "retriever", "minisiglip", "videomae"):
+        (out / sub).mkdir(parents=True, exist_ok=True)
     text_cfg, sam_cfg, asr_cfg = SigLIPTextConfig(**RETRIEVER_CONFIG), SamConfig(), asr_config()
     paths = Checkpoints(str(out / "sam_params.npz"), str(out / "audio_event_params.npz"),
-                        str(out / "asr"), str(out / "retriever"))
+                        str(out / "asr"), str(out / "retriever"), str(out / "minisiglip"),
+                        str(out / "videomae"), str(out / "hico_params.npz"))
     write("retriever", SigLIPTextTower, text_cfg,
           lambda t: convert.siglip_text_params_from_jax(t, text_cfg.num_layers),
           out / "retriever" / "params.npz")
@@ -140,6 +148,28 @@ def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
           out / "asr" / "params.npz")
     (out / "asr" / "asr_config.json").write_text(json.dumps({"model": asdict(asr_cfg)},
                                                             indent=2))
+
+    from gvl_tpu_torch.temporal.hico import HiCoConfig, HierarchicalCompressor
+    from gvl_tpu_torch.training import siglip_train, videomae_train
+
+    vision_cfg = siglip_train.minisiglip_vision_config()
+    mini_text_cfg = siglip_train.minisiglip_text_config()
+    write("minisiglip", lambda _: siglip_train.MiniSigLIP(vision_cfg, mini_text_cfg), None,
+          lambda t: convert.minisiglip_params_from_jax(t, vision_cfg, mini_text_cfg),
+          out / "minisiglip" / "params.npz")
+    vision = {k: v for k, v in asdict(vision_cfg).items() if not k.startswith("quant")}
+    (out / "minisiglip" / "minisiglip_config.json").write_text(
+        json.dumps({"vision": vision, "text": asdict(mini_text_cfg)}, indent=2))
+    clip_cfg = videomae_train.mini_videomae_config()
+    write("videomae", videomae_train.ClipClassifier, clip_cfg,
+          lambda t: convert.clip_classifier_params_from_jax(t, clip_cfg),
+          out / "videomae" / "params.npz")
+    (out / "videomae" / "videomae_config.json").write_text(json.dumps({
+        "model": asdict(clip_cfg), "directions": list(videomae_train.DIRECTION_NAMES),
+        "concepts": list(videomae_train.CONCEPTS), "events": list(videomae_train.EVENTS)},
+        indent=2))
+    write("hico", lambda cfg: HierarchicalCompressor(cfg, pools=("frame_to_clip",)),
+          HiCoConfig(), convert.hico_params_from_jax, paths.hico)
     return paths
 
 _SUBJECTS = ("the player", "an enemy", "the boss", "a health pickup", "the hero",

@@ -5,8 +5,12 @@ The host extracts mask regions (bounding box widened by 10 %), resizes
 them aspect-preserved onto a fixed canvas and pads the batch to a bucket;
 the backend encodes the batch on the card and pools there.  Backends:
 :class:`FusedSigLIPBackend` (the fused W8A8 tower and its kernels, what
-every preset serves), :class:`TorchSigLIPBackend` (the plain bf16 or W8A8
-tower) and :class:`DeterministicFakeBackend` (hash-seeded, no weights).
+the presets serve for so400m-class towers), :class:`TorchSigLIPBackend`
+(the tower as plain tensor code with its attention on the flash kernel:
+bf16, W8A8, or the trained f32 mini-SigLIP of
+:meth:`SigLIPSemanticEncoder.from_trained_checkpoint`, which the presets'
+default ``siglip_checkpoint`` serves) and :class:`DeterministicFakeBackend`
+(hash-seeded, no weights).
 """
 
 from __future__ import annotations
@@ -209,9 +213,13 @@ class TorchSigLIPBackend(_TowerBackend):
 
     @torch.inference_mode()
     def __call__(self, batch: np.ndarray) -> tuple[None, np.ndarray]:
-        """(None, pooled): pooling already happened on the card."""
-        out = self.tower(self.normalize(batch, self._dtype),
-                         pool=self.pool_strategy == "cls")
+        """(None, pooled): pooling already happened on the card.  The batch
+        is rounded to the backend's type and the tower computes in the
+        promoted type of that and its weights, as Flax promotes: an f32
+        tower (the trained mini-SigLIP) runs bf16-rounded pixels in f32."""
+        x = self.normalize(batch, self._dtype)
+        x = x.to(torch.promote_types(x.dtype, next(self.tower.parameters()).dtype))
+        out = self.tower(x, pool=self.pool_strategy == "cls")
         return None, self.pooled(out)
 
 
@@ -306,9 +314,23 @@ class SigLIPSemanticEncoder:
             "HF SigLIP checkpoints are not ported yet (ROADMAP A10)")
 
     @classmethod
-    def from_trained_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None):
-        raise NotImplementedError(
-            "the trained mini-SigLIP checkpoint is not ported yet (ROADMAP A6)")
+    def from_trained_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None,
+                                device: str | torch.device = "cuda"):
+        """The self-trained mini-SigLIP directory (``outputs/minisiglip``):
+        region embeddings in its learned image-text space, whose contrastive
+        side is the MAP-pooled output, so pooling is forced to 'cls' and
+        crops are encoded at the tower's own training canvas."""
+        from gvl_tpu_torch.training.siglip_train import load_minisiglip
+
+        model, vision_cfg, _ = load_minisiglip(path, device)
+        config = config or NaFlexConfig()
+        config.embedding_dim = vision_cfg.hidden_size
+        config.pool_strategy = "cls"
+        config.base_resolution = vision_cfg.image_size
+        config.region_resolution = vision_cfg.image_size
+        vcfg, state = _maybe_quantize_tower(vision_cfg, model.vision.state_dict(), config)
+        tower = model.vision if vcfg is vision_cfg else load_tower(vcfg, state, device)
+        return cls(config, backend=build_vision_backend(tower, config))
 
     @classmethod
     def with_random_tower(cls, config: Optional[NaFlexConfig] = None,

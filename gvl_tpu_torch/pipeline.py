@@ -3,19 +3,20 @@
 The port's copy of the host stages of ``scripts/realtime_inference.py``:
 a clip (``synthetic://...``, ``.y4m``, or a codec file through ffmpeg) is
 decoded (:func:`gvl_tpu_torch.io.ingest.resolve_video_source`), segmented
-and tracked, its audio analysed (events, gated byte ASR, chunk
-embeddings), its frames read by OCR; the detections fill a
-:class:`~gvl_tpu_torch.fusion.timeline.TimelineIndexer` and a
-:class:`~gvl_tpu_torch.fusion.knowledge_base.KnowledgeBaseBuilder`, and a
-:class:`~gvl_tpu_torch.agent.loop.PerceptionReasoningLoop` answers
+and tracked (or, without the segmenter, labelled zero-shot by the
+mini-SigLIP on motion proposals), embedded by region or whole frame
+(SigLIP), cut into clips for the VideoMAE encoder (whose trained heads
+write motion events), its audio analysed (events, gated byte ASR, chunk
+embeddings), its frames read by OCR and compressed by HiCo; the
+detections fill a :class:`~gvl_tpu_torch.fusion.timeline.TimelineIndexer`
+and a :class:`~gvl_tpu_torch.fusion.knowledge_base.KnowledgeBaseBuilder`,
+and a :class:`~gvl_tpu_torch.agent.loop.PerceptionReasoningLoop` answers
 questions over them (:func:`answer_query`, :func:`answer_query_streaming`).
 
 Every model runs on ``device`` (``"cuda"`` by default; raises without a
 card unless ``device="cpu"``).  Not ported: the batched and pipelined
-perception paths (ROADMAP A14), the SigLIP region embeddings and the
-zero-shot frame labels (A6), the VideoMAE clips and HiCo (A8); each raises
-when its option is on.  As in the JAX script, ``process_video`` decodes at
-``config.inference.fps`` with no frame cap.
+perception paths (ROADMAP A14), which raise.  As in the JAX script,
+``process_video`` decodes at ``config.inference.fps`` with no frame cap.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class ProcessedVideo:
     timings: dict = field(default_factory=dict)
 
 
-def _refuse_unported(config: SystemConfig, pipelined: bool, batched: bool) -> None:
+def _refuse_unported(pipelined: bool, batched: bool) -> None:
     if batched:
         raise NotImplementedError(
             "batched perception (run_batched_perception) is not ported yet (ROADMAP A14)")
@@ -74,14 +75,6 @@ def _refuse_unported(config: SystemConfig, pipelined: bool, batched: bool) -> No
         raise NotImplementedError(
             "pipelined perception (the stage-parallel pipeline) is not ported yet "
             "(ROADMAP A14, with A12's parallel/pipeline.py)")
-    if config.perception.use_siglip:
-        raise NotImplementedError(
-            "SigLIP region embeddings and zero-shot frame labels are not ported "
-            "yet (ROADMAP A6): set perception.use_siglip = False")
-    if config.perception.use_videomae:
-        raise NotImplementedError(
-            "VideoMAE clip embeddings are not ported yet (ROADMAP A8): set "
-            "perception.use_videomae = False")
 
 
 def run_sam_detection(frames, config: SystemConfig, timeline, kb,
@@ -158,14 +151,54 @@ def run_ocr_extraction(frames, timeline, config: SystemConfig, device="cuda"):
     return ocr_frames
 
 
-def run_hico(frames, timeline, config: SystemConfig):
-    """HiCo temporal compression: nothing while ``use_hico`` is off (as in
-    JAX); not ported (ROADMAP A8), so it raises when on."""
+def extract_siglip_embeddings(frames, segmenter, config: SystemConfig, device="cuda"):
+    """Per-frame region (or whole-frame) semantic embeddings through the
+    preset's encoder (:func:`gvl_tpu_torch.perception.batch.build_siglip_encoder`)."""
+    from gvl_tpu_torch.perception.batch import build_siglip_encoder
+
+    encoder = build_siglip_encoder(config, device=device)
+    out = []
+    for idx, (ts, frame) in enumerate(frames):
+        masks = []
+        for entity in segmenter.get_all_entities():
+            mask = entity.get_mask_at_frame(idx)
+            if mask is not None:
+                masks.append((entity.entity_id, mask.mask))
+        if masks:
+            for emb in encoder.encode_masked_regions(frame, masks):
+                out.append((ts, emb.embedding))
+        else:
+            out.append((ts, encoder.encode_image(frame)))
+    return out
+
+
+def extract_videomae_embeddings(frames, config: SystemConfig, timeline=None, device="cuda"):
+    """16-frame clips, stride 8 → clip embeddings through the preset ladder:
+    the self-trained mini tower (which also writes motion events into
+    ``timeline``) or the hash fake."""
+    from gvl_tpu_torch.temporal.clip_encoder import (
+        build_clip_encoder,
+        extract_clip_embeddings,
+    )
+
+    return extract_clip_embeddings(frames, build_clip_encoder(config, device=device),
+                                   timeline=timeline)
+
+
+def run_hico(frames, timeline, config: SystemConfig, device="cuda"):
+    """HiCo temporal compression of the clip (CLIP level), its tokens into
+    the timeline; the compressor reads ``outputs/hico_params.npz`` as the
+    JAX script's does (:class:`~gvl_tpu_torch.temporal.hico.
+    TemporalCompressionModule`)."""
+    from gvl_tpu_torch.temporal.hico import TemporalCompressionModule
+
     if not config.temporal.use_hico or len(frames) < 2:
         return []
-    raise NotImplementedError(
-        "HiCo temporal compression is not ported yet (ROADMAP A8): set "
-        "temporal.use_hico = False")
+    module = TemporalCompressionModule(device=device)
+    tokens = module.segment_and_compress(
+        np.stack([f for _, f in frames]), fps=config.inference.fps)
+    timeline.add_from_hico_tokens(tokens)
+    return tokens
 
 
 def process_video(
@@ -188,7 +221,7 @@ def process_video(
 
     device = resolve_device(device)
     config = config or load_preset("light")
-    _refuse_unported(config, pipelined, batched)
+    _refuse_unported(pipelined, batched)
     timer = StageTimer()
     cache = (FeatureCache(config.inference.cache_dir)
              if use_cache and config.inference.use_feature_cache else None)
@@ -210,8 +243,30 @@ def process_video(
 
         if config.perception.use_sam:
             with timer.stage("sam_detection"):
-                run_sam_detection(frames, config, timeline, kb, concepts,
-                                  device=device)
+                segmenter = run_sam_detection(frames, config, timeline, kb, concepts,
+                                              device=device)
+        else:
+            from gvl_tpu_torch.perception.batch import build_segmenter
+
+            segmenter = build_segmenter(config, device=device)
+            if config.perception.use_siglip:
+                # segmenter-free grounding: zero-shot mini-SigLIP labels of
+                # motion proposals → VISUAL events
+                from gvl_tpu_torch.perception.frame_labeler import emit_zero_shot_labels
+
+                with timer.stage("zero_shot_labels"):
+                    emit_zero_shot_labels(frames, config, timeline, concepts=concepts,
+                                          device=device)
+
+        if config.perception.use_siglip:
+            with timer.stage("siglip_embeddings"):
+                result.siglip_embeddings = extract_siglip_embeddings(
+                    frames, segmenter, config, device=device)
+
+        if config.perception.use_videomae:
+            with timer.stage("videomae_embeddings"):
+                result.videomae_embeddings = extract_videomae_embeddings(
+                    frames, config, timeline=timeline, device=device)
 
         if config.audio.use_audio:
             with timer.stage("audio_analysis"):
@@ -223,7 +278,7 @@ def process_video(
                 run_ocr_extraction(frames, timeline, config, device=device)
 
         with timer.stage("temporal_compression"):
-            run_hico(frames, timeline, config)
+            run_hico(frames, timeline, config, device=device)
 
         with timer.stage("timeline_indexing"):
             timeline.merge_and_dedupe()

@@ -4,7 +4,8 @@ the inference half of :mod:`gvl_tpu.training.retriever_train`).
 A byte-level :class:`~gvl_tpu_torch.models.siglip.SigLIPTextTower` (4
 layers, hidden 256, 64 positions in ``outputs/retriever``) embeds timeline
 event descriptions and queries; its attention goes through the flash
-kernel.  Training and the paraphrase vocabulary stay in the JAX package.
+kernel.  Training and the rest of the paraphrase vocabulary stay in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,17 @@ from gvl_tpu_torch.models.convert import siglip_text_params_from_jax
 from gvl_tpu_torch.models.siglip import SigLIPTextConfig, SigLIPTextTower
 from gvl_tpu_torch.nn.layers import load_module
 from gvl_tpu_torch.utils.checkpoints import load_flat_npz
+
+
+# the trained synonym map (the JAX module's ``ENTITY_SYNONYMS``): the open-vocab
+# lexicon resolver's canonical concepts and their pools
+ENTITY_SYNONYMS: dict[str, tuple[str, ...]] = {
+    "player": ("hero", "protagonist", "main character", "avatar",
+               "the character you control"),
+    "enemy": ("foe", "villain", "monster", "opponent", "hostile"),
+    "boss": ("boss monster", "final boss", "big bad", "miniboss"),
+    "item": ("pickup", "loot", "collectible", "object", "power-up"),
+}
 
 
 def byte_tokenize(texts: Sequence[str], max_position: int = 32) -> np.ndarray:

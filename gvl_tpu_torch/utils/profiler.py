@@ -1,6 +1,7 @@
 """Stage profiler: wall-clock stage timings (the port's copy of
-``gvl_tpu.utils.profiler.StageTimer``), and :class:`PromptLog`, which
-records the prompts a QA engine is handed.
+``gvl_tpu.utils.profiler.StageTimer``), :class:`PromptLog`, which
+records the prompts a QA engine is handed, and :class:`MessageLog`, which
+records the messages a chat backend is handed.
 
 Every stage is a ``torch.profiler.record_function`` range, so stages show
 up in a profile of the run.  A stage's clock stops when its body returns:
@@ -10,6 +11,7 @@ the pipeline's stages end in host data, which waits for the card.
 from __future__ import annotations
 
 import contextlib
+import copy
 import time
 from typing import Iterator
 
@@ -72,3 +74,20 @@ class PromptLog:
     def stream(self, prompt_ids, **kw):
         self.prompts.append([int(i) for i in prompt_ids])
         yield from self.engine.stream(prompt_ids, **kw)
+
+
+class MessageLog:
+    """Chat-backend proxy that records the rendered messages of every chat
+    it streams (the grounded fake backends read messages, not token ids),
+    so that two paths' prompts can be compared.  Set it in place of a
+    reasoning core's ``backend``; ``backend`` is the one it wraps."""
+
+    def __init__(self, backend):
+        self.backend, self.messages = backend, []
+
+    def __getattr__(self, name):
+        return getattr(self.backend, name)
+
+    def stream(self, messages, config, **kw):
+        self.messages.append(copy.deepcopy(messages))
+        yield from self.backend.stream(messages, config, **kw)

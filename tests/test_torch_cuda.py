@@ -1126,6 +1126,11 @@ def test_decode_attention_is_one_kernel_launch(dev):
     ("byte ASR teacher-forced decoder, causal", 4, 4, 96, 96, 64, True),
     ("retriever text tower, 64 positions", 64, 4, 64, 64, 64, False),
     ("segmenter image encoder, 256 tokens", 32, 6, 256, 256, 64, False),
+    ("mini-SigLIP vision tower, 64 patches", 16, 6, 64, 64, 64, False),
+    ("mini-SigLIP MAP head, one probe over 64 patches", 16, 6, 1, 64, 64, False),
+    ("mini-SigLIP text tower, 32 byte positions", 24, 6, 32, 32, 64, False),
+    ("VideoMAE, 392 tubelet tokens", 3, 4, 392, 392, 64, False),
+    ("HiCo FRAME to CLIP pool, head 176 padded to 192", 4, 8, 1, 16, 176, False),
 ])
 def test_flash_attention_at_the_encoder_shapes(dev, what, b, h, sq, sk, d, causal):
     q = _randn(dev, b, h, sq, d, seed=91)
@@ -1135,6 +1140,67 @@ def test_flash_attention_at_the_encoder_shapes(dev, what, b, h, sq, sk, d, causa
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches > before and got.shape == q.shape, what
     torch.testing.assert_close(got, attention_reference(q, k, v, causal=causal), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [176, 192])
+@pytest.mark.parametrize("hq,hkv,sq,sk,causal,kv_len", [
+    (8, 8, 1, 16, False, None), (4, 2, 100, 100, True, None), (2, 1, 70, 130, False, 77),
+    (4, 4, 33, 33, True, 20), (8, 8, 3, 64, False, 1)])
+def test_flash_attention_at_the_wide_head(dev, dtype, d, hq, hkv, sq, sk, causal, kv_len):
+    """B1 at HiCo's head of 176 (zero-padded to 192) and at 192 itself:
+    one-query pools, causal tiles, kv_len past and inside a 32-key tile."""
+    q = _randn(dev, 3, hq, sq, d, dtype=dtype, seed=41)
+    k = _randn(dev, 3, hkv, sk, d, dtype=dtype, seed=42)
+    v = _randn(dev, 3, hkv, sk, d, dtype=dtype, seed=43)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert flash_attention.launches == before + 1 and got.shape == q.shape
+    want = attention_reference(q, k, v, causal=causal, kv_len=kv_len)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+
+
+def test_siglip_and_temporal_models_kernel_path_matches_plain_path(dev):
+    """The mini-SigLIP pair, the clip classifier and HiCo's pool at their
+    trained geometry, seeded random weights, through the flash kernel and
+    through its plain version (``plain_attention``)."""
+    from gvl_tpu_torch.nn.layers import init_state, load_module, plain_attention
+    from gvl_tpu_torch.temporal.hico import HiCoConfig, HierarchicalCompressor, init_hico_state
+    from gvl_tpu_torch.training import siglip_train, videomae_train
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vcfg, tcfg = siglip_train.minisiglip_vision_config(), siglip_train.minisiglip_text_config()
+    ccfg, hcfg = videomae_train.mini_videomae_config(), HiCoConfig()
+    with torch.device("meta"):
+        mini = siglip_train.MiniSigLIP(vcfg, tcfg)
+        clf = videomae_train.ClipClassifier(ccfg)
+        hico = HierarchicalCompressor(hcfg)
+    mini = load_module(mini, init_state(mini, gen, dev), dev)
+    clf = load_module(clf, init_state(clf, gen, dev), dev)
+    hico = load_module(hico, init_hico_state(hcfg, gen, dev), dev)
+    pixels = _randn(dev, 8, 128, 128, 3, seed=51).to(torch.bfloat16)
+    ids = torch.randint(0, 256, (6, 32), generator=gen, device=dev)
+    video = torch.randint(0, 256, (2, 16, 112, 112, 3), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    frames = _randn(dev, 4, 16, 1408, seed=52)
+
+    def run():
+        return (mini.encode_image(pixels), mini.encode_text(ids),
+                *clf(videomae_train._normalize(video)),
+                hico.compress_frames_to_clip(frames), hico(frames))
+
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = run()
+        launched = flash_attention.launches - before
+        with plain_attention():
+            want = run()
+        assert flash_attention.launches == before + launched
+    # 6 + 1 vision, 4 text, 6 VideoMAE, 2 + 1 HiCo pools
+    assert launched == 20
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F32_TOL)
 
 
 def test_perception_models_kernel_path_matches_plain_path(dev):

@@ -57,7 +57,12 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.cache", "gvl_tpu_torch.cache.feature_cache",
              "gvl_tpu_torch.utils.profiler", "gvl_tpu_torch.pipeline", "gvl_tpu_torch.eval",
              "gvl_tpu_torch.eval.model_configs", "gvl_tpu_torch.eval.samples",
-             "gvl_tpu_torch.eval.model_inference", "gvl_tpu_torch.entry"):
+             "gvl_tpu_torch.eval.model_inference", "gvl_tpu_torch.entry",
+             "gvl_tpu_torch.training.siglip_train", "gvl_tpu_torch.perception.frame_labeler",
+             "gvl_tpu_torch.perception.open_vocab", "gvl_tpu_torch.models.videomae",
+             "gvl_tpu_torch.training.videomae_train", "gvl_tpu_torch.temporal",
+             "gvl_tpu_torch.temporal.clip_encoder", "gvl_tpu_torch.temporal.hico",
+             "gvl_tpu_torch.temporal.context_manager"):
     assert name in names, name
 import chip_smoke
 import launch_costs
@@ -251,6 +256,38 @@ def test_perception_entry_points_raise_without_a_card(no_card):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert TorchOCREngine(device="cpu").device.type == "cpu"
+
+
+def test_siglip_and_temporal_entry_points_raise_without_a_card(no_card):
+    from gvl_tpu_torch.config import load_preset
+    from gvl_tpu_torch.perception.batch import build_siglip_encoder
+    from gvl_tpu_torch.perception.frame_labeler import MiniSigLIPFrameLabeler
+    from gvl_tpu_torch.perception.open_vocab import LexiconPromptResolver, OpenVocabSamBackend
+    from gvl_tpu_torch.perception.semantic import SigLIPSemanticEncoder
+    from gvl_tpu_torch.temporal.clip_encoder import build_clip_encoder
+    from gvl_tpu_torch.temporal.hico import TemporalCompressionModule, create_hico_module
+    from gvl_tpu_torch.training.siglip_train import load_minisiglip
+    from gvl_tpu_torch.training.videomae_train import TrainedClipEncoder, load_clip_encoder
+
+    outputs = REPO / "outputs"
+    light = load_preset("light")
+    calls = [
+        lambda: load_minisiglip(outputs / "minisiglip"),
+        lambda: SigLIPSemanticEncoder.from_trained_checkpoint(str(outputs / "minisiglip")),
+        lambda: MiniSigLIPFrameLabeler(str(outputs / "minisiglip")),
+        lambda: build_siglip_encoder(light),
+        lambda: OpenVocabSamBackend.from_trained_checkpoints(
+            str(outputs / "sam_params.npz"), str(outputs / "minisiglip")),
+        lambda: LexiconPromptResolver.from_trained(str(outputs / "retriever")),
+        lambda: load_clip_encoder(outputs / "videomae"),
+        lambda: TrainedClipEncoder.from_dir(outputs / "videomae"),
+        lambda: build_clip_encoder(light),
+        lambda: TemporalCompressionModule(),
+        lambda: create_hico_module(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_every_kernel_wrapper_counts_launches_beside_a_plain_version():

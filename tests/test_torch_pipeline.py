@@ -196,24 +196,31 @@ def test_c7_the_arms_ladder_refuses_an_unusable_checkpoint(tmp_path):
     assert (type(tbatch.build_segmenter(tcfg, device="cpu").backend).__name__
             == type(jbatch.build_segmenter(jcfg).backend).__name__
             == "DeterministicFakeSegmenter")
-    tcfg.perception.sam_backend = "open_vocab"
-    with pytest.raises(NotImplementedError, match="A6"):
-        tbatch.build_segmenter(tcfg, device="cpu")
+    # the open-vocab rung needs the segmenter checkpoint too: without it
+    # both fall back to "auto", and so to the fake
+    for cfg in (jcfg, tcfg):
+        cfg.perception.sam_backend = "open_vocab"
+    assert (type(tbatch.build_segmenter(tcfg, device="cpu").backend).__name__
+            == type(jbatch.build_segmenter(jcfg).backend).__name__
+            == "DeterministicFakeSegmenter")
 
 
 def test_unported_options_raise(tmp_path):
+    """Batched and pipelined perception raise (ROADMAP A14); SigLIP,
+    VideoMAE and HiCo, refused before they were ported, now run (here on
+    the fake encoders and the trained HiCo file)."""
     _, tcfg = _tiny_presets(None)
     clip = "synthetic://concept_demo_x?duration=2"
     for kw, label in (({"batched": True}, "A14"), ({"pipelined": True}, "A12")):
         with pytest.raises(NotImplementedError, match=label):
             tpipe.process_video(clip, tcfg, use_cache=False, device="cpu", **kw)
-    for section, field, label in (("perception", "use_siglip", "A6"),
-                                  ("perception", "use_videomae", "A8"),
-                                  ("temporal", "use_hico", "A8")):
-        _, tcfg = _tiny_presets(None)
-        setattr(getattr(tcfg, section), field, True)
-        with pytest.raises(NotImplementedError, match=label):
-            tpipe.process_video(clip, tcfg, use_cache=False, device="cpu")
+    tcfg.perception.use_siglip = tcfg.perception.use_videomae = True
+    tcfg.temporal.use_hico = True
+    tcfg.perception.siglip_checkpoint = tcfg.perception.videomae_checkpoint = None
+    pv = tpipe.process_video(clip, tcfg, use_cache=False, device="cpu")
+    assert {"siglip_embeddings", "videomae_embeddings", "temporal_compression"} <= set(pv.timings)
+    assert {t for t, _ in pv.siglip_embeddings} == set(pv.timestamps) == {0.0, 1.0}
+    assert any(e.description.startswith("Temporal context") for e in pv.timeline.events)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.process_video(clip, tcfg)
 

@@ -225,8 +225,12 @@ def test_companion_backend_pools_like_jax():
 def test_checkpoint_entry_points_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A10"):
         tsem.SigLIPSemanticEncoder.from_hf_checkpoint("somewhere")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tsem.SigLIPSemanticEncoder.from_trained_checkpoint("outputs/minisiglip")
+    # the trained mini-SigLIP rung, ported since (held to JAX in
+    # tests/test_torch_minisiglip.py): it loads, 'cls'-pooled at its canvas
+    trained = tsem.SigLIPSemanticEncoder.from_trained_checkpoint("outputs/minisiglip",
+                                                                 device="cpu")
+    assert isinstance(trained.backend, tsem.TorchSigLIPBackend)
+    assert (trained.config.pool_strategy, trained.config.region_resolution) == ("cls", 128)
 
 
 def test_with_random_tower_runs_on_the_cpu_when_asked():
