@@ -3,7 +3,7 @@
 
     python3 card_figures.py qa                  # the QA model's held-out accuracy
     python3 card_figures.py fused               # the fused W8A8 tower against bf16
-    python3 card_figures.py --cpu gvp_light open_vocab clip
+    python3 card_figures.py --cpu gvp_light open_vocab clip lora
 
 Run from the root of the repository, on a machine with one CUDA card and
 ``nvcc``; ``--cpu`` runs the figures on the CPU instead (the trained-weight
@@ -42,6 +42,15 @@ and with the raw towers (BENCH_r05: 0.70 / 0.824, 0.6 / 0.857, 0.25 /
 ``clip``: ``bench.py``'s ``bench_clip_encoder`` (48 base clips, seed 1234):
 direction, kind and event accuracy of the trained clip classifier and the
 frame-shuffled control (BENCH_r05: 0.979, 1.0, 1.0; 0.171).
+
+``lora``: the QA model served with the in-repository LoRA adapter
+(``create_reasoning_core(checkpoint_path="outputs/qa_lm",
+lora_path="outputs/lora_adapter")``), ``evaluate_qa_lm`` n 60 on the
+``causal`` family and on the default mix (seed 1234), as
+``scripts/finetune_lora.py`` measured the adapter (its
+``adapter_config.json``: lora_causal 0.633, lora_mix 0.833; base 0.0 and
+0.883); whether the adapter merged or was skipped (ROADMAP C6) is part of
+the reading.
 
 Prints the device (the card's name and power limit, or the CPU), one line
 per reading, and one JSON object as its last line.
@@ -204,8 +213,50 @@ def clip_figure(dev) -> dict:
     return {"trained": m, "shuffled": ctrl}
 
 
+LORA_SAMPLES, LORA_SEED = 60, 1234
+
+
+def lora_figure(dev) -> dict:
+    import logging
+
+    from gvl_tpu_torch.agent.core import create_reasoning_core
+    from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm
+
+    adapter = REPO / "outputs" / "lora_adapter"
+    _trained(REPO / "outputs" / "qa_lm", adapter)
+    skipped = []
+
+    class Skips(logging.Handler):
+        def emit(self, record):
+            if "skipping LoRA adapter" in record.getMessage():
+                skipped.append(record.getMessage())
+
+    log = logging.getLogger("gvl_tpu_torch.agent.core")
+    log.addHandler(Skips())
+    try:
+        core = create_reasoning_core(checkpoint_path=str(REPO / "outputs" / "qa_lm"),
+                                     lora_path=str(adapter), device=dev)
+    finally:
+        log.handlers = [h for h in log.handlers if not isinstance(h, Skips)]
+    recorded = json.loads((adapter / "adapter_config.json").read_text())["metrics"]
+    out = {"merged": not skipped, "skip_reason": skipped[0] if skipped else None}
+    print(f"lora: adapter {'merged' if not skipped else 'skipped'}"
+          + (f" ({skipped[0][:160]})" if skipped else ""), flush=True)
+    for name, families in (("causal", ("causal",)), ("mix", None)):
+        start = time.perf_counter()
+        got = evaluate_qa_lm(n_samples=LORA_SAMPLES, seed=LORA_SEED, families=families,
+                             engine=core.backend.engine)
+        out[name] = {"accuracy": got["accuracy"], "by_family": got["by_family"],
+                     "answers": got["answers"]}
+        print(f"lora {name}: accuracy {got['accuracy']:.4f} (n {LORA_SAMPLES}); "
+              f"adapter_config.json lora_{name} {recorded[f'lora_{name}']['accuracy']:.4f}, "
+              f"base_{name} {recorded[f'base_{name}']['accuracy']:.4f}; "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
 FIGURES = {"qa": qa_figure, "fused": fused_figure, "gvp_light": gvp_light_figure,
-           "open_vocab": open_vocab_figure, "clip": clip_figure}
+           "open_vocab": open_vocab_figure, "clip": clip_figure, "lora": lora_figure}
 
 
 def main(argv) -> int:

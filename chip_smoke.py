@@ -91,10 +91,29 @@ Run from the root of the repository, on a machine with one CUDA card and
     (``nn.layers.plain_attention``: no kernel may launch) with timelines,
     knowledge bases, the grounded fake's messages and answers equal and
     confidences within 1e-4; per stage of one clip of each run, the wall
-    (``StageTimer``), device ms, busy share, launches and top kernels.
+    (``StageTimer``), device ms, busy share, launches and top kernels;
+14. the command-line slice: a ``.y4m`` clip (with its ``.wav``) written by
+    the port's ``write_y4m``, read through the native prefetch ring at
+    strides 1, 2 and 8 byte-equal to the direct native reader, and closed
+    early; ``process_video`` of the ``qa_lm`` arm and of ``gvp_full`` on it
+    (seeded checkpoints as in phases 12 and 13), sequential, batched and
+    pipelined, each mode against its plain path (no kernel may launch) and
+    against the sequential path (events and knowledge bases equal; the
+    region embeddings as the JAX package gives them), with wall per clip,
+    device ms and busy share; whether batched segmentation keeps the card
+    busy while the host prepares the next chunk, with page-locked and with
+    pageable uploads; ``python -m gvl_tpu_torch.scripts.realtime_inference``
+    as two processes (``--query``, and ``--batched``): exit 0 and the
+    ``Timeline:`` line of the same run in process; a seeded rank-32 LoRA
+    adapter (every ``lora_b`` non-zero, the in-repository layout) merged
+    into the trained QA model through ``create_reasoning_core(lora_path=)``
+    and 8 held-out answers against its plain path; the 8B geometry at full
+    depth with ``scan_layers``, bf16 and quantized by ``quantize_int8``:
+    logits against the bf16 plain path within the phase's bound, tokens/s,
+    ms and CUDA launches per decode step of each.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 13) and read just after it; each run must have launched
+path of phases 3 to 14) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -201,6 +220,25 @@ GVP_EMBED_SHARE = 1e-4      # SigLIP and VideoMAE embeddings: share of their lar
 # confidence passes 0.6
 ZERO_SHOT_CLASS, ZERO_SHOT_MARGIN = "enemy", 100.0
 MOTION_DIRECTION, MOTION_KIND, MOTION_MARGIN = "E", "enemy", 30.0
+# phase 14: one .y4m clip (written from this synthetic clip, its sound
+# beside it as a .wav) read through the native prefetch ring at these
+# strides, then processed by the qa_lm arm and gvp_full in each mode
+SLICE_SEED = 14
+SLICE_CLIP = "synthetic://slice_modes?duration=4&fps=8&entities=player,enemy,boss,item&audio=1"
+RING_STRIDES = (1, 2, 8)
+MODES = {"sequential": {}, "batched": {"batched": True}, "pipelined": {"pipelined": True}}
+OVERLAP_CHUNK = 8           # the segmenter's chunks of SLICE_CLIP's 32 frames, each segmented
+CLI_QUERY = "Does a boss appear at any point in this video? Answer Yes or No."
+LORA_RANK, LORA_ALPHA, LORA_SAMPLES = 32, 64.0, 8
+LORA_MERGE_TOL = 1e-5                   # merged weight against base + (a @ b) * alpha / r, f32
+# int8: the 8B geometry at full depth with scan_layers, as the JAX bench
+# quantizes it; its logits against the bf16 plain path (relative L2 norm):
+# per-channel int8 weights on N(0, 0.02) rows put ~1 % noise on each
+# product, 4 % and 5.5 % of the logits at widths 512 and 1024 (CPU, 36
+# layers); the kernel path may stray from that by no more than the plain
+# path's own int8 error times INT8_ERR_RATIO
+INT8_REL_ERR, INT8_ERR_RATIO = 0.25, 1.5
+INT8_PROMPT, INT8_STEPS, INT8_CACHE = 128, 16, 512
 
 _T0 = time.perf_counter()
 
@@ -2370,38 +2408,47 @@ def serve_gvp(runner, samples, plain: bool):
     return results, launches, messages.messages, by_model, hico_loads.messages
 
 
+def event_rows(pv) -> list:
+    return [(e.timestamp, e.modality.value, e.description, e.entity_id)
+            for e in pv.timeline.events]
+
+
+def compare_processed(what: str, pv, other, embeddings: bool = True) -> None:
+    """Two processed clips: events, transcripts and knowledge bases equal,
+    confidences within GVP_CONF_TOL, and (``embeddings``) the SigLIP and
+    VideoMAE embeddings at the same times, within GVP_EMBED_SHARE of their
+    largest value."""
+    import numpy as np
+
+    if event_rows(pv) != event_rows(other):
+        raise AssertionError(f"{what}: the timelines differ")
+    conf = max((abs(a.confidence - b.confidence)
+                for a, b in zip(pv.timeline.events, other.timeline.events)), default=0.0)
+    if conf > GVP_CONF_TOL:
+        raise AssertionError(f"{what}: confidences differ by {conf:.3g}")
+    if (pv.timeline.build_structured_transcript()
+            != other.timeline.build_structured_transcript()
+            or pv.knowledge_base.export_for_llm() != other.knowledge_base.export_for_llm()):
+        raise AssertionError(f"{what}: transcript or knowledge base differs")
+    for name in ("siglip_embeddings", "videomae_embeddings") if embeddings else ():
+        got, want = getattr(pv, name), getattr(other, name)
+        if [t for t, _ in got] != [t for t, _ in want]:
+            raise AssertionError(f"{what}: {name} at other times")
+        if want:
+            want = np.stack([e for _, e in want])
+            share = np.abs(np.stack([e for _, e in got]) - want).max() / np.abs(want).max()
+            if share > GVP_EMBED_SHARE:
+                raise AssertionError(f"{what}: {name} differ by {share:.3g} of their "
+                                     "largest value")
+
+
 def compare_gvp(what: str, runner, results, messages, plain_runner, plain_results,
                 plain_messages) -> None:
     """Kernel path against plain path: events, transcripts, knowledge
     bases, messages and answers equal; confidences within GVP_CONF_TOL,
     embeddings within GVP_EMBED_SHARE of their largest value."""
-    import numpy as np
-
     for video, pv in runner._processed.items():
-        other = plain_runner._processed[video]
-        events = [(e.timestamp, e.modality.value, e.description, e.entity_id)
-                  for e in pv.timeline.events]
-        if events != [(e.timestamp, e.modality.value, e.description, e.entity_id)
-                      for e in other.timeline.events]:
-            raise AssertionError(f"{what}: the timelines of {video} differ")
-        conf = max((abs(a.confidence - b.confidence)
-                    for a, b in zip(pv.timeline.events, other.timeline.events)), default=0.0)
-        if conf > GVP_CONF_TOL:
-            raise AssertionError(f"{what}: confidences of {video} differ by {conf:.3g}")
-        if (pv.timeline.build_structured_transcript()
-                != other.timeline.build_structured_transcript()
-                or pv.knowledge_base.export_for_llm() != other.knowledge_base.export_for_llm()):
-            raise AssertionError(f"{what}: transcript or knowledge base of {video} differs")
-        for name in ("siglip_embeddings", "videomae_embeddings"):
-            got, want = getattr(pv, name), getattr(other, name)
-            if [t for t, _ in got] != [t for t, _ in want]:
-                raise AssertionError(f"{what}: {name} of {video} at other times")
-            if want:
-                want = np.stack([e for _, e in want])
-                share = np.abs(np.stack([e for _, e in got]) - want).max() / np.abs(want).max()
-                if share > GVP_EMBED_SHARE:
-                    raise AssertionError(f"{what}: {name} of {video} differ by {share:.3g} of "
-                                         "their largest value")
+        compare_processed(f"{what}: {video}", pv, plain_runner._processed[video])
     if messages != plain_messages:
         raise AssertionError(f"{what}: the messages handed to the backend differ")
     answers = [r["raw_response"] for r in results]
@@ -2560,6 +2607,473 @@ def run_gvp(dev):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 14: the command-line slice: the native runtime and its prefetch ring,
+# batched and pipelined perception, the CLI, LoRA and int8
+# --------------------------------------------------------------------------
+
+def write_slice_clip(workdir: Path) -> Path:
+    """SLICE_CLIP's frames as a 4:2:0 ``.y4m`` by the port's ``write_y4m``,
+    its sound beside it as a 16-bit ``.wav`` (what ``run_audio_analysis``
+    reads for a clip on disk)."""
+    import wave
+
+    import numpy as np
+
+    from gvl_tpu_torch.io.video import SyntheticVideo, write_y4m
+
+    synth = SyntheticVideo.from_url(SLICE_CLIP)
+    path = workdir / "slice_modes.y4m"
+    write_y4m(path, [synth.frame(i) for i in range(synth.num_frames)], synth.fps)
+    audio, rate = synth.audio()
+    with wave.open(str(path.with_suffix(".wav")), "wb") as wav:
+        wav.setnchannels(1)
+        wav.setsampwidth(2)
+        wav.setframerate(rate)
+        wav.writeframes((np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes())
+    return path
+
+
+def check_ring(path: Path) -> None:
+    """The prefetch ring against the direct native reader: every stride's
+    frames byte-equal with timestamps index / fps; a ring closed after one
+    frame, its decode thread blocked on a full ring, stops and joins."""
+    import numpy as np
+
+    from gvl_tpu_torch.runtime.native import NativePrefetchSource, NativeY4MReader
+
+    reader = NativeY4MReader(path)
+    t0 = time.perf_counter()
+    direct = list(reader)
+    direct_ms = 1e3 * (time.perf_counter() - t0) / len(direct)
+    fps = reader.fps
+    reader.close()
+    for stride in RING_STRIDES:
+        ring = NativePrefetchSource(path, capacity=4, stride=stride)
+        t0 = time.perf_counter()
+        got = list(ring)
+        ring_ms = 1e3 * (time.perf_counter() - t0) / max(len(got), 1)
+        ring.close()
+        want = [(i / fps, f) for i, f in enumerate(direct) if i % stride == 0]
+        if ([t for t, _ in got] != [t for t, _ in want]
+                or not all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))):
+            raise AssertionError(f"ring: stride {stride} differs from the direct reader")
+        log("ring", f"stride {stride}: {len(got)} frames byte-equal to the direct reader; "
+            f"{ring_ms:.3f} ms per frame through the ring, {direct_ms:.3f} direct")
+    t0 = time.perf_counter()
+    ring = NativePrefetchSource(path, capacity=2)
+    next(iter(ring))
+    time.sleep(0.05)
+    ring.close()
+    log("ring", f"closed after one frame with the decoder blocked: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+
+
+def profile_once(fn) -> dict:
+    """One call of ``fn`` under the profiler: device ms and CUDA launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvl_tpu_torch.device_times import _device_us, _launch_counts
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel = _device_us(prof)
+    launches, _ = _launch_counts(prof)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_ms": sum(per_kernel.values()) / 1e3, "launches": launches,
+            "top": {k[:60]: round(v / 1e3, 3) for k, v in top}}
+
+
+def slice_preset(arm: str, ckpts, dev):
+    """The arm's preset with every ladder on the seeded checkpoints."""
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner
+
+    cfg = FullPipelineRunner(get_model_config(arm), use_cache=False, device=dev,
+                             embedding_model=ckpts.retriever).preset
+    p = cfg.perception
+    p.sam_checkpoint, p.siglip_checkpoint, p.ocr_backend = (ckpts.segmenter, ckpts.minisiglip,
+                                                            "jax")
+    cfg.audio.event_checkpoint, cfg.audio.asr_checkpoint = ckpts.events, ckpts.asr
+    return cfg
+
+
+def run_modes(dev, clip: Path, ckpts) -> dict:
+    """Sequential, batched and pipelined ``process_video`` of the qa_lm arm
+    and of gvp_full on ``clip``: each mode's kernel path against its plain
+    path (``plain_attention``: no kernel may launch), each mode against the
+    sequential path as the JAX package behaves on the CPU, wall per clip,
+    device ms and busy share per mode."""
+    import torch
+
+    from gvl_tpu_torch.nn.layers import plain_attention
+    from gvl_tpu_torch.pipeline import process_video
+
+    total = {}
+    for arm in ("qa_lm", "gvp_full"):
+        cfg = slice_preset(arm, ckpts, dev)
+        with uncounted():
+            # a first clip builds the loop's engine and loads kernels lazily:
+            # not part of any mode's wall
+            process_video(str(clip), cfg, use_cache=False, device=dev,
+                          embedding_model=ckpts.retriever)
+        done = {}
+        for mode, kw in MODES.items():
+            def run():
+                return process_video(str(clip), cfg, use_cache=False, device=dev,
+                                     embedding_model=ckpts.retriever, **kw)
+
+            torch.manual_seed(SLICE_SEED)
+            reset_launches()
+            t0 = time.perf_counter()
+            pv = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = served_launches(f"{arm} {mode}", ("flash_attention",))
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            with uncounted():
+                before = kernel_launches()
+                torch.manual_seed(SLICE_SEED)
+                with plain_attention():
+                    plain = run()
+                torch.cuda.synchronize()
+                launched = {k: n - before[k] for k, n in kernel_launches().items()
+                            if n != before[k]}
+                prof = profile_once(run)
+            if launched:
+                raise AssertionError(f"{arm} {mode}: the plain path launched {launched}")
+            compare_processed(f"{arm} {mode}, kernel against plain path", pv, plain)
+            perception = sum(v for k, v in pv.timings.items()
+                             if k not in ("loop_init", "frame_extraction"))
+            log("modes", f"{arm} {mode}: {len(pv.timestamps)} frames, "
+                f"{len(pv.timeline.events)} events, {len(pv.siglip_embeddings)} embeddings; "
+                f"wall {1e3 * wall:.1f} ms per clip (perception stages "
+                f"{1e3 * perception:.1f} ms: " + ", ".join(
+                    f"{k} {1e3 * v:.1f}" for k, v in pv.timings.items()) + "); device "
+                f"{prof['device_ms']:.2f} ms (busy {prof['device_ms'] / (1e3 * wall):.1%}), "
+                f"{prof['launches']:.0f} CUDA launches, flash_attention "
+                f"{launches['flash_attention']}; top {json.dumps(prof['top'])}; plain path "
+                f"equal, no kernel launched")
+            done[mode] = pv
+        seq = done["sequential"]
+        for mode in ("batched", "pipelined"):
+            # the JAX package's batched and pipelined paths give the sequential
+            # events and knowledge base; their region embeddings are each
+            # segmented frame's detections (tests/test_torch_batched.py)
+            compare_processed(f"{arm} {mode} against sequential", done[mode], seq,
+                              embeddings=arm == "qa_lm")
+        log("modes", f"{arm}: batched and pipelined timelines and knowledge bases equal "
+            f"to the sequential path's; embeddings "
+            + ", ".join(f"{m} {len(pv.siglip_embeddings)}" for m, pv in done.items()))
+    return total
+
+
+def check_overlap(dev, ckpts) -> None:
+    """Whether batched segmentation keeps the card busy while the host
+    prepares the next chunk: SLICE_CLIP's frames, every one segmented, in
+    chunks of OVERLAP_CHUNK; after each ``submit`` returns, is the stream
+    still busy (the host ran ahead), how long the host spent in ``submit``
+    and in ``collect`` (the wait and the mask NMS), and the card's time
+    per chunk; page-locked uploads (the served route) against pageable
+    ones."""
+    import torch
+
+    from gvl_tpu_torch.fusion import KnowledgeBaseBuilder, TimelineIndexer
+    from gvl_tpu_torch.io.ingest import resolve_video_source
+    from gvl_tpu_torch.perception.batch import build_perception_stack, run_batched_perception
+
+    cfg = slice_preset("gvp_full", ckpts, dev)
+    cfg.perception.sam3_fps = cfg.inference.fps
+    cfg.perception.use_siglip = cfg.perception.use_ocr = False
+    frames = resolve_video_source(SLICE_CLIP, fps=cfg.inference.fps)
+    stack = build_perception_stack(cfg, device=dev)
+    backend = stack[0].backend
+    submit, collect = backend.submit, backend.collect
+
+    def perceive():
+        run_batched_perception(frames, cfg, TimelineIndexer(), KnowledgeBaseBuilder(),
+                               chunk=OVERLAP_CHUNK, segmenter=stack[0], encoder=stack[1],
+                               ocr=stack[2], device=dev)
+        torch.cuda.synchronize()
+
+    with uncounted():
+        for route in ("page-locked", "pageable"):
+            seen = {}
+
+            def timed_submit(*a):
+                t0 = time.perf_counter()
+                handle = submit(*a)
+                seen["submit_ms"] += 1e3 * (time.perf_counter() - t0)
+                seen["submits"] += 1
+                seen["busy"] += not torch.cuda.current_stream().query()
+                return handle
+
+            def timed_collect(*a):
+                t0 = time.perf_counter()
+                out = collect(*a)
+                seen["collect_ms"] += 1e3 * (time.perf_counter() - t0)
+                return out
+
+            backend.submit, backend.collect = timed_submit, timed_collect
+            pin = torch.Tensor.pin_memory
+            if route == "pageable":
+                torch.Tensor.pin_memory = lambda self, *a, **k: self
+            try:
+                for _ in range(2):     # a warm-up, then the counted run
+                    seen.update(busy=0, submits=0, submit_ms=0.0, collect_ms=0.0)
+                    t0 = time.perf_counter()
+                    perceive()
+                    wall = 1e3 * (time.perf_counter() - t0)
+                counted = dict(seen)     # the profiled run counts again
+                prof = profile_once(perceive)
+            finally:
+                torch.Tensor.pin_memory = pin
+                backend.submit, backend.collect = submit, collect
+            log("overlap", f"{route} uploads, {len(frames)} frames in chunks of "
+                f"{OVERLAP_CHUNK}: wall {wall:.1f} ms; {counted['busy']} of {counted['submits']} "
+                f"submits returned with the card still busy; host "
+                f"{counted['submit_ms'] / counted['submits']:.2f} ms per submit, "
+                f"{counted['collect_ms'] / counted['submits']:.2f} ms per collect; card "
+                f"{prof['device_ms'] / counted['submits']:.2f} ms and "
+                f"{prof['launches'] / counted['submits']:.0f} launches per chunk; top "
+                f"{json.dumps(prof['top'])}")
+
+
+def run_cli(dev, clip: Path) -> None:
+    """``python -m gvl_tpu_torch.scripts.realtime_inference`` on the card as
+    a user starts it (the ``light`` preset, ``--query``; and ``--batched``),
+    both processes at once: exit 0, and the ``Timeline:`` line of the same
+    ``process_video`` run in this process."""
+    import os
+
+    from gvl_tpu_torch.config import load_preset
+    from gvl_tpu_torch.pipeline import process_video
+
+    cmd = [sys.executable, "-m", "gvl_tpu_torch.scripts.realtime_inference", "--video",
+           str(clip), "--no-cache", "--query", CLI_QUERY, "--device", dev.type]
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(cmd + flags, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for mode, flags in (("one-shot", []), ("batched", ["--batched"]))}
+    want = {}
+    for mode, kw in (("one-shot", {}), ("batched", {"batched": True})):
+        stats = process_video(str(clip), load_preset("light"), use_cache=False, device=dev,
+                              **kw).timeline.get_statistics()
+        want[mode] = (f"Timeline: {stats['total_events']} events, "
+                      f"{stats['unique_entities']} entities, {stats['duration']:.0f}s span")
+    for mode, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        lines = [ln for ln in out.splitlines() if ln.startswith("Timeline:")]
+        if proc.returncode != 0 or lines != [want[mode]]:
+            raise AssertionError(f"cli {mode}: exit {proc.returncode}, {lines} against "
+                                 f"{want[mode]!r}\n{err[-2000:]}")
+        answer = out.split(want[mode], 1)[1].strip()
+        log("cli", f"{mode}: exit 0, {want[mode]!r} as in process; answer {answer[:80]!r}")
+    log("cli", f"both processes in {time.perf_counter() - t0:.1f} s")
+
+
+def write_seeded_adapter(root: Path, config, seed: int) -> Path:
+    """A rank-LORA_RANK adapter over every target of every layer of the QA
+    model, ``lora_a`` and ``lora_b`` both non-zero, in the layout of
+    ``outputs/lora_adapter`` (``adapter_config.json`` and
+    ``adapter_final.npz`` of ``layers_{i}/<module>/<target>/lora_a|b``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, hd, inter = config.hidden_size, config.head_dim, config.intermediate_size
+    dims = {"self_attn/q_proj": (d, config.num_heads * hd),
+            "self_attn/k_proj": (d, config.num_kv_heads * hd),
+            "self_attn/v_proj": (d, config.num_kv_heads * hd),
+            "self_attn/o_proj": (config.num_heads * hd, d),
+            "mlp/gate_proj": (d, inter), "mlp/up_proj": (d, inter), "mlp/down_proj": (inter, d)}
+    arrays = {}
+    for i in range(config.num_layers):
+        for name, (n_in, n_out) in dims.items():
+            arrays[f"layers_{i}/{name}/lora_a"] = rng.normal(0, 0.02, (n_in, LORA_RANK))
+            arrays[f"layers_{i}/{name}/lora_b"] = rng.normal(0, 0.02, (LORA_RANK, n_out))
+    root.mkdir(parents=True, exist_ok=True)
+    np.savez(root / "adapter_final.npz", **{k: v.astype(np.float32) for k, v in arrays.items()})
+    (root / "adapter_config.json").write_text(json.dumps({
+        "lora_rank": LORA_RANK, "lora_alpha": LORA_ALPHA,
+        "targets": [n.split("/")[1] for n in dims], "base_checkpoint": str(QA_CKPT)}))
+    return root
+
+
+def run_lora(dev, workdir: Path) -> dict:
+    """A seeded adapter merged into the trained QA model through
+    ``create_reasoning_core(lora_path=...)``: the merge against base + (a @
+    b) * alpha / r, then LORA_SAMPLES held-out answers through the merged
+    engine (B1, B2, B3) against its plain path."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.agent.core import create_reasoning_core
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine
+    from gvl_tpu_torch.training.qa_lm_train import evaluate_qa_lm, load_qa_lm
+
+    base_cfg, base = load_qa_lm(QA_CKPT, device=dev)
+    adapter = write_seeded_adapter(workdir / "lora_adapter", base_cfg, SLICE_SEED)
+    core = create_reasoning_core(checkpoint_path=str(QA_CKPT), lora_path=str(adapter),
+                                 device=dev)
+    engine = core.backend.engine
+    merged = engine.model.state_dict()
+    with np.load(adapter / "adapter_final.npz") as z:
+        errs = []
+        for i in range(base_cfg.num_layers):
+            for mod, name in (("self_attn", "q_proj"), ("mlp", "down_proj")):
+                a, b = (torch.from_numpy(z[f"layers_{i}/{mod}/{name}/lora_{x}"]).to(dev)
+                        for x in "ab")
+                want = base[f"layers.{i}.{mod}.{name}.weight"] + (
+                    a @ b * (LORA_ALPHA / LORA_RANK)).T
+                errs.append(max_err(merged[f"layers.{i}.{mod}.{name}.weight"], want))
+    moved = max_err(merged["layers.0.self_attn.q_proj.weight"],
+                    base["layers.0.self_attn.q_proj.weight"])
+    if max(errs) > LORA_MERGE_TOL or not moved:
+        raise AssertionError(f"lora: merge error {max(errs):.3g} (limit {LORA_MERGE_TOL}), "
+                             f"change of the base {moved:.3g}")
+    timed = TimedEngine(engine)
+    reset_launches()
+    got = evaluate_qa_lm(n_samples=LORA_SAMPLES, seed=QA_SEED, engine=timed)
+    torch.cuda.synchronize()
+    launches = served_launches("lora", ("flash_attention", "decode_attention", "cache_append"))
+    with uncounted():
+        plain = Qwen3Engine(engine.config.plain(), merged, eos_token_id=EOS_ID, device=dev)
+        ref = evaluate_qa_lm(n_samples=LORA_SAMPLES, seed=QA_SEED, engine=plain)
+    agree = sum(a == b for a, b in zip(got["answers"], ref["answers"]))
+    log("lora", f"rank {LORA_RANK}, alpha {LORA_ALPHA}, 7 targets x {base_cfg.num_layers} "
+        f"layers merged (max error {max(errs):.3g} against base + delta; the base moved by "
+        f"up to {moved:.3g}); {LORA_SAMPLES} answers: accuracy {got['accuracy']:.3f}, "
+        f"{timed.summary()}; plain path equal {agree}/{LORA_SAMPLES}; launches {launches}")
+    if agree != LORA_SAMPLES:
+        raise AssertionError(f"lora: kernel and plain path agree on {agree} of "
+                             f"{LORA_SAMPLES} answers")
+    return launches
+
+
+def run_int8(dev) -> dict:
+    """The 8B geometry at full depth with scan_layers, bf16 and quantized by
+    ``quantize_int8``: prefill and first-step logits of each against the
+    bf16 plain path, then tokens/s, ms per decode step and CUDA launches per
+    step of both."""
+    import dataclasses
+
+    import torch
+
+    from gvl_tpu_torch.device_times import decode_profile
+    from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, Qwen3Engine, init_params, \
+        quantize_int8
+
+    cfg = Qwen3Config(scan_layers=True, max_cache_length=INT8_CACHE)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SLICE_SEED),
+                         dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    qparams = quantize_int8(params, cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qcfg = dataclasses.replace(cfg, quant_int8=True)
+    prompt = torch.randint(0, cfg.vocab_size, (1, INT8_PROMPT),
+                           generator=torch.Generator().manual_seed(SLICE_SEED))
+    gb = {name: sum(t.numel() * t.element_size() for t in p.values()) / 1e9
+          for name, p in (("bf16", params), ("int8", qparams))}
+    log("int8", f"{cfg.num_layers} layers at hidden {cfg.hidden_size} (scan_layers): bf16 "
+        f"{gb['bf16']:.2f} GB, int8 {gb['int8']:.2f} GB, quantized on the card in "
+        f"{quant_s:.2f} s")
+
+    def logits_of(engine, token=None):
+        with torch.inference_mode():
+            cache = KVCache.zeros(engine.config, 1, device=dev)
+            pre, cache = engine.model(prompt.to(dev), positions=torch.arange(
+                INT8_PROMPT, device=dev), cache=cache)
+            token = pre[:, -1].argmax(-1) if token is None else token
+            step, _ = engine.model(token[:, None], positions=torch.tensor(
+                [INT8_PROMPT], device=dev), cache=cache)
+        return torch.cat([pre[0], step[0]]).float(), token
+
+    def rel(x, ref):
+        return ((x - ref).norm() / ref.norm()).item()
+
+    engines = {"bf16": Qwen3Engine(cfg, params, eos_token_id=-1, device=dev),
+               "int8": Qwen3Engine(qcfg, qparams, eos_token_id=-1, device=dev)}
+    ref, token = logits_of(Qwen3Engine(cfg.plain(), params, eos_token_id=-1, device=dev))
+    errs = {}
+    for name, engine in engines.items():
+        got, _ = logits_of(engine, token)
+        plain, _ = logits_of(Qwen3Engine(engine.config.plain(), engine.model.state_dict(),
+                                         eos_token_id=-1, device=dev), token)
+        errs[name] = (rel(got, ref), rel(plain, ref), bool(torch.isfinite(got).all()))
+    log("int8", "logits (prefill and first step) against the bf16 plain path, relative: "
+        + ", ".join(f"{n} kernel path {k:.5f}, plain path {p:.5f}"
+                    for n, (k, p, _) in errs.items())
+        + f" (limits: int8 {INT8_REL_ERR}, kernel path {INT8_ERR_RATIO}x its plain path's)")
+    k8, p8, finite = errs["int8"]
+    if not finite or k8 > INT8_REL_ERR or k8 > INT8_ERR_RATIO * max(p8, errs["bf16"][0]):
+        raise AssertionError(f"int8: logits error {k8:.4f} (plain path {p8:.4f}) out of bounds")
+    total = {}
+    ids = prompt[0].tolist()
+    for name, engine in engines.items():
+        reset_launches()
+        out = TimedEngine(engine)
+        tokens = out.generate(ids, max_new_tokens=INT8_STEPS, temperature=0.0)
+        torch.cuda.synchronize()
+        launches = served_launches(f"int8 {name}", ("flash_attention",
+                                                    "decode_attention_stacked",
+                                                    "cache_append_stacked"))
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        with uncounted():
+            step = decode_profile(engine, ids, INT8_STEPS)
+        log("int8", f"{name}: {len(tokens)} greedy tokens, {out.summary()}; decode step "
+            f"wall {step['wall_ms_per_step']:.3f} ms, device {step['device_ms_per_step']:.3f} "
+            f"ms (busy {step['busy_share']:.1%}), {step['device_launches_per_step']:.1f} CUDA "
+            f"launches per step; top {json.dumps({k: round(v, 3) for k, v in list(step['top_kernels_ms_per_step'].items())[:3]})}")
+    del engines, params, qparams
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_slice(dev):
+    """Phase 14: the ring, the three perception modes of the qa_lm arm and
+    gvp_full, the CLI, the LoRA adapter and the int8 8B decoder."""
+    import os
+    import tempfile
+
+    from gvl_tpu_torch.perception.encoders import write_random_checkpoints
+
+    start = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_slice_")
+    root = Path(workdir.name)
+    clip = write_slice_clip(root)
+    check_ring(clip)
+    ckpts = write_random_checkpoints(root / "outputs", dev, SLICE_SEED)
+    let_speech_through(ckpts, ARM_SPEECH_MARGIN)
+    log("slice", f"{clip.name} and its .wav, seeded checkpoints (seed {SLICE_SEED}) in "
+        f"{time.perf_counter() - start:.1f} s")
+    served = []
+    here = os.getcwd()
+    os.chdir(root)      # HiCo's fixed outputs/hico_params.npz: the seeded one
+    try:
+        served.append(run_modes(dev, clip, ckpts))
+        check_overlap(dev, ckpts)
+    finally:
+        os.chdir(here)
+    run_cli(dev, clip)
+    served.append(run_lora(dev, root))
+    served.append(run_int8(dev))
+    workdir.cleanup()
+    log("slice", f"phase 14 in {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    return {name: sum(run.get(name, 0) for run in served) for name in kernel_launches()}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2609,8 +3123,10 @@ def main() -> int:
     served.append(run_arm(dev))
     torch.cuda.empty_cache()
     served.append(run_gvp(dev))
+    torch.cuda.empty_cache()
+    served.append(run_slice(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-13): {launches}")
+    log("launches", f"served paths (phases 3-14): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

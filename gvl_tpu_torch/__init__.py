@@ -6,7 +6,9 @@ needs.  Every TPU kernel on a ported path is a CUDA kernel written for
 Hopper (``csrc/``), built with one ``nvcc`` command at first use
 (:mod:`gvl_tpu_torch.ops._build`) and bound with ``ctypes``.  Beside each
 kernel is a plain PyTorch version of the same function: the kernel runs on
-CUDA tensors, the plain version on CPU tensors.
+CUDA tensors, the plain version on CPU tensors.  The host runtime's C++
+(``runtime/csrc/``: video and audio decode, resizes) is built with ``g++``
+at first use (:mod:`gvl_tpu_torch.runtime.native`).
 
 Entry points take ``device="cuda"`` by default and raise when no card is
 present, unless the caller asks for ``device="cpu"``.

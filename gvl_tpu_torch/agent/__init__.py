@@ -1,5 +1,6 @@
 """Agent core: conversation, retrieval, tools, triggers, prompts, reasoning
-(the port's copy of :mod:`gvl_tpu.agent`, without its web search).
+(the port's copy of :mod:`gvl_tpu.agent`; the web search is
+:mod:`gvl_tpu_torch.agent.search`).
 
 Everything here is host code except the chat backend, which drives the
 port's Qwen3 engine on the card."""

@@ -740,14 +740,31 @@ class ReasoningCore:
         }
 
 
-def create_qa_backend(checkpoint_path, device="cuda") -> Qwen3ChatBackend:
+def create_qa_backend(checkpoint_path, device="cuda", lora_path=None) -> Qwen3ChatBackend:
     """The self-trained byte-level QA model behind a chat backend, served
-    by the port's engine on ``device``."""
+    by the port's engine on ``device``; with ``lora_path`` (a directory
+    holding ``adapter_config.json``) its LoRA adapter merged in first.
+
+    ROADMAP C6, settled as JAX's branch: an adapter whose tensors do not
+    fit the base geometry (``ValueError`` from
+    :func:`~gvl_tpu_torch.models.qwen3.load_adapter_and_merge`) is skipped
+    with a warning and the base weights are served; any other failure
+    (an unreadable npz or config) raises, as in JAX, where the reference's
+    PEFT ladder falls back on every exception."""
+    from pathlib import Path
+
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID, ByteTokenizer
-    from gvl_tpu_torch.models.qwen3 import Qwen3Engine
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine, load_adapter_and_merge
     from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
 
     config, state_dict = load_qa_lm(checkpoint_path, device=device)
+    if lora_path and Path(lora_path, "adapter_config.json").exists():
+        try:
+            config, state_dict = load_adapter_and_merge(config, state_dict, lora_path)
+        except ValueError as exc:
+            # stale adapter trained over a different base geometry: serve
+            # the base weights rather than dying at merge time
+            logger.warning("skipping LoRA adapter %s: %s", lora_path, exc)
     engine = Qwen3Engine(config, state_dict, eos_token_id=EOS_ID, device=device)
     return Qwen3ChatBackend(engine, ByteTokenizer())
 
@@ -764,12 +781,12 @@ def create_reasoning_core(
     when ``checkpoint_path`` is a qa_lm checkpoint, served on ``device``,
     the grounded fake when no checkpoint is given.
 
-    The Qwen3-VL branch and the HF-checkpoint branch (with its speculative,
+    ``lora_path`` merges a LoRA adapter into the QA model
+    (:func:`create_qa_backend`, with ROADMAP C6's fallback).  The Qwen3-VL
+    branch and the HF-checkpoint branch (with its speculative,
     prompt-lookup and session engines) are not ported: they raise (ROADMAP
-    A10), as does a LoRA adapter for the QA model (ROADMAP A2).
+    A10).
     """
-    from pathlib import Path
-
     from gvl_tpu_torch.training.qa_lm_train import is_qa_lm_checkpoint
 
     config = config or ReasoningCoreConfig()
@@ -777,10 +794,7 @@ def create_reasoning_core(
         raise NotImplementedError(
             f"{vl_checkpoint_path}: the Qwen3-VL backend is not ported yet (ROADMAP A10)")
     if checkpoint_path and is_qa_lm_checkpoint(checkpoint_path):
-        if lora_path and Path(lora_path, "adapter_config.json").exists():
-            raise NotImplementedError(
-                f"{lora_path}: LoRA adapters are not ported yet (ROADMAP A2)")
-        backend = create_qa_backend(checkpoint_path, device=device)
+        backend = create_qa_backend(checkpoint_path, device=device, lora_path=lora_path)
     elif checkpoint_path:
         raise NotImplementedError(
             f"{checkpoint_path}: HF text checkpoints are not ported yet (ROADMAP A10)")

@@ -1,8 +1,8 @@
 """Audio analysis: ASR and non-speech events over chunked audio (the
 port's copy of :mod:`gvl_tpu.audio.processor`).
 
-The host reads WAV (:func:`gvl_tpu_torch.runtime.wav.read_wav`, the port's
-copy of the JAX package's native reader), resamples, and cuts 30 s chunks
+The host reads WAV (:func:`gvl_tpu_torch.runtime.native.read_wav_native`,
+the port's build of the JAX package's native reader), resamples, and cuts 30 s chunks
 with 0.5 s overlap; the card classifies 1 s windows with the trained event
 net (:class:`~gvl_tpu_torch.audio.event_model.TorchAudioEventDetector`)
 and transcribes speech spans with the trained byte ASR
@@ -125,10 +125,10 @@ class AudioPreprocessor:
         try:
             if path.suffix.lower() != ".wav":
                 raise ValueError("only WAV files are read")
-            try:  # 16/24/32-bit and float, as the JAX package's native reader
-                from gvl_tpu_torch.runtime.wav import read_wav
+            try:  # 16/24/32-bit and float: the native decoder
+                from gvl_tpu_torch.runtime.native import read_wav_native
 
-                return read_wav(path)
+                return read_wav_native(path)
             except Exception:
                 return self._read_wav(path)
         except Exception as exc:

@@ -10,8 +10,10 @@ copy of :mod:`gvl_tpu.io.video`).
 
 ``extract_frames(path, fps)`` keeps the ``[(timestamp, frame)]`` contract.
 A ``.y4m`` file is decoded as the JAX package decodes it when its native
-runtime is built: with the native decoder's fixed-point arithmetic
-(:class:`gvl_tpu_torch.runtime.y4m.Y4MFrameSource`), byte-equal to it.
+runtime is built: by the port's native decoder behind its prefetch ring
+(:class:`gvl_tpu_torch.runtime.native.NativePrefetchSource`), whose
+fixed-point arithmetic :class:`gvl_tpu_torch.runtime.y4m.Y4MFrameSource`
+copies in numpy.
 """
 
 from __future__ import annotations
@@ -402,14 +404,14 @@ def extract_frames(
 
     path = Path(video_path)
     if path.suffix.lower() == ".y4m":
-        # the native runtime's fixed-point decode, as the JAX package
-        # takes it when its runtime is built (the prefetch ring aside)
-        from gvl_tpu_torch.runtime.y4m import Y4MFrameSource
+        # the native decoder behind its prefetch ring (decode overlaps the
+        # consumer), as the JAX package takes it when its runtime is built
+        from gvl_tpu_torch.runtime.native import NativePrefetchSource
 
         probe = Y4MReader(path)
         step = max(1, int(round(probe.fps / fps)))
         probe.close()
-        source = Y4MFrameSource(path, stride=step)
+        source = NativePrefetchSource(path, capacity=8, stride=step)
         for ts, frame in source:
             out.append((ts, frame))
             if max_frames and len(out) >= max_frames:

@@ -6,7 +6,10 @@ from a flat-npz checkpoint): ``layers_{i}/self_attn/q_proj/base/kernel``
 and the like, where ``base`` is the ``LoRADense`` level and Flax ``Dense``
 kernels are ``[in, out]`` (the port keeps ``nn.Linear``'s ``[out, in]``).
 A ``scan_layers`` tree holds every layer's leaves stacked under
-``layers/layer/...`` (kernels ``[L, in, out]``).  Either tree converts to
+``layers/layer/...`` (kernels ``[L, in, out]``).  An int8 tree's
+``kernel_q`` (``Int8Dense``) becomes ``weight_q`` ``[out, in]`` beside its
+``scale``; LoRA's ``lora_a`` ``[in, r]`` and ``lora_b`` ``[r, out]`` keep
+their orientation.  Either tree converts to
 either layout: the port's state dict follows ``config.scan_layers``.
 """
 
@@ -21,13 +24,18 @@ _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj")
 
 
-def _linear(node: dict) -> np.ndarray:
-    if "base" in node:          # LoRADense wraps its Dense as "base"
-        node = node["base"]
-    if "kernel" not in node:
-        raise KeyError(f"no float kernel in {sorted(node)} (int8 or LoRA "
-                       "parameters are not ported yet)")
-    return np.swapaxes(np.asarray(node["kernel"]), -1, -2)
+def _linear(node: dict, prefix: str) -> dict[str, np.ndarray]:
+    """A ``LoRADense`` (its Dense or ``Int8Dense`` as "base", its LoRA
+    pair beside it), or a bare Dense / ``Int8Dense``, under the port's
+    ``Linear`` names."""
+    out = {f"{prefix}.{k}": np.asarray(node[k]) for k in ("lora_a", "lora_b") if k in node}
+    base = node.get("base", node)
+    if "kernel_q" in base:
+        out[f"{prefix}.weight_q"] = np.swapaxes(np.asarray(base["kernel_q"]), -1, -2)
+        out[f"{prefix}.scale"] = np.asarray(base["scale"])
+    else:
+        out[f"{prefix}.weight"] = np.swapaxes(np.asarray(base["kernel"]), -1, -2)
+    return out
 
 
 def _layer(layer: dict) -> dict[str, np.ndarray]:
@@ -37,11 +45,11 @@ def _layer(layer: dict) -> dict[str, np.ndarray]:
            "post_attn_norm.weight": np.asarray(layer["post_attn_norm"]["scale"])}
     attn = layer["self_attn"]
     for name in _ATTN:
-        out[f"self_attn.{name}.weight"] = _linear(attn[name])
+        out.update(_linear(attn[name], f"self_attn.{name}"))
     out["self_attn.q_norm.weight"] = np.asarray(attn["q_norm"]["scale"])
     out["self_attn.k_norm.weight"] = np.asarray(attn["k_norm"]["scale"])
     for name in _MLP:
-        out[f"mlp.{name}.weight"] = _linear(layer["mlp"][name])
+        out.update(_linear(layer["mlp"][name], f"mlp.{name}"))
     return out
 
 
@@ -53,7 +61,7 @@ def params_from_jax(tree: dict, config: Qwen3Config) -> dict[str, torch.Tensor]:
         "final_norm.weight": np.asarray(params["final_norm"]["scale"]),
     }
     if not config.tie_word_embeddings:
-        out["lm_head.weight"] = np.asarray(params["lm_head"]["kernel"]).T
+        out.update(_linear(params["lm_head"], "lm_head"))
     if "layers" in params:      # scan tree: [L, ...] leaves
         stacked = _layer(params["layers"]["layer"])
         per_layer = [{k: v[i] for k, v in stacked.items()}

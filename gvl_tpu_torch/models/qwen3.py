@@ -26,8 +26,16 @@ weights and cache as views.  The config's ``use_*_kernel`` flags send a
 CUDA model down the plain versions instead, which is how the kernel path is
 checked on the card.
 
-Not ported yet: int8 weights, LoRA, DeepStack/mrope inputs and
-tensor-parallel meshes; a config that asks for int8 or LoRA raises.
+``quant_int8`` stores every projection and the LM head weight-only int8
+(``weight_q`` ``[out, in]`` with a per-output-channel f32 ``scale``; the
+product is ``(x @ q^T) * scale`` in x's type, the JAX ``Int8Dense``'s
+algebra, a plain product as in JAX, which computes it outside any Pallas
+kernel).  ``lora_rank > 0`` adds ``lora_a`` ``[in, r]`` and ``lora_b``
+``[r, out]`` (JAX's orientation) to each target, ``+ ((x @ a) @ b) *
+alpha / r`` (``LoRADense``).  :func:`merge_lora`, :func:`quantize_int8`
+and :func:`load_adapter_and_merge` are the JAX package's serving
+utilities on the port's state dicts.  Not ported: DeepStack/mrope inputs
+(ROADMAP A10) and tensor-parallel meshes (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -103,15 +111,6 @@ class Qwen3Config:
                        use_cache_append_kernel=False)
 
 
-def _check_supported(cfg: Qwen3Config) -> None:
-    unsupported = ["quant_int8"] if cfg.quant_int8 else []
-    if cfg.lora_rank:
-        unsupported.append("lora_rank")
-    if unsupported:
-        raise NotImplementedError(
-            f"Qwen3Config options not ported yet: {', '.join(unsupported)}")
-
-
 class KVCache:
     """Static-shape KV cache, written in place.
 
@@ -181,15 +180,50 @@ class KVCache:
 
 class Linear(nn.Module):
     """Bias-free projection ``x @ W^T`` (``nn.Linear``'s ``weight`` layout);
-    with ``stack=(L,)`` the weight is ``[L, out, in]`` and ``index`` picks
-    the layer."""
+    with ``stack=(L,)`` every tensor has a leading layer axis and ``index``
+    picks the layer.
 
-    def __init__(self, n_in: int, n_out: int, stack: tuple = ()):
+    ``quant``: the JAX ``Int8Dense``, weight-only int8 ``weight_q``
+    ``[out, in]`` and a per-output-channel ``scale``, ``(x @ q^T) * scale``
+    in x's type (the int8 weight is cast to x's type on each call).
+    ``rank > 0``: the JAX ``LoRADense`` delta ``((x @ lora_a) @ lora_b) *
+    alpha / rank``, ``lora_a`` ``[in, rank]`` and ``lora_b`` ``[rank, out]``.
+    """
+
+    def __init__(self, n_in: int, n_out: int, stack: tuple = (), quant: bool = False,
+                 rank: int = 0, alpha: float = 64.0):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(*stack, n_out, n_in))
+        self.quant, self.rank = quant, rank
+        if quant:
+            self.register_buffer("weight_q", torch.empty(*stack, n_out, n_in, dtype=torch.int8))
+            self.register_buffer("scale", torch.empty(*stack, n_out))
+        else:
+            self.weight = nn.Parameter(torch.empty(*stack, n_out, n_in))
+        if rank:
+            self.lora_a = nn.Parameter(torch.empty(*stack, n_in, rank))
+            self.lora_b = nn.Parameter(torch.empty(*stack, rank, n_out))
+            self.lora_scale = alpha / rank
 
     def forward(self, x: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
-        return F.linear(x, self.weight if index is None else self.weight[index])
+        def pick(t: torch.Tensor) -> torch.Tensor:
+            return t if index is None else t[index]
+
+        if self.quant:
+            out = F.linear(x, pick(self.weight_q).to(x.dtype)) * pick(self.scale).to(x.dtype)
+        else:
+            out = F.linear(x, pick(self.weight))
+        if self.rank:
+            out = out + (x @ pick(self.lora_a).to(x.dtype)) @ pick(self.lora_b).to(x.dtype) \
+                * self.lora_scale
+        return out
+
+
+def _projection(cfg: "Qwen3Config", name: str, n_in: int, n_out: int,
+                stack: tuple) -> Linear:
+    """A decoder projection with the config's int8 and LoRA options (LoRA
+    only on ``cfg.lora_targets``), as the JAX model's ``_dense``."""
+    rank = cfg.lora_rank if name in cfg.lora_targets else 0
+    return Linear(n_in, n_out, stack, quant=cfg.quant_int8, rank=rank, alpha=cfg.lora_alpha)
 
 
 def _write_back(result: torch.Tensor, cache: torch.Tensor) -> None:
@@ -204,10 +238,10 @@ class Qwen3Attention(nn.Module):
         super().__init__()
         self.config = cfg
         hidden, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = Linear(hidden, cfg.num_heads * d, stack)
-        self.k_proj = Linear(hidden, cfg.num_kv_heads * d, stack)
-        self.v_proj = Linear(hidden, cfg.num_kv_heads * d, stack)
-        self.o_proj = Linear(cfg.num_heads * d, hidden, stack)
+        self.q_proj = _projection(cfg, "q_proj", hidden, cfg.num_heads * d, stack)
+        self.k_proj = _projection(cfg, "k_proj", hidden, cfg.num_kv_heads * d, stack)
+        self.v_proj = _projection(cfg, "v_proj", hidden, cfg.num_kv_heads * d, stack)
+        self.o_proj = _projection(cfg, "o_proj", cfg.num_heads * d, hidden, stack)
         self.q_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
         self.k_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
 
@@ -295,9 +329,10 @@ class Qwen3Attention(nn.Module):
 class Qwen3Mlp(nn.Module):
     def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
         super().__init__()
-        self.gate_proj = Linear(cfg.hidden_size, cfg.intermediate_size, stack)
-        self.up_proj = Linear(cfg.hidden_size, cfg.intermediate_size, stack)
-        self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size, stack)
+        hidden, inter = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _projection(cfg, "gate_proj", hidden, inter, stack)
+        self.up_proj = _projection(cfg, "up_proj", hidden, inter, stack)
+        self.down_proj = _projection(cfg, "down_proj", inter, hidden, stack)
 
     def forward(self, x: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
         gate = F.silu(self.gate_proj(x, index)) * self.up_proj(x, index)
@@ -334,7 +369,6 @@ class Qwen3Model(nn.Module):
 
     def __init__(self, config: Qwen3Config):
         super().__init__()
-        _check_supported(config)
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
         if config.scan_layers:
@@ -344,7 +378,8 @@ class Qwen3Model(nn.Module):
                                         for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.lm_head = (None if config.tie_word_embeddings else
-                        Linear(config.hidden_size, config.vocab_size))
+                        Linear(config.hidden_size, config.vocab_size,
+                               quant=config.quant_int8))
 
     def forward(
         self,
@@ -415,7 +450,9 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """Random weights as a state dict: N(0, 0.02) matrices (as HF
-    initialises Qwen3), unit norms, drawn from ``generator`` on ``device``."""
+    initialises Qwen3), unit norms, drawn from ``generator`` on ``device``;
+    an int8 config's ``weight_q`` uniform in [-127, 127] with scales of
+    1/127 (the JAX ``Int8Dense`` initialisers), LoRA's ``lora_b`` zero."""
     device = resolve_device(device)
     with torch.device("meta"):
         shapes = {name: p.shape for name, p in Qwen3Model(config).state_dict().items()}
@@ -423,6 +460,13 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
     for name, shape in shapes.items():
         if name.endswith("norm.weight"):
             params[name] = torch.ones(shape, dtype=dtype, device=device)
+        elif name.endswith("weight_q"):
+            params[name] = torch.randint(-127, 128, shape, generator=generator,
+                                         device=device).to(torch.int8)
+        elif name.endswith(".scale"):
+            params[name] = torch.full(shape, 1.0 / 127.0, device=device)
+        elif name.endswith("lora_b"):
+            params[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             w = torch.empty(shape, dtype=dtype, device=device)
             params[name] = w.normal_(0.0, 0.02, generator=generator)
@@ -538,3 +582,115 @@ class Qwen3Engine:
 
     def generate(self, prompt_ids, **kw) -> list[int]:
         return list(self.stream(prompt_ids, **kw))
+
+
+# --------------------------------------------------------------------------
+# LoRA and int8 serving utilities (on the port's state dicts)
+# --------------------------------------------------------------------------
+
+def merge_lora(state_dict: dict[str, torch.Tensor],
+               config: Qwen3Config) -> dict[str, torch.Tensor]:
+    """Every ``lora_a``/``lora_b`` pair folded into its base weight
+    (``W + ((a @ b) * alpha / rank)^T``, JAX's ``merge_lora`` in the port's
+    ``[out, in]`` layout); the pairs are dropped, the result serves a
+    rank-0 config."""
+    scale = config.lora_alpha / max(config.lora_rank, 1)
+    out = {}
+    for name, value in state_dict.items():
+        if name.endswith((".lora_a", ".lora_b")):
+            continue
+        prefix = name[: -len(".weight")] if name.endswith(".weight") else None
+        if prefix is not None and f"{prefix}.lora_a" in state_dict:
+            a, b = state_dict[f"{prefix}.lora_a"], state_dict[f"{prefix}.lora_b"]
+            value = value + (a @ b * scale).transpose(-1, -2)
+        out[name] = value
+    return out
+
+
+def quantize_int8(state_dict: dict[str, torch.Tensor],
+                  config: Qwen3Config) -> dict[str, torch.Tensor]:
+    """A float state dict → weight-only int8 for a ``quant_int8`` config
+    (JAX's ``quantize_int8``): every projection and the LM head as
+    ``weight_q = clip(round(w / scale), ±127)`` (round half to even) with
+    ``scale = max(max|w| over the input axis, 1e-8) / 127`` per output
+    channel, computed in f32; a stacked ``scan_layers`` weight quantizes per
+    layer and column.  LoRA pairs are merged first."""
+    if config.lora_rank > 0:
+        state_dict = merge_lora(state_dict, config)
+    out = {}
+    for name, value in state_dict.items():
+        if not (name.endswith("_proj.weight") or name == "lm_head.weight"):
+            out[name] = value
+            continue
+        w = value.float()
+        scale = torch.clamp(w.abs().amax(dim=-1), min=1e-8) / 127.0
+        q = torch.clamp(torch.round(w / scale[..., None]), -127, 127).to(torch.int8)
+        prefix = name[: -len(".weight")]
+        out[f"{prefix}.weight_q"], out[f"{prefix}.scale"] = q, scale
+    return out
+
+
+def _jax_key(name: str, config: Qwen3Config) -> str:
+    """A port state-dict name → the JAX params path of an adapter npz
+    (``layers.3.self_attn.q_proj.lora_a`` → ``layers_3/self_attn/q_proj/lora_a``;
+    stacked: ``layers/layer/self_attn/...``)."""
+    parts = name.split(".")
+    if config.scan_layers:
+        return "/".join(["layers", "layer", *parts[1:]])
+    return "/".join([f"layers_{parts[1]}", *parts[2:]])
+
+
+def load_adapter_and_merge(base_config: Qwen3Config,
+                           state_dict: dict[str, torch.Tensor],
+                           adapter_dir) -> tuple[Qwen3Config, dict[str, torch.Tensor]]:
+    """Fold a trained LoRA adapter (``adapter_config.json`` and
+    ``adapter_final.npz``, else the newest ``adapter_step*.npz``) into the
+    base weights, as JAX's ``load_adapter_and_merge``: returns the rank-0
+    config and the merged state dict.  A pair the npz does not hold adds
+    nothing (JAX's fresh ``lora_b`` is zero); a tensor whose shape is not
+    the base geometry's raises ``ValueError`` with JAX's message."""
+    import json
+    from pathlib import Path
+
+    adapter_dir = Path(adapter_dir)
+    meta = json.loads((adapter_dir / "adapter_config.json").read_text())
+    lora_cfg = replace(base_config, lora_rank=int(meta["lora_rank"]),
+                       lora_alpha=float(meta["lora_alpha"]),
+                       lora_targets=tuple(meta.get("targets", base_config.lora_targets)))
+    with torch.device("meta"):
+        shapes = {name: t.shape for name, t in Qwen3Model(lora_cfg).state_dict().items()}
+    adapter_path = adapter_dir / "adapter_final.npz"
+    if not adapter_path.exists():
+        candidates = sorted(adapter_dir.glob("adapter_step*.npz"))
+        adapter_path = candidates[-1] if candidates else None
+    flat = {}
+    if adapter_path is not None:
+        with np.load(adapter_path) as z:
+            flat = {k: z[k] for k in z.files}
+    merged = dict(state_dict)
+    for name, shape in shapes.items():      # the model's order: JAX's first error
+        key = _jax_key(name, lora_cfg)
+        if name.endswith((".lora_a", ".lora_b")) and key in flat:
+            if tuple(flat[key].shape) != tuple(shape):
+                raise ValueError(
+                    f"adapter tensor {key} has shape {tuple(flat[key].shape)} but the "
+                    f"base geometry expects {tuple(shape)}; the adapter in {adapter_dir} "
+                    "was trained over an incompatible base checkpoint")
+            weight = state_dict[f"{name.rsplit('.', 1)[0]}.weight"]
+            merged[name] = torch.from_numpy(np.array(flat[key], order="C")).to(
+                weight.device, weight.dtype)
+    # a target the npz does not hold both halves of adds nothing
+    for name in [n for n in merged if n.endswith(".lora_a")]:
+        other = name[: -len("a")] + "b"
+        if other not in merged:
+            del merged[name]
+    for name in [n for n in merged if n.endswith(".lora_b")]:
+        if name[: -len("b")] + "a" not in merged:
+            del merged[name]
+    return replace(lora_cfg, lora_rank=0), merge_lora(merged, lora_cfg)
+
+
+def load_hf_qwen3(model_name_or_path, config: Optional[Qwen3Config] = None):
+    """HF Qwen3 checkpoints: not ported (ROADMAP A10)."""
+    raise NotImplementedError(
+        f"{model_name_or_path}: HF Qwen3 checkpoints are not ported yet (ROADMAP A10)")

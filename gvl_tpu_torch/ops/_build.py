@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -157,9 +158,19 @@ def compare_builds() -> dict:
             "per_source_then_link_s": split}
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at the first call in a process)."""
+    """The loaded kernel library (built at the first call in a process;
+    threads that ask at once wait for one build)."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -168,6 +179,14 @@ def library() -> ctypes.CDLL:
     lib.gvl_error_string.argtypes = [_INT]
     lib.gvl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Under a lock: the pipelined
+    perception mode launches from a thread per stage, and ``+=`` on an
+    attribute can lose a count between threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, kernel: str) -> None:

@@ -129,7 +129,7 @@ def flash_attention(
         num_q_heads, num_kv_heads, seq_q, seq_k, head_dim, valid, int(causal),
         scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -167,7 +167,7 @@ def cache_append(cache: torch.Tensor, new: torch.Tensor,
     if cache.is_cpu:
         return cache_append_reference(cache, new, positions)
     _launch("cache_append", cache, None, new, None, positions, None)
-    cache_append.launches += 1
+    _build.count_launch(cache_append)
     return cache
 
 
@@ -188,7 +188,7 @@ def cache_append_stacked(cache: torch.Tensor, new: torch.Tensor,
     if cache.is_cpu:
         return cache_append_stacked_reference(cache, new, positions, layer)
     _launch("cache_append_stacked", cache, None, new, None, positions, int(layer))
-    cache_append_stacked.launches += 1
+    _build.count_launch(cache_append_stacked)
     return cache
 
 
@@ -211,7 +211,7 @@ def cache_append_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     if k_cache.is_cpu:
         return write_rows(k_cache, k_new, positions), write_rows(v_cache, v_new, positions)
     _launch("cache_append_kv", k_cache, v_cache, k_new, v_new, positions, None)
-    cache_append.launches += 1
+    _build.count_launch(cache_append)
     return k_cache, v_cache
 
 
@@ -231,5 +231,5 @@ def cache_append_stacked_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
         return k_cache, v_cache
     _launch("cache_append_stacked_kv", k_cache, v_cache, k_new, v_new, positions,
             int(layer))
-    cache_append_stacked.launches += 1
+    _build.count_launch(cache_append_stacked)
     return k_cache, v_cache

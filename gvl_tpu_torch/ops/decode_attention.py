@@ -119,7 +119,7 @@ def decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), *args, _build.stream_handle(index))
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return out
 
 
@@ -170,7 +170,7 @@ def decode_attention_stacked(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), k_all.shape[0], layer, *args, _build.stream_handle(index))
     _build.check(err, "decode_attention_stacked")
-    decode_attention_stacked.launches += 1
+    _build.count_launch(decode_attention_stacked)
     return out
 
 
@@ -252,7 +252,7 @@ def chunk_attention(
         out.data_ptr(), batch, num_q_heads, num_kv_heads, seq, s_max, head_dim,
         scale, _build.DTYPE_CODES[q.dtype], _build.stream_handle(index))
     _build.check(err, "chunk_attention")
-    chunk_attention.launches += 1
+    _build.count_launch(chunk_attention)
     return out
 
 

@@ -184,7 +184,7 @@ def w8a8_matmul(
         0.0 if out_scale_inv is None else float(out_scale_inv),
         _build.DTYPE_CODES[out_dtype], w8a8_block_n(n), _build.stream_handle(index))
     _build.check(err, "w8a8_matmul")
-    w8a8_matmul.launches += 1
+    _build.count_launch(w8a8_matmul)
     return out
 
 
@@ -230,7 +230,7 @@ def ln_quant(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         d, float(eps), float(inv_scale), _build.DTYPE_CODES[x.dtype],
         _build.stream_handle(index))
     _build.check(err, "ln_quant")
-    ln_quant.launches += 1
+    _build.count_launch(ln_quant)
     return out
 
 
@@ -259,7 +259,7 @@ def quant_static(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), x.numel(), float(inv_scale),
         _build.DTYPE_CODES[x.dtype], _build.stream_handle(index))
     _build.check(err, "quant_static")
-    quant_static.launches += 1
+    _build.count_launch(quant_static)
     return out
 
 
@@ -422,7 +422,7 @@ def attention_fused_qkv(qkv, *, batch, seq_pad, kv_len, num_heads, dh_pad,
                              scale=sm_scale * LOG2E, exp2=True,
                              out_scale_inv=out_scale_inv, int8_scores=int8_scores,
                              block_q=block_q)
-    attention_fused_qkv.launches += 1
+    _build.count_launch(attention_fused_qkv)
     return out
 
 
@@ -442,7 +442,7 @@ def attention_packed_multihead(qkv, *, batch, seq_pad, kv_len, num_heads,
                              seq_pad=seq_pad, kv_len=kv_len, num_heads=num_heads,
                              head_dim=head_dim, scale=sm_scale * LOG2E, exp2=True,
                              out_scale_inv=out_scale_inv)
-    attention_packed_multihead.launches += 1
+    _build.count_launch(attention_packed_multihead)
     return out
 
 
@@ -461,7 +461,7 @@ def attention_qkv_packed(qkv, *, batch, seq_pad, kv_len, num_heads, head_dim,
     out = _encoder_attention("attention_qkv_packed", qkv, batch=batch, seq_pad=seq_pad,
                              kv_len=kv_len, num_heads=num_heads, head_dim=head_dim,
                              scale=sm_scale, exp2=False, out_scale_inv=None)
-    attention_qkv_packed.launches += 1
+    _build.count_launch(attention_qkv_packed)
     return out
 
 

@@ -290,7 +290,7 @@ class OpenVocabSamBackend:
     # ------------------------------------------------------------ protocol
 
     def __call__(self, frames, concepts, frame_indices):
-        from gvl_tpu_torch.runtime.resize import resize_mask
+        from gvl_tpu_torch.runtime.native import resize_mask
 
         prop_masks, prop_iou = self._proposals(frames)
         prop_masks = np.asarray(prop_masks)     # [B, P, h', w'] bool

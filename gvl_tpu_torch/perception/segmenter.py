@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from gvl_tpu_torch import resolve_device
-from gvl_tpu_torch.runtime.resize import resize_image, resize_mask
+from gvl_tpu_torch.runtime.native import resize_images, resize_mask
 
 logger = logging.getLogger(__name__)
 
@@ -217,14 +217,18 @@ class TorchSegmenterBackend:
         waiting for it: returns a handle for :meth:`collect`, so the caller
         can track the previous chunk meanwhile."""
         size = self.config.image_size
-        # resize each frame before stacking: the stack copies size² arrays
-        resized = np.stack([resize_image(np.ascontiguousarray(f), size, size)
-                            for f in frames])
+        # one native call for a clip's frames (they share a shape)
+        resized = resize_images(frames, size, size)
         tokens = np.stack([self._hash_tokenize(c, self.model_config.text_vocab)
                            for c in concepts])
-        # uint8 over the link, normalised on the card
-        px = torch.from_numpy(resized).to(self.device).float() / 255.0
-        out = self.model(px, torch.from_numpy(tokens).to(self.device))
+        # uint8 over the link, normalised on the card; page-locked on a
+        # card, so the upload queues behind the card's work instead of
+        # holding the host until the previous chunk has run
+        px, ids = torch.from_numpy(resized), torch.from_numpy(tokens)
+        if self.device.type == "cuda":
+            px, ids = px.pin_memory(), ids.pin_memory()
+        px = px.to(self.device, non_blocking=True).float() / 255.0
+        out = self.model(px, ids.to(self.device, non_blocking=True))
         # thresholded on the card: bool masks come back at 1 byte a cell
         return {"mask": out["mask_logits"] > float(self.config.mask_threshold),
                 "scores": out["scores"]}, len(frames)

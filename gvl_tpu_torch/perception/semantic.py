@@ -32,7 +32,7 @@ from gvl_tpu_torch.models.siglip import (
 )
 from gvl_tpu_torch.models.siglip_fused import prepare_fused_siglip, siglip_fused_apply
 from gvl_tpu_torch.ops.quant_matmul import true_div
-from gvl_tpu_torch.runtime.resize import resize_image
+from gvl_tpu_torch.runtime.native import resize_image
 
 PATCH = 14
 

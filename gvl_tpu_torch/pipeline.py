@@ -14,9 +14,12 @@ and a :class:`~gvl_tpu_torch.agent.loop.PerceptionReasoningLoop` answers
 questions over them (:func:`answer_query`, :func:`answer_query_streaming`).
 
 Every model runs on ``device`` (``"cuda"`` by default; raises without a
-card unless ``device="cpu"``).  Not ported: the batched and pipelined
-perception paths (ROADMAP A14), which raise.  As in the JAX script,
-``process_video`` decodes at ``config.inference.fps`` with no frame cap.
+card unless ``device="cpu"``).  ``batched=True`` takes the chunked
+perception of :func:`gvl_tpu_torch.perception.batch.run_batched_perception`
+and ``pipelined=True`` the stage-parallel one
+(:func:`run_pipelined_perception`), as the JAX script does.  As in the JAX
+script, ``process_video`` decodes at ``config.inference.fps`` with no frame
+cap.  The command line is :mod:`gvl_tpu_torch.scripts.realtime_inference`.
 """
 
 from __future__ import annotations
@@ -65,16 +68,6 @@ class ProcessedVideo:
         default_factory=list)
     loop: Optional[PerceptionReasoningLoop] = None
     timings: dict = field(default_factory=dict)
-
-
-def _refuse_unported(pipelined: bool, batched: bool) -> None:
-    if batched:
-        raise NotImplementedError(
-            "batched perception (run_batched_perception) is not ported yet (ROADMAP A14)")
-    if pipelined:
-        raise NotImplementedError(
-            "pipelined perception (the stage-parallel pipeline) is not ported yet "
-            "(ROADMAP A14, with A12's parallel/pipeline.py)")
 
 
 def run_sam_detection(frames, config: SystemConfig, timeline, kb,
@@ -189,16 +182,89 @@ def run_hico(frames, timeline, config: SystemConfig, device="cuda"):
     """HiCo temporal compression of the clip (CLIP level), its tokens into
     the timeline; the compressor reads ``outputs/hico_params.npz`` as the
     JAX script's does (:class:`~gvl_tpu_torch.temporal.hico.
-    TemporalCompressionModule`)."""
+    TemporalCompressionModule`).
+
+    ROADMAP C8, settled as C7 was: where that file resolves but is not of
+    the module's shapes (or cannot be read) this rung raises, where JAX
+    compresses with a random initialisation; without the file it keeps
+    JAX's random initialisation."""
     from gvl_tpu_torch.temporal.hico import TemporalCompressionModule
 
     if not config.temporal.use_hico or len(frames) < 2:
         return []
-    module = TemporalCompressionModule(device=device)
+    module = TemporalCompressionModule(device=device, strict=True)
     tokens = module.segment_and_compress(
         np.stack([f for _, f in frames]), fps=config.inference.fps)
     timeline.add_from_hico_tokens(tokens)
     return tokens
+
+
+def run_pipelined_perception(frames, config: SystemConfig, timeline, kb,
+                             concepts=DEFAULT_CONCEPTS, device="cuda"):
+    """Frame-major perception through the stage-parallel pipeline
+    (:mod:`gvl_tpu_torch.parallel.pipeline`): segment and track → region
+    semantics → OCR, each in its own worker (on a card, its own stream on
+    ``device``) with bounded queues, so frame i+1 segments while frame i
+    is encoded.  Returns the per-timestamp semantic embeddings."""
+    from gvl_tpu_torch.parallel.pipeline import PerceptionPipeline, PipelineStage
+    from gvl_tpu_torch.perception.batch import build_perception_stack
+
+    segmenter, encoder, ocr = build_perception_stack(config, device=device)
+    sam_step = max(1, int(round(config.inference.fps
+                                / max(config.perception.sam3_fps, 1e-6))))
+
+    def stage_segment(item):
+        idx, ts, frame = item
+        entities = []
+        if config.perception.use_sam and idx % sam_step == 0:
+            entities = segmenter.segment_with_prompts(frame, idx, concepts)
+        return idx, ts, frame, entities
+
+    def stage_semantic(item):
+        idx, ts, frame, entities = item
+        embeddings = []
+        if config.perception.use_siglip:
+            masks = [(e.entity_id, e.frame_masks[idx].mask)
+                     for e in entities if idx in e.frame_masks]
+            if masks:
+                embeddings = [(ts, emb.embedding)
+                              for emb in encoder.encode_masked_regions(frame, masks)]
+            else:
+                embeddings = [(ts, encoder.encode_image(frame))]
+        return idx, ts, frame, entities, embeddings
+
+    def stage_ocr(item):
+        idx, ts, frame, entities, embeddings = item
+        ocr_result = (ocr.extract_text_from_frame(frame, idx, ts)
+                      if config.perception.use_ocr else None)
+        return idx, ts, entities, embeddings, ocr_result
+
+    stage_device = torch.device(device)
+    pipeline = PerceptionPipeline([
+        PipelineStage("segment", stage_segment, stage_device),
+        PipelineStage("semantic", stage_semantic, stage_device),
+        PipelineStage("ocr", stage_ocr, stage_device),
+    ])
+
+    siglip_embeddings = []
+    for idx, ts, entities, embeddings, ocr_result in pipeline.run(
+            [(i, ts, frame) for i, (ts, frame) in enumerate(frames)]):
+        if entities:
+            timeline.add_from_sam_entities(entities, idx, ts)
+            kb.update_from_tracking(entities, idx, ts)
+        siglip_embeddings.extend(embeddings)
+        if ocr_result is not None:
+            for det in ocr_result.detections:
+                if det.confidence < 0.7 or len(det.text) < 3:
+                    continue
+                important = det.category in ("damage", "health")
+                timeline.add_event(
+                    ts, ModalityType.OCR, det.text,
+                    priority=(EventPriority.MEDIUM if important else EventPriority.LOW),
+                    confidence=det.confidence,
+                    metadata={"category": det.category, "bbox": det.bbox},
+                )
+    return siglip_embeddings
 
 
 def process_video(
@@ -221,7 +287,6 @@ def process_video(
 
     device = resolve_device(device)
     config = config or load_preset("light")
-    _refuse_unported(pipelined, batched)
     timer = StageTimer()
     cache = (FeatureCache(config.inference.cache_dir)
              if use_cache and config.inference.use_feature_cache else None)
@@ -241,27 +306,40 @@ def process_video(
                 video_path, fps=config.inference.fps)
         result.timestamps = [t for t, _ in frames]
 
-        if config.perception.use_sam:
-            with timer.stage("sam_detection"):
-                segmenter = run_sam_detection(frames, config, timeline, kb, concepts,
-                                              device=device)
+        if batched:
+            # throughput-oriented: chunked frames x concepts segmentation,
+            # shared region and OCR batches
+            from gvl_tpu_torch.perception.batch import run_batched_perception
+
+            with timer.stage("batched_perception"):
+                result.siglip_embeddings = run_batched_perception(
+                    frames, config, timeline, kb, concepts, device=device)
+        elif pipelined:
+            with timer.stage("pipelined_perception"):
+                result.siglip_embeddings = run_pipelined_perception(
+                    frames, config, timeline, kb, concepts, device=device)
         else:
-            from gvl_tpu_torch.perception.batch import build_segmenter
+            if config.perception.use_sam:
+                with timer.stage("sam_detection"):
+                    segmenter = run_sam_detection(frames, config, timeline, kb, concepts,
+                                                  device=device)
+            else:
+                from gvl_tpu_torch.perception.batch import build_segmenter
 
-            segmenter = build_segmenter(config, device=device)
+                segmenter = build_segmenter(config, device=device)
+                if config.perception.use_siglip:
+                    # segmenter-free grounding: zero-shot mini-SigLIP labels
+                    # of motion proposals → VISUAL events
+                    from gvl_tpu_torch.perception.frame_labeler import emit_zero_shot_labels
+
+                    with timer.stage("zero_shot_labels"):
+                        emit_zero_shot_labels(frames, config, timeline, concepts=concepts,
+                                              device=device)
+
             if config.perception.use_siglip:
-                # segmenter-free grounding: zero-shot mini-SigLIP labels of
-                # motion proposals → VISUAL events
-                from gvl_tpu_torch.perception.frame_labeler import emit_zero_shot_labels
-
-                with timer.stage("zero_shot_labels"):
-                    emit_zero_shot_labels(frames, config, timeline, concepts=concepts,
-                                          device=device)
-
-        if config.perception.use_siglip:
-            with timer.stage("siglip_embeddings"):
-                result.siglip_embeddings = extract_siglip_embeddings(
-                    frames, segmenter, config, device=device)
+                with timer.stage("siglip_embeddings"):
+                    result.siglip_embeddings = extract_siglip_embeddings(
+                        frames, segmenter, config, device=device)
 
         if config.perception.use_videomae:
             with timer.stage("videomae_embeddings"):
@@ -273,7 +351,7 @@ def process_video(
                 _, result.audio_embeddings = run_audio_analysis(
                     video_path, timeline, config, device=device)
 
-        if config.perception.use_ocr:
+        if config.perception.use_ocr and not (pipelined or batched):
             with timer.stage("ocr_extraction"):
                 run_ocr_extraction(frames, timeline, config, device=device)
 

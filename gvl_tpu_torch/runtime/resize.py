@@ -1,6 +1,8 @@
 """uint8 image and mask resize: the port's own copies of the JAX package's
 native ``resize_u8`` and ``resize_nearest_u8``
-(``gvl_tpu/runtime/csrc/gvl_runtime.cpp``), in numpy.
+(``gvl_tpu/runtime/csrc/gvl_runtime.cpp``), in numpy: the plain versions
+that the tests hold the port's native build
+(:mod:`gvl_tpu_torch.runtime.native`, which the pipeline calls) to.
 
 Area average when neither side grows, else bilinear with half-pixel
 centres in 8.8 fixed point; coordinates in float32 as the C++ computes

@@ -1,6 +1,8 @@
 """WAV decoding and polyphase resampling in numpy: the port's copies of the
 JAX package's native ``wav_read`` (``gvl_tpu/runtime/csrc/gvl_runtime.cpp``)
 and of the ``scipy.signal.resample_poly`` call its audio preprocessor makes.
+``read_wav`` is the plain version of the port's native reader
+(:func:`gvl_tpu_torch.runtime.native.read_wav_native`).
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ float conversion of :class:`gvl_tpu_torch.io.video.Y4MReader` (the two
 differ by up to 2 LSB).  :class:`Y4MFrameSource` yields what
 ``NativePrefetchSource(path, stride=...)`` yields: every ``stride``-th
 frame with its timestamp ``index / fps``, read in the caller's thread
-(the prefetch ring stays in ROADMAP A13).  Chroma sizes are ``w // 2`` by
+(the plain version of the port's native ring,
+:class:`gvl_tpu_torch.runtime.native.NativePrefetchSource`).  Chroma sizes are ``w // 2`` by
 ``h // 2`` (4:2:0), ``w // 2`` by ``h`` (4:2:2) or full (4:4:4); luma sizes
 that are odd have no well-defined 4:2:0 layout in either decoder.
 """

@@ -11,7 +11,10 @@ As in the JAX package, :class:`TemporalCompressionModule` reads
 ``outputs/hico_params.npz`` when that resolves (against the working
 directory first, then the repository) and holds the compressor's geometry,
 and otherwise logs a warning and runs on a random initialisation
-(ROADMAP C8).  The port's random draw is its own (a ``torch.Generator``
+(ROADMAP C8).  ``strict=True`` (the arms' rung,
+:func:`gvl_tpu_torch.pipeline.run_hico`) raises instead where a file
+resolves but cannot be used; without a file it keeps the random
+initialisation.  The port's random draw is its own (a ``torch.Generator``
 seeded with 0); only loaded weights give JAX's results.  The trained file
 holds the FRAME → CLIP pool only, so the VIDEO level raises on it, as it
 fails in JAX.
@@ -191,7 +194,7 @@ class TemporalCompressionModule:
                  frame_encoder: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None,
                  checkpoint: Optional[str] = "outputs/hico_params.npz",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", strict: bool = False):
         from gvl_tpu_torch.models.convert import hico_params_from_jax
         from gvl_tpu_torch.nn.layers import load_module
 
@@ -210,8 +213,21 @@ class TemporalCompressionModule:
                         raise ValueError(f"geometry mismatch: checkpoint temporal_pe "
                                          f"{tuple(pe.shape)} != config {want}")
                     state = hico_params_from_jax(loaded)
+                    with torch.device("meta"):
+                        shapes = {k: tuple(v.shape) for k, v in HierarchicalCompressor(
+                            self.config).state_dict().items()}
+                    wrong = {k: tuple(v.shape) for k, v in state.items()
+                             if shapes.get(k, tuple(v.shape)) != tuple(v.shape)}
+                    if wrong or not set(state) <= set(shapes):
+                        raise ValueError(f"tensors not of the module's shapes: {wrong or sorted(set(state) - set(shapes))}")
                     logger.info("loaded HiCo compressor from %s", resolved)
                 except Exception as exc:
+                    if strict:
+                        raise ValueError(
+                            f"HiCo checkpoint {resolved} cannot be used ({exc}); the JAX "
+                            "package would compress with a random initialisation here "
+                            "(ROADMAP C8)") from exc
+                    state = None
                     logger.warning("HiCo checkpoint %s unusable (%s); random init",
                                    resolved, exc)
         if state is None:   # ROADMAP C8: a silent random initialisation, as in JAX

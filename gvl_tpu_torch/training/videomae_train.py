@@ -318,11 +318,10 @@ class TrainedClipEncoder:
                 *(torch.softmax(t.float(), -1).cpu().numpy() for t in (d_log, k_log, e_log)))
 
     def _prepare(self, clip: np.ndarray) -> np.ndarray:
-        from gvl_tpu_torch.runtime.resize import resize_image
+        from gvl_tpu_torch.runtime.native import resize_images
 
         cfg = self.config
-        frames = [resize_image(np.ascontiguousarray(f), cfg.image_size, cfg.image_size)
-                  for f in clip]
+        frames = list(resize_images(list(clip), cfg.image_size, cfg.image_size))
         while len(frames) < cfg.num_frames:  # short tail: repeat last
             frames.append(frames[-1])
         return np.stack(frames[:cfg.num_frames])

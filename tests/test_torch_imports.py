@@ -62,7 +62,10 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.perception.open_vocab", "gvl_tpu_torch.models.videomae",
              "gvl_tpu_torch.training.videomae_train", "gvl_tpu_torch.temporal",
              "gvl_tpu_torch.temporal.clip_encoder", "gvl_tpu_torch.temporal.hico",
-             "gvl_tpu_torch.temporal.context_manager"):
+             "gvl_tpu_torch.temporal.context_manager", "gvl_tpu_torch.runtime.native",
+             "gvl_tpu_torch.agent.search", "gvl_tpu_torch.parallel",
+             "gvl_tpu_torch.parallel.pipeline", "gvl_tpu_torch.scripts",
+             "gvl_tpu_torch.scripts.realtime_inference", "gvl_tpu_torch.scripts.deploy_api"):
     assert name in names, name
 import chip_smoke
 import launch_costs

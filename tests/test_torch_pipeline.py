@@ -206,14 +206,22 @@ def test_c7_the_arms_ladder_refuses_an_unusable_checkpoint(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Batched and pipelined perception raise (ROADMAP A14); SigLIP,
-    VideoMAE and HiCo, refused before they were ported, now run (here on
-    the fake encoders and the trained HiCo file)."""
-    _, tcfg = _tiny_presets(None)
+    """Batched and pipelined perception, refused before they were ported
+    (ROADMAP A14), now run and give JAX's timeline here (on the fake
+    encoders; on the trained weights: ``tests/test_torch_batched.py``), as
+    do SigLIP, VideoMAE and HiCo (the trained HiCo file).  What still
+    raises names its item: an HF LLM checkpoint (A10) and more than one
+    device for the LLM (A12)."""
+    from gvl_tpu_torch.scripts import deploy_api
+
+    jcfg, tcfg = _tiny_presets(None)
     clip = "synthetic://concept_demo_x?duration=2"
-    for kw, label in (({"batched": True}, "A14"), ({"pipelined": True}, "A12")):
-        with pytest.raises(NotImplementedError, match=label):
-            tpipe.process_video(clip, tcfg, use_cache=False, device="cpu", **kw)
+    for kw, stage in (({"batched": True}, "batched_perception"),
+                      ({"pipelined": True}, "pipelined_perception")):
+        want = jri.process_video(clip, jcfg, use_cache=False, **kw)
+        got = tpipe.process_video(clip, tcfg, use_cache=False, device="cpu", **kw)
+        assert stage in got.timings
+        assert _events(got.timeline) == _events(want.timeline)
     tcfg.perception.use_siglip = tcfg.perception.use_videomae = True
     tcfg.temporal.use_hico = True
     tcfg.perception.siglip_checkpoint = tcfg.perception.videomae_checkpoint = None
@@ -223,6 +231,18 @@ def test_unported_options_raise(tmp_path):
     assert any(e.description.startswith("Temporal context") for e in pv.timeline.events)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpipe.process_video(clip, tcfg)
+    hf = tmp_path / "hf_qwen3"
+    hf.mkdir()
+    (hf / "config.json").write_text("{}")
+    tcfg.reasoning.llm_checkpoint = str(hf)
+    tpipe._LOOP_COMPONENT_CACHE.clear()
+    with pytest.raises(NotImplementedError, match="A10"):
+        tpipe.process_video(clip, tcfg, use_cache=False, device="cpu")
+    for argv, label in ((["--llm-checkpoint", str(hf)], "A10"),
+                        (["--tp", "2"], "A12"), (["--dp", "2"], "A12"),
+                        (["--llm-checkpoint", str(hf), "--tp", "2"], "A12")):
+        with pytest.raises(NotImplementedError, match=label):
+            deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])
 
 
 def test_random_checkpoints_take_the_trained_layouts_and_ladders(tmp_path):
@@ -258,3 +278,39 @@ def test_random_checkpoints_take_the_trained_layouts_and_ladders(tmp_path):
     proc, _ = build_audio_stack(cfg.audio, device="cpu")
     assert (type(proc.asr).__name__, type(proc.event_backend).__name__) == \
         ("TrainedByteASR", "TorchAudioEventDetector")
+
+
+def test_c8_the_arms_hico_rung_refuses_an_unusable_file(tmp_path, monkeypatch):
+    """ROADMAP C8, settled as C7: where ``outputs/hico_params.npz`` resolves
+    (the working directory first) but is not of the module's shapes, the
+    port's arm rung (``pipeline.run_hico``) raises where JAX's compresses
+    with a random initialisation; where no file resolves both compress on
+    their random initialisation (one HiCo event each)."""
+    from gvl_tpu.temporal import hico as jhico
+    from gvl_tpu_torch.fusion import TimelineIndexer as TTimeline
+    from gvl_tpu_torch.temporal import hico as thico
+
+    from gvl_tpu.fusion import TimelineIndexer as JTimeline
+
+    frames = [(i / 2, f) for i, f in enumerate(np.random.default_rng(9).integers(
+        0, 256, (6, 24, 32, 3), dtype=np.uint8))]
+    jcfg, tcfg = _tiny_presets(None)
+    for cfg in (jcfg, tcfg):
+        cfg.temporal.use_hico = True
+        cfg.inference.fps = 2.0
+    (tmp_path / "outputs").mkdir()
+    trained = thico.load_hico_npz(Path(__file__).resolve().parents[1] / "outputs"
+                                  / "hico_params.npz")
+    trained["params"]["temporal_pe"] = trained["params"]["temporal_pe"][:, :64]
+    thico.save_hico_npz(trained, tmp_path / "outputs" / "hico_params.npz")
+    monkeypatch.chdir(tmp_path)
+    jtl = JTimeline()
+    assert len(jri.run_hico(frames, jtl, jcfg)) == 1        # JAX: random init, a warning
+    with pytest.raises(ValueError, match="C8"):
+        tpipe.run_hico(frames, TTimeline(), tcfg, device="cpu")
+    monkeypatch.setattr(jhico, "_resolve_checkpoint", lambda path: None)
+    monkeypatch.setattr(thico, "_resolve_checkpoint", lambda path: None)
+    jtl, ttl = JTimeline(), TTimeline()
+    assert len(jri.run_hico(frames, jtl, jcfg)) == len(tpipe.run_hico(
+        frames, ttl, tcfg, device="cpu")) == 1
+    assert [e.description[:16] for e in ttl.events] == [e.description[:16] for e in jtl.events]

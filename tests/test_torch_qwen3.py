@@ -178,12 +178,24 @@ def test_sampling_keeps_top_k():
 
 
 def test_unported_options_raise():
-    for kw in ({"quant_int8": True}, {"lora_rank": 4}):
-        with pytest.raises(NotImplementedError):
-            port.Qwen3Model(port.Qwen3Config.tiny(**kw))
+    """int8 and LoRA, refused before they were ported, now build with the
+    JAX model's parameters (their logits: ``tests/test_torch_lora_int8.py``);
+    the HF rungs still raise, naming ROADMAP A10."""
+    _, tcfg, params, _ = _tiny_pair(quant_int8=True, lora_rank=4)
+    names = set(port.Qwen3Model(tcfg).state_dict())
+    jax_leaves = {jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(params)}
+    assert {"lm_head.weight_q", "lm_head.scale", "layers.1.self_attn.q_proj.weight_q",
+            "layers.1.mlp.down_proj.lora_a", "layers.1.mlp.down_proj.lora_b"} <= names
+    assert not any(n.endswith("proj.weight") for n in names)
+    assert len(names) == len(jax_leaves)
+    stacked = port.Qwen3Model(port.Qwen3Config.tiny(quant_int8=True, scan_layers=True))
+    assert stacked.layers.mlp.up_proj.weight_q.shape == (2, 128, 64)
+    assert stacked.layers.mlp.up_proj.scale.shape == (2, 128)
     # scan_layers and chunk_verify are ported
     for kw in ({"scan_layers": True}, {"chunk_verify": True}):
         port.Qwen3Model(port.Qwen3Config.tiny(**kw))
+    with pytest.raises(NotImplementedError, match="A10"):
+        port.load_hf_qwen3("Qwen/Qwen3-8B")
 
 
 @pytest.fixture(scope="module")
