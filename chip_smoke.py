@@ -19,7 +19,8 @@ Run from the root of the repository, on a machine with one CUDA card and
    the kernel) are held bit for bit against their plain versions and timed
    against the same two writes made by other means (``pairs`` of rows 3
    and 5), the flash kernel also at the bf16 SigLIP so400m tower's
-   attention and its MAP head (``lines`` of row 1), and the int8 product
+   attention and its MAP head and at Qwen3-VL's tower (``lines`` of row
+   1), and the int8 product
    at all four products of a fused so400m layer and the regions' qkv
    (``lines`` of its row), after ``cuobjdump`` shows that its built kernels
    issue warpgroup products (IGMMA) and no ``mma.sync`` (IMMA);
@@ -110,10 +111,23 @@ Run from the root of the repository, on a machine with one CUDA card and
     and 8 held-out answers against its plain path; the 8B geometry at full
     depth with ``scan_layers``, bf16 and quantized by ``quantize_int8``:
     logits against the bf16 plain path within the phase's bound, tokens/s,
-    ms and CUDA launches per decode step of each.
+    ms and CUDA launches per decode step of each;
+15. Qwen3-VL-8B at the JAX package's geometry (vision tower 1152 wide, 27
+    blocks of 16 heads of 72, DeepStack taps 8/16/24; the 36-layer
+    decoder) on seeded bf16 weights drawn on the card, served through
+    ``Qwen3VLChatBackend`` behind ``ReasoningCore`` (the hashing
+    retriever, the port's ``ByteTokenizer``, temperature 0, 16 new
+    tokens): two questions over a small timeline, each with a seeded 720 x
+    1280 synthetic frame, at image sizes 448 and 256; per answer B1
+    launches 27 per frame + 36 and B2 = B3 = 36 per decode step; the plain
+    path launches none; the tower's outputs and the prefill logits against
+    the plain path and an f32 evaluation of the same weights, the first
+    token on both paths, the other frame's logits apart; tower ms, prefill
+    and decode wall and device ms, CUDA launches, busy share, tokens/s and
+    peak memory.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 14) and read just after it; each run must have launched
+path of phases 3 to 15) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -239,6 +253,20 @@ LORA_MERGE_TOL = 1e-5                   # merged weight against base + (a @ b) *
 # path's own int8 error times INT8_ERR_RATIO
 INT8_REL_ERR, INT8_ERR_RATIO = 0.25, 1.5
 INT8_PROMPT, INT8_STEPS, INT8_CACHE = 128, 16, 512
+# phase 15: Qwen3-VL-8B (the JAX package's geometry), seeded bf16 weights,
+# served through Qwen3VLChatBackend behind ReasoningCore: two questions,
+# each with its own seeded 720 x 1280 synthetic gameplay frame, at the
+# backend's image sizes 448 (196 visual tokens) and 256 (its default, 64)
+VL_SEED = 15
+VL_NEW_TOKENS = 16
+VL_SIZES = (448, 256)
+VL_SCENE, VL_FRAMES = "vl_boss_fight", (1, 5)
+VL_QUESTIONS = ("What is the player doing on screen right now?",
+                "Is the boss visible in this frame, and where?")
+# the tower's outputs, kernel path against plain path (both bf16): relative
+# L2 error; 27 bf16 blocks keep it near 1 %, a dropped or doubled key
+# block of one head would not stay under it
+VL_TOWER_REL = 0.05
 
 _T0 = time.perf_counter()
 
@@ -345,6 +373,7 @@ def library_masked(q, k, v, mask):
 def check_kernels(dev) -> list[dict]:
     import torch
 
+    from gvl_tpu_torch.device_times import kernel_device_ms
     from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
     from gvl_tpu_torch.ops.cache_update import (
         cache_append,
@@ -515,6 +544,23 @@ def check_kernels(dev) -> list[dict]:
             bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
             library="SDPA, bf16",
             library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
+
+    # Qwen3-VL-8B's vision tower at a 448-pixel frame: one sequence of 784
+    # patches, head 72 padded to 80 by the wrapper, not causal (PERF.md row 1m)
+    shape = "Qwen3-VL tower (448 px): q/k/v [1,16,784,72] bf16"
+    qt, kt, vt = (randn(1, 16, 784, 72, dtype=torch.bfloat16) for _ in range(3))
+    err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt),
+                       attention_reference(qt, kt, vt), BF16_TOL)
+    line_bound = bound_ms(sum(t.nbytes for t in (qt, kt, vt)) + qt.nbytes,
+                          4.0 * 16 * 72 * 784 * 784, torch.bfloat16)
+    flash["lines"].append(dict(
+        name="flash_attention", shape=shape, max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(qt, kt, vt), 50),
+        device_ms=kernel_device_ms(lambda: flash_attention(qt, kt, vt), ("flash_attention",)),
+        plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
+        bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+        library="SDPA, bf16",
+        library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
 
     # the perception encoders' attention, f32 as those models run (PERF.md
     # rows 1c-1k): the segmenter's image encoder (32 frames), its mask
@@ -713,8 +759,10 @@ def check_kernels(dev) -> list[dict]:
             f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
             f" bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
         for pair in (*row.get("pairs", ()), *row.get("lines", ())):
+            device = (f" (device {pair['device_ms']:.4f} ms)"
+                      if pair.get("device_ms") is not None else "")
             log("kernels", f"  {pair['name']} at {pair['shape']}: kernel "
-                f"{pair['ms']:.4f} ms, plain {pair['plain_ms']:.4f} ms, "
+                f"{pair['ms']:.4f} ms{device}, plain {pair['plain_ms']:.4f} ms, "
                 f"{pair['library']} {pair['library_ms']:.4f} ms, bound "
                 f"{pair['bound_ms']:.7f} ms ({pair['bound_by']})")
     return rows
@@ -3074,6 +3122,198 @@ def run_slice(dev):
     return {name: sum(run.get(name, 0) for run in served) for name in kernel_launches()}
 
 
+# --------------------------------------------------------------------------
+# phase 15: Qwen3-VL-8B behind ReasoningCore
+# --------------------------------------------------------------------------
+
+def vl_frames():
+    """The phase's two seeded 720 x 1280 gameplay-like frames."""
+    from gvl_tpu_torch.io.video import SyntheticVideo
+
+    video = SyntheticVideo(VL_SCENE, duration=4.0, fps=2.0, width=1280, height=720,
+                           entities=["player", "enemy", "boss", "item"])
+    return [video.frame(i) for i in VL_FRAMES]
+
+
+def rel_err(x, ref) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def timed_generate(vl, ids, patches, grid, new_tokens: int) -> tuple[float, dict]:
+    """Wall ms of one greedy ``generate`` (tower, prefill and decode steps)
+    and the profile of another."""
+    import torch
+
+    def run():
+        vl.generate(ids, patches, grid, max_new_tokens=new_tokens, eos_token_id=-1)
+
+    run()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - start)
+    return wall, profile_once(run)
+
+
+def run_vl(dev):
+    """Phase 15: Qwen3-VL-8B served through Qwen3VLChatBackend behind
+    ReasoningCore, its launches counted per answer, then the tower and the
+    prefill logits held to the plain path and an f32 evaluation."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.agent.config import ReasoningCoreConfig
+    from gvl_tpu_torch.agent.core import Qwen3VLChatBackend, ReasoningCore
+    from gvl_tpu_torch.fusion import ModalityType, TimelineIndexer
+    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
+    from gvl_tpu_torch.models.qwen3 import Qwen3Config
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VL, Qwen3VLVisionConfig, init_vl_params
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vcfg, tcfg = Qwen3VLVisionConfig(), Qwen3Config.qwen3_vl_8b()
+    state = init_vl_params(vcfg, tcfg, torch.Generator(device=dev).manual_seed(VL_SEED),
+                           torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in state.values())
+    vl = Qwen3VL(vcfg, tcfg, state, device=dev)
+    plain = Qwen3VL(vcfg, tcfg.plain(), state, device=dev)    # the same tensors
+    set_flash_kernel(plain.vision, False)
+    log("vl", f"Qwen3-VL-8B: tower {vcfg.depth} blocks x {vcfg.num_heads} heads of "
+        f"{vcfg.head_dim}, decoder {tcfg.num_layers} layers at {tcfg.hidden_size}; "
+        f"{n_params / 1e9:.2f} B bf16 parameters ({2 * n_params / 1e9:.1f} GB) drawn in "
+        f"{time.perf_counter() - start:.1f} s")
+
+    timeline = TimelineIndexer()
+    for ts, text in ((3.0, "player enters the arena"), (12.0, "boss appears at the gate"),
+                     (20.0, "player dodges an attack"), (31.0, "an item drops")):
+        timeline.add_event(ts, ModalityType.VISUAL, text)
+    frames = vl_frames()
+    gen_cfg = ReasoningCoreConfig(embedding_model="hashing", temperature=0.0,
+                                  max_new_tokens=VL_NEW_TOKENS)
+    launches_total = {}
+    prepared = {}        # (size, frame) -> the first question's (ids, patches, grid)
+    for size in VL_SIZES:
+        backend = Qwen3VLChatBackend(vl, ByteTokenizer(), image_size=size)
+        core = ReasoningCore(gen_cfg, backend=backend, device=dev)
+        context = core.format_timeline_context(timeline.events)
+        for index, frame in enumerate(frames):
+            prepared[size, index] = backend._prepare(core.build_prompt(
+                VL_QUESTIONS[0], context, current_frame=frame))
+        for question, frame in zip(VL_QUESTIONS, frames):
+            reset_launches()
+            t0 = time.perf_counter()
+            answer = core.reason(question, current_frame=frame, timeline_indexer=timeline,
+                                 track_conversation=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = served_launches("vl", ("flash_attention", "decode_attention",
+                                              "cache_append"))
+            steps = vl.last_decode_steps
+            want = {"flash_attention": vcfg.depth + tcfg.num_layers,
+                    "decode_attention": tcfg.num_layers * steps,
+                    "cache_append": tcfg.num_layers * steps}
+            log("vl", f"image {size}: {len(backend.last_tokens)} tokens "
+                f"{backend.last_tokens} ({steps} decode steps), answer {answer!r}, "
+                f"{1e3 * wall:.1f} ms wall")
+            if any(launches[k] != n for k, n in want.items()) or any(
+                    n for k, n in launches.items() if k not in want):
+                raise AssertionError(f"vl: launches {launches}, expected {want}")
+            if len(backend.last_tokens) != VL_NEW_TOKENS:
+                raise AssertionError(f"vl: {len(backend.last_tokens)} tokens")
+            for k, n in launches.items():
+                launches_total[k] = launches_total.get(k, 0) + n
+
+    with uncounted():
+        plain_backend = Qwen3VLChatBackend(plain, ByteTokenizer(), image_size=VL_SIZES[0])
+        core = ReasoningCore(gen_cfg, backend=plain_backend, device=dev)
+        reset_launches()
+        core.reason(VL_QUESTIONS[0], current_frame=frames[0], timeline_indexer=timeline,
+                    track_conversation=False)
+        torch.cuda.synchronize()
+        if any(kernel_launches().values()):
+            raise AssertionError(f"vl: the plain path launched {kernel_launches()}")
+        log("vl", f"plain path: no kernel launched; tokens {plain_backend.last_tokens}")
+
+        ids, patches, grid = prepared[VL_SIZES[0], 0]
+        ids_b, patches_b, grid_b = prepared[VL_SIZES[0], 1]
+        tower_k = vl.encode_vision(patches, grid)
+        tower_p = plain.encode_vision(patches, grid)
+        logits_k = vl.forward(ids, patches, grid)[0]
+        logits_p = plain.forward(ids, patches, grid)[0]
+        logits_b = vl.forward(ids_b, patches_b, grid_b)[0]
+        # the frame reaches the model: the other frame's prefill logits differ
+        if not np.array_equal(ids, ids_b):
+            raise AssertionError("vl: the two frames' prompts differ in their ids")
+        frame_gap = (logits_k.float() - logits_b.float()).abs().max().item()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        # the f32 evaluation of the same weights (plain path)
+        del plain
+        truth = Qwen3VL(vcfg, tcfg.plain(), {k: v.float() for k, v in state.items()},
+                        device=dev)
+        set_flash_kernel(truth.vision, False)
+        tower_t = truth.encode_vision(patches, grid)
+        logits_t = truth.forward(ids, patches, grid)[0]
+        del truth
+        torch.cuda.empty_cache()
+
+    names = ["merged"] + [f"deepstack {i}" for i in vcfg.deepstack_visual_indexes]
+    outs_k, outs_p, outs_t = ([t[0], *t[1]] for t in (tower_k, tower_p, tower_t))
+    for name, k, p, t in zip(names, outs_k, outs_p, outs_t):
+        rel_kp, rel_k, rel_p = rel_err(k, p), rel_err(k, t), rel_err(p, t)
+        ok = (rel_kp <= VL_TOWER_REL and rel_k <= BF16_ERR_RATIO * rel_p
+              and bool(torch.isfinite(k).all()))
+        log("vl", f"tower {name} {tuple(k.shape)}: kernel vs plain path {rel_kp:.5f} "
+            f"(limit {VL_TOWER_REL}); against f32, kernel path {rel_k:.5f}, plain path "
+            f"{rel_p:.5f} (limit {BF16_ERR_RATIO}x); {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"vl: tower {name} strays")
+    err_k, err_p = rel_err(logits_k, logits_t), rel_err(logits_p, logits_t)
+    last_err = (logits_k[-1].float() - logits_p[-1].float()).abs().max().item()
+    top2 = logits_p[-1].float().topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    first_k, first_p = int(logits_k[-1].argmax()), int(logits_p[-1].argmax())
+    ok = err_k <= BF16_ERR_RATIO * err_p and bool(torch.isfinite(logits_k).all())
+    log("vl", f"prefill logits {tuple(logits_k.shape)} ({ids.shape[1]} tokens, "
+        f"{patches.shape[0] // 4} visual): relative error against f32, kernel path "
+        f"{err_k:.5f}, plain path {err_p:.5f} (limit {BF16_ERR_RATIO}x); first token "
+        f"{first_k} (plain path {first_p}, top-two margin {margin:.4f}, last-row max abs "
+        f"err {last_err:.4f}); the other frame moves the logits by up to {frame_gap:.3f}; "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("vl: prefill logits stray from f32")
+    if first_k != first_p and margin >= last_err:
+        raise AssertionError(f"vl: first token {first_k} != {first_p} at margin {margin}")
+    if not frame_gap > 0:
+        raise AssertionError("vl: two frames give the same prefill logits")
+
+    # times: the tower alone, then generate with 1 and with 16 new tokens
+    for size in VL_SIZES:
+        ids, patches, grid = prepared[size, 0]
+        tower_ms = time_ms(lambda: vl.encode_vision(patches, grid), 10)
+        with uncounted():
+            one_ms, one = timed_generate(vl, ids, patches, grid, 1)
+            full_ms, full = timed_generate(vl, ids, patches, grid, VL_NEW_TOKENS)
+        steps = VL_NEW_TOKENS - 1
+        step_ms = (full_ms - one_ms) / steps
+        step_dev = (full["device_ms"] - one["device_ms"]) / steps
+        log("vl", f"image {size} ({patches.shape[0]} patches, {ids.shape[1]}-token prompt): "
+            f"tower {tower_ms:.3f} ms; tower + prefill {one_ms:.2f} ms wall, "
+            f"{one['device_ms']:.2f} ms device ({one['device_ms'] / one_ms:.1%} busy), "
+            f"{one['launches']} CUDA launches; decode {step_ms:.3f} ms/step wall, "
+            f"{step_dev:.3f} ms device ({step_dev / step_ms:.1%} busy), "
+            f"{(full['launches'] - one['launches']) / steps:.1f} CUDA launches/step, "
+            f"{1e3 / step_ms:.1f} tokens/s; top {json.dumps(full['top'])}")
+    log("vl", f"peak memory {peak:.2f} GiB (bf16 model and both paths' activations), "
+        f"phase 15 in {time.perf_counter() - start:.1f} s; {nvidia_smi()}")
+    del vl, state
+    torch.cuda.empty_cache()
+    return launches_total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -3125,8 +3365,10 @@ def main() -> int:
     served.append(run_gvp(dev))
     torch.cuda.empty_cache()
     served.append(run_slice(dev))
+    torch.cuda.empty_cache()
+    served.append(run_vl(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-14): {launches}")
+    log("launches", f"served paths (phases 3-15): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

@@ -2,8 +2,8 @@
 (the port's copy of :mod:`gvl_tpu.agent`; the web search is
 :mod:`gvl_tpu_torch.agent.search`).
 
-Everything here is host code except the chat backend, which drives the
-port's Qwen3 engine on the card."""
+Everything here is host code except the chat backends, which drive the
+port's Qwen3 engines and its Qwen3-VL model on the card."""
 
 from gvl_tpu_torch.agent.config import ReasoningCoreConfig
 from gvl_tpu_torch.agent.conversation import ConversationHistory, ConversationTurn
@@ -12,8 +12,10 @@ from gvl_tpu_torch.agent.tools import ToolCall, ToolCallParser
 from gvl_tpu_torch.agent.trigger import TriggerDetector, TriggerEvent
 from gvl_tpu_torch.agent.temporal_context import TemporalContextManager
 from gvl_tpu_torch.agent.retriever import HashingTextEmbedder, TimelineRetriever
+from gvl_tpu_torch.agent.special_tokens import SpecialTokens
 from gvl_tpu_torch.agent.core import (
     Qwen3ChatBackend,
+    Qwen3VLChatBackend,
     ReasoningCore,
     TemplateFakeBackend,
     TimelineGroundedFakeBackend,
@@ -33,7 +35,9 @@ __all__ = [
     "TemporalContextManager",
     "HashingTextEmbedder",
     "TimelineRetriever",
+    "SpecialTokens",
     "Qwen3ChatBackend",
+    "Qwen3VLChatBackend",
     "ReasoningCore",
     "TemplateFakeBackend",
     "TimelineGroundedFakeBackend",

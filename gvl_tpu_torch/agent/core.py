@@ -7,13 +7,16 @@
   to the JAX package's (``tests/test_torch_reasoning.py``).
 - :class:`Qwen3ChatBackend` drives the port's Qwen3 engine with the Qwen
   chat template; :func:`create_qa_backend` serves the self-trained
-  byte-level QA model behind it.
+  byte-level QA model behind it, :func:`create_hf_backend` an HF Qwen3
+  checkpoint with its session, speculative or prompt-lookup engine.
+- :class:`Qwen3VLChatBackend` serves Qwen3-VL: the frame resized as Pillow
+  resizes it (:func:`gvl_tpu_torch.runtime.resize.pil_bilinear`),
+  patchified and spliced into the prompt as image tokens.
 - :class:`TemplateFakeBackend` and :class:`TimelineGroundedFakeBackend`
   are the deterministic no-weights backends.
 
-The Qwen3-VL backend and the HF-checkpoint branch of
-:func:`create_reasoning_core` are not ported (ROADMAP A10); LoRA adapters
-wait for ROADMAP A2.
+LoRA adapters merge into the QA model and into an HF base
+(:func:`~gvl_tpu_torch.models.qwen3.load_adapter_and_merge`).
 """
 
 from __future__ import annotations
@@ -420,6 +423,102 @@ class Qwen3ChatBackend:
                 emitted = len(text)
 
 
+class Qwen3VLChatBackend:
+    """Full multimodal backend: the attached frame is resized to
+    ``image_size`` square, patchified and spliced as image tokens into the
+    prompt (real pixels through the vision tower), as
+    ``gvl_tpu.agent.core.Qwen3VLChatBackend``.
+
+    Token protocol: ``<|vision_start|><|image_pad|>*N<|vision_end|>`` per
+    frame, N the merged token count of the frame's grid; the image span
+    goes first, before the system turn (the JAX code's order).
+    ``cache_dtype`` is the decode cache's type (bf16 by default; the decode
+    kernel reads bf16 only, ROADMAP C11) and ``generator`` the sampler's
+    (temperature above 0).  ``last_tokens`` keeps the latest answer's ids.
+    """
+
+    def __init__(
+        self,
+        vl_model,            # gvl_tpu_torch.models.qwen3vl.Qwen3VL
+        tokenizer,
+        image_token_id: int = 151655,
+        vision_start_id: int = 151652,
+        vision_end_id: int = 151653,
+        eos_token_id: int = 151645,
+        image_size: int = 256,
+        cache_dtype: torch.dtype = torch.bfloat16,
+        generator: Optional[torch.Generator] = None,
+    ):
+        self.vl = vl_model
+        self.tokenizer = tokenizer
+        self.image_token_id = image_token_id
+        self.vision_start_id = vision_start_id
+        self.vision_end_id = vision_end_id
+        self.eos_token_id = eos_token_id
+        self.image_size = image_size
+        self.cache_dtype = cache_dtype
+        self.generator = generator
+        self.last_tokens: list[int] = []
+
+    def _extract_frame(self, messages):
+        for message in messages:
+            content = message.get("content", "")
+            if isinstance(content, list):
+                for part in content:
+                    if isinstance(part, dict) and part.get("type") == "image":
+                        return part.get("image")
+        return None
+
+    def _prepare(self, messages):
+        """(input_ids [1, S], patches, grid): image tokens inline when a
+        frame is attached."""
+        from gvl_tpu_torch.models.qwen3vl import patchify_frames
+        from gvl_tpu_torch.runtime.resize import pil_bilinear
+
+        frame = self._extract_frame(messages)
+        patches = grid = None
+        image_ids: list[int] = []
+        if frame is not None:
+            arr = np.asarray(frame)
+            if arr.ndim == 3:
+                arr = arr[None]  # single frame -> [1, H, W, 3]
+            side = self.image_size
+            arr = np.stack([pil_bilinear(f.astype(np.uint8), (side, side)) for f in arr])
+            patches, grid = patchify_frames(arr, self.vl.vision_config)
+            merge = self.vl.vision_config.spatial_merge_size ** 2
+            n_tokens = patches.shape[0] // merge
+            image_ids = ([self.vision_start_id]
+                         + [self.image_token_id] * n_tokens
+                         + [self.vision_end_id])
+
+        parts = [f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+                 for m in messages_to_plain_text(messages)]
+        parts.append("<|im_start|>assistant\n")
+        ids = image_ids + list(self.tokenizer.encode("".join(parts)))
+        return np.asarray([ids], np.int64), patches, grid
+
+    def stream(self, messages, config, inputs_embeds_prefix=None):
+        ids, patches, grid = self._prepare(messages)
+        self.last_tokens = self.vl.generate(
+            ids, patches, grid,
+            max_new_tokens=config.max_new_tokens,
+            temperature=config.temperature,
+            top_p=config.top_p,
+            top_k=config.top_k,
+            eos_token_id=self.eos_token_id,
+            generator=self.generator,
+            cache_dtype=self.cache_dtype,
+        )
+        produced: list[int] = []
+        emitted = 0
+        for token in self.last_tokens:
+            produced.append(token)
+            text = self.tokenizer.decode(produced, skip_special_tokens=True)
+            if len(text) > emitted and not text.endswith("�"):
+                yield text[emitted:]
+                emitted = len(text)
+
+
 class ReasoningCore:
     """Retrieval-augmented multimodal reasoning with multi-turn memory.
 
@@ -769,35 +868,111 @@ def create_qa_backend(checkpoint_path, device="cuda", lora_path=None) -> Qwen3Ch
     return Qwen3ChatBackend(engine, ByteTokenizer())
 
 
+def create_hf_backend(checkpoint_path, device="cuda", lora_path=None,
+                      draft_checkpoint_path=None, speculative_gamma: int = 4,
+                      use_prompt_lookup: bool = False) -> Qwen3ChatBackend:
+    """An HF Qwen3 checkpoint (a directory with its tokenizer) behind a chat
+    backend on ``device``, as the JAX factory's HF branch builds it: a LoRA
+    adapter at ``lora_path`` merged in first (a misfit raises here, as in
+    JAX), then a :class:`~gvl_tpu_torch.models.speculative.SpeculativeEngine`
+    with the draft checkpoint, else a ``PromptLookupEngine`` when
+    ``use_prompt_lookup``, else a :class:`~gvl_tpu_torch.models.session.
+    Qwen3ChatSession` for text-only turns.  The weights are moved to the
+    device once and shared by every engine."""
+    from pathlib import Path
+
+    from transformers import AutoTokenizer
+
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine, load_adapter_and_merge, load_hf_qwen3
+
+    device = resolve_device(device)
+
+    def load(path):
+        config, state = load_hf_qwen3(path)
+        return config, {k: v.to(device) for k, v in state.items()}
+
+    config, state = load(checkpoint_path)
+    if lora_path and Path(lora_path, "adapter_config.json").exists():
+        config, state = load_adapter_and_merge(config, state, lora_path)
+    tokenizer = AutoTokenizer.from_pretrained(checkpoint_path)
+    engine = Qwen3Engine(config, state, device=device)
+    spec_engine = session = None
+    if draft_checkpoint_path:
+        from gvl_tpu_torch.models.speculative import SpeculativeEngine
+
+        draft_config, draft_state = load(draft_checkpoint_path)
+        spec_engine = SpeculativeEngine(config, state, draft_config, draft_state,
+                                        gamma=speculative_gamma,
+                                        eos_token_id=engine.eos_token_id, device=device)
+    elif use_prompt_lookup:
+        from gvl_tpu_torch.models.speculative import PromptLookupEngine
+
+        spec_engine = PromptLookupEngine(config, state, gamma=speculative_gamma,
+                                         eos_token_id=engine.eos_token_id, device=device)
+    else:
+        # multi-turn prefix caching: later turns prefill only the delta
+        from gvl_tpu_torch.models.session import Qwen3ChatSession
+
+        session = Qwen3ChatSession(config, state, eos_token_id=engine.eos_token_id,
+                                   device=device)
+    return Qwen3ChatBackend(engine, tokenizer, spec_engine=spec_engine, session=session)
+
+
+def create_vl_backend(vl_checkpoint_path, device="cuda") -> Qwen3VLChatBackend:
+    """An HF Qwen3-VL checkpoint (``Qwen3VLForConditionalGeneration`` and its
+    tokenizer) behind :class:`Qwen3VLChatBackend` on ``device``, with the
+    checkpoint's image and vision-span token ids (and, as in JAX, the
+    default mRoPE sections of Qwen3-VL-8B)."""
+    from transformers import AutoTokenizer, Qwen3VLForConditionalGeneration
+
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VL, convert_hf_qwen3vl
+
+    device = resolve_device(device)
+    hf = Qwen3VLForConditionalGeneration.from_pretrained(vl_checkpoint_path)
+    vision_cfg, text_cfg, state = convert_hf_qwen3vl(hf)
+    cfg = hf.config
+    vl = Qwen3VL(vision_cfg, text_cfg, state, image_token_id=cfg.image_token_id,
+                 device=device)
+    tokenizer = AutoTokenizer.from_pretrained(vl_checkpoint_path)
+    return Qwen3VLChatBackend(vl, tokenizer, image_token_id=cfg.image_token_id,
+                              vision_start_id=cfg.vision_start_token_id,
+                              vision_end_id=cfg.vision_end_token_id)
+
+
 def create_reasoning_core(
     config: Optional[ReasoningCoreConfig] = None,
     checkpoint_path: Optional[str] = None,
     lora_path: Optional[str] = None,
     knowledge_searcher=None,
     vl_checkpoint_path: Optional[str] = None,
+    draft_checkpoint_path: Optional[str] = None,
+    speculative_gamma: int = 4,
+    use_prompt_lookup: bool = False,
     device: str | torch.device = "cuda",
 ) -> ReasoningCore:
-    """Factory (``gvl_tpu.agent.core.create_reasoning_core``): the QA model
-    when ``checkpoint_path`` is a qa_lm checkpoint, served on ``device``,
-    the grounded fake when no checkpoint is given.
-
-    ``lora_path`` merges a LoRA adapter into the QA model
-    (:func:`create_qa_backend`, with ROADMAP C6's fallback).  The Qwen3-VL
-    branch and the HF-checkpoint branch (with its speculative,
-    prompt-lookup and session engines) are not ported: they raise (ROADMAP
-    A10).
+    """Factory (``gvl_tpu.agent.core.create_reasoning_core``) on ``device``:
+    the Qwen3-VL backend for ``vl_checkpoint_path``
+    (:func:`create_vl_backend`), else the QA model when ``checkpoint_path``
+    is a qa_lm checkpoint (:func:`create_qa_backend`; ``lora_path`` with
+    ROADMAP C6's fallback), else an HF Qwen3 checkpoint
+    (:func:`create_hf_backend`: ``lora_path``, then
+    ``draft_checkpoint_path`` with ``speculative_gamma``, else
+    ``use_prompt_lookup``, else the session engine), else the grounded fake.
     """
     from gvl_tpu_torch.training.qa_lm_train import is_qa_lm_checkpoint
 
     config = config or ReasoningCoreConfig()
     if vl_checkpoint_path:
-        raise NotImplementedError(
-            f"{vl_checkpoint_path}: the Qwen3-VL backend is not ported yet (ROADMAP A10)")
-    if checkpoint_path and is_qa_lm_checkpoint(checkpoint_path):
+        backend = create_vl_backend(vl_checkpoint_path, device=device)
+    elif checkpoint_path and is_qa_lm_checkpoint(checkpoint_path):
         backend = create_qa_backend(checkpoint_path, device=device, lora_path=lora_path)
     elif checkpoint_path:
-        raise NotImplementedError(
-            f"{checkpoint_path}: HF text checkpoints are not ported yet (ROADMAP A10)")
+        backend = create_hf_backend(checkpoint_path, device=device, lora_path=lora_path,
+                                    draft_checkpoint_path=draft_checkpoint_path,
+                                    speculative_gamma=speculative_gamma,
+                                    use_prompt_lookup=use_prompt_lookup)
     else:
         backend = TimelineGroundedFakeBackend()
     return ReasoningCore(config, backend=backend,

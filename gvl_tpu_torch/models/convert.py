@@ -386,6 +386,37 @@ def hico_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 
 # --------------------------------------------------------------------------
+# Qwen3-VL: vision tower and text decoder
+# --------------------------------------------------------------------------
+
+def qwen3vl_params_from_jax(variables: dict, vision_config,
+                            text_config: Qwen3Config) -> dict[str, torch.Tensor]:
+    """The JAX ``Qwen3VL``'s ``{"vision", "text"}`` trees as the port's
+    :class:`~gvl_tpu_torch.models.qwen3vl.Qwen3VL` state dict: the tower's
+    tensors under ``vision.``, the decoder's (:func:`params_from_jax`)
+    under ``text.``."""
+    vision = variables["vision"]
+    out = _dense(vision["patch_proj"], "vision.patch_proj")
+    out["vision.pos_embed"] = _tensor(vision["pos_embed"])
+    for i in range(vision_config.depth):
+        block, prefix = vision[f"blocks_{i}"], f"vision.blocks.{i}"
+        for name in ("norm1", "norm2"):
+            out.update(_norm(block[name], f"{prefix}.{name}"))
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            out.update(_dense(block[name], f"{prefix}.{name}"))
+    mergers = [("merger", "vision.merger")] + [
+        (f"deepstack_{j}", f"vision.deepstack.{j}")
+        for j in range(len(vision_config.deepstack_visual_indexes))]
+    for name, prefix in mergers:
+        out.update(_norm(vision[name]["norm"], f"{prefix}.norm"))
+        out.update(_dense(vision[name]["fc1"], f"{prefix}.fc1"))
+        out.update(_dense(vision[name]["fc2"], f"{prefix}.fc2"))
+    out.update({f"text.{k}": v for k, v in
+                params_from_jax(variables["text"], text_config).items()})
+    return out
+
+
+# --------------------------------------------------------------------------
 # The way back: a state dict as the JAX package's tree
 # --------------------------------------------------------------------------
 

@@ -34,8 +34,16 @@ kernel).  ``lora_rank > 0`` adds ``lora_a`` ``[in, r]`` and ``lora_b``
 ``[r, out]`` (JAX's orientation) to each target, ``+ ((x @ a) @ b) *
 alpha / r`` (``LoRADense``).  :func:`merge_lora`, :func:`quantize_int8`
 and :func:`load_adapter_and_merge` are the JAX package's serving
-utilities on the port's state dicts.  Not ported: DeepStack/mrope inputs
-(ROADMAP A10) and tensor-parallel meshes (ROADMAP A12).
+utilities on the port's state dicts.
+
+``Qwen3Model.forward`` takes Qwen3-VL's inputs too: ``rope_cos_sin``
+(interleaved mRoPE tables that replace the 1-D rotary angles) and
+``deepstack_embeds`` (visual features added after the first layers); both
+need the unrolled stack, and a ``scan_layers`` model raises on them (the
+JAX model ignores them there, ROADMAP C10).  :func:`convert_hf_qwen3` and
+:func:`load_hf_qwen3` read HF ``Qwen3ForCausalLM`` checkpoints
+(``transformers`` is imported inside the loader only).  Not ported:
+tensor-parallel meshes (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -104,6 +112,11 @@ class Qwen3Config:
                     max_cache_length=128)
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def qwen3_vl_8b(cls, **kw) -> "Qwen3Config":
+        """Qwen3-VL-8B's text decoder (the defaults)."""
+        return cls(**kw)
 
     def plain(self) -> "Qwen3Config":
         """This config with every kernel switched to its plain version."""
@@ -388,15 +401,28 @@ class Qwen3Model(nn.Module):
         inputs_embeds: Optional[torch.Tensor] = None,   # [B, S, D]
         positions: Optional[torch.Tensor] = None,       # [S] or [B, S]
         cache: Optional[KVCache] = None,
+        rope_cos_sin: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # [B, S, D]
+        deepstack_embeds: Optional[torch.Tensor] = None,  # [L_ds, B, S, D]
     ) -> tuple[torch.Tensor, Optional[KVCache]]:
+        """``rope_cos_sin`` replaces the angles of ``positions`` (Qwen3-VL's
+        mRoPE); ``deepstack_embeds[i]`` is added to the hidden states after
+        layer ``i``.  Both need the unrolled stack."""
         cfg = self.config
         x = inputs_embeds if inputs_embeds is not None else self.embed_tokens(tokens)
         seq = x.shape[1]
-        if positions is None:
-            positions = torch.arange(seq, device=x.device)
-        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        if positions.dim() == 2:        # per-slot positions: [B, 1, S, D]
-            cos, sin = cos[:, None], sin[:, None]
+        if cfg.scan_layers and (rope_cos_sin is not None or deepstack_embeds is not None):
+            raise ValueError(
+                "rope_cos_sin and deepstack_embeds need the unrolled stack; this "
+                "model has scan_layers=True (ROADMAP C10)")
+        if rope_cos_sin is not None:
+            cos, sin = rope_cos_sin
+            cos, sin = cos[:, None], sin[:, None]          # [B, 1, S, D]
+        else:
+            if positions is None:
+                positions = torch.arange(seq, device=x.device)
+            cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            if positions.dim() == 2:        # per-slot positions: [B, 1, S, D]
+                cos, sin = cos[:, None], sin[:, None]
         cache_len = None
         if cache is not None:
             full = [n for n in cache.lengths if n + seq > cache.max_length]
@@ -413,6 +439,8 @@ class Qwen3Model(nn.Module):
                 x = self.layers(x, cos, sin, i, cache, cache_len, i, stacked_decode)
             else:
                 x = self.layers[i](x, cos, sin, i, cache, cache_len)
+                if deepstack_embeds is not None and i < deepstack_embeds.shape[0]:
+                    x = x + deepstack_embeds[i].to(x.dtype)
         x = self.final_norm(x)
         if cfg.tie_word_embeddings:
             logits = x @ self.embed_tokens.weight.T
@@ -421,6 +449,10 @@ class Qwen3Model(nn.Module):
         if cache is not None:
             cache.lengths = [n + seq for n in cache.lengths]
         return logits, cache
+
+    def embed_only(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (for splicing ``inputs_embeds`` on the host side)."""
+        return self.embed_tokens(tokens)
 
 
 def load_model(config: Qwen3Config, state_dict: dict[str, torch.Tensor],
@@ -690,7 +722,54 @@ def load_adapter_and_merge(base_config: Qwen3Config,
     return replace(lora_cfg, lora_rank=0), merge_lora(merged, lora_cfg)
 
 
-def load_hf_qwen3(model_name_or_path, config: Optional[Qwen3Config] = None):
-    """HF Qwen3 checkpoints: not ported (ROADMAP A10)."""
-    raise NotImplementedError(
-        f"{model_name_or_path}: HF Qwen3 checkpoints are not ported yet (ROADMAP A10)")
+def convert_hf_qwen3(state_dict: dict[str, torch.Tensor],
+                     config: Qwen3Config) -> dict[str, torch.Tensor]:
+    """A HF ``Qwen3ForCausalLM`` state dict as the port's state dict for
+    ``config`` (JAX's ``convert_hf_qwen3``): HF's ``[out, in]`` weights keep
+    their orientation, every layer's tensors are stacked over a leading
+    layer axis when ``config.scan_layers``, and no LoRA pairs are made (a
+    LoRA config's fresh pairs are a zero delta; pass a rank-0 config)."""
+    sd = {k.removeprefix("model."): v.detach() for k, v in state_dict.items()}
+    out = {"embed_tokens.weight": sd["embed_tokens.weight"],
+           "final_norm.weight": sd["norm.weight"]}
+    if not config.tie_word_embeddings:
+        out["lm_head.weight"] = sd["lm_head.weight"]
+    names = {"input_norm.weight": "input_layernorm.weight",
+             "post_attn_norm.weight": "post_attention_layernorm.weight",
+             "self_attn.q_norm.weight": "self_attn.q_norm.weight",
+             "self_attn.k_norm.weight": "self_attn.k_norm.weight"}
+    names.update({f"self_attn.{p}.weight": f"self_attn.{p}.weight"
+                  for p in ("q_proj", "k_proj", "v_proj", "o_proj")})
+    names.update({f"mlp.{p}.weight": f"mlp.{p}.weight"
+                  for p in ("gate_proj", "up_proj", "down_proj")})
+    for ours, theirs in names.items():
+        per_layer = [sd[f"layers.{i}.{theirs}"] for i in range(config.num_layers)]
+        if config.scan_layers:
+            out[f"layers.{ours}"] = torch.stack(per_layer)
+        else:
+            out.update({f"layers.{i}.{ours}": t for i, t in enumerate(per_layer)})
+    return out
+
+
+def hf_text_config(hf) -> Qwen3Config:
+    """The port's config for a HF Qwen3 (or Qwen3-VL text) config."""
+    return Qwen3Config(
+        hidden_size=hf.hidden_size, num_layers=hf.num_hidden_layers,
+        num_heads=hf.num_attention_heads, num_kv_heads=hf.num_key_value_heads,
+        head_dim=hf.head_dim, intermediate_size=hf.intermediate_size,
+        vocab_size=hf.vocab_size, rope_theta=hf.rope_theta,
+        rms_norm_eps=hf.rms_norm_eps, tie_word_embeddings=hf.tie_word_embeddings)
+
+
+def load_hf_qwen3(model_name_or_path, config: Optional[Qwen3Config] = None
+                  ) -> tuple[Qwen3Config, dict[str, torch.Tensor]]:
+    """A HF ``Qwen3ForCausalLM`` checkpoint (a local directory) as
+    ``(config, state_dict)``, the state dict on the CPU in the checkpoint's
+    type (JAX's ``load_hf_qwen3`` returns the model and its variables).
+    ``transformers`` is imported here only; without it the ``ImportError``
+    propagates."""
+    from transformers import Qwen3ForCausalLM
+
+    model = Qwen3ForCausalLM.from_pretrained(model_name_or_path)
+    config = config or hf_text_config(model.config)
+    return config, convert_hf_qwen3(model.state_dict(), config)

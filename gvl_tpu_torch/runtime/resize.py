@@ -7,6 +7,10 @@ that the tests hold the port's native build
 Area average when neither side grows, else bilinear with half-pixel
 centres in 8.8 fixed point; coordinates in float32 as the C++ computes
 them, so the bytes are the same as ``gvl_tpu.runtime.native.resize_image``.
+
+:func:`pil_bilinear` is a numpy copy of Pillow's ``Image.resize(size,
+Image.BILINEAR)`` on uint8 RGB (Qwen3-VL's frame preparation, where the
+JAX package calls Pillow; the card's machine has no Pillow).
 """
 
 from __future__ import annotations
@@ -79,3 +83,63 @@ def resize_mask(mask: np.ndarray, height: int, width: int) -> np.ndarray:
     ys = np.minimum(np.arange(height, dtype=np.int64) * sh // height, sh - 1)
     xs = np.minimum(np.arange(width, dtype=np.int64) * sw // width, sw - 1)
     return src.astype(bool)[ys][:, xs]
+
+
+_PRECISION_BITS = 22        # Pillow's fixed point for 8-bit resampling
+
+
+def _pil_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` for its triangle filter over the whole
+    input, then ``normalize_coeffs_8bpc``: per output index the first input
+    tap and the integer weights of ``ksize`` taps (zero past the last)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale          # the triangle's support is 1
+    ksize = int(np.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        x = np.arange(xmax, dtype=np.float64)
+        w = np.maximum(1.0 - np.abs((x + xmin - center + 0.5) / filterscale), 0.0)
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        # (int)(0.5 + w * 2^22): the weights are never negative
+        weights[xx, :xmax] = (0.5 + w * (1 << _PRECISION_BITS)).astype(np.int64)
+        first[xx] = xmin
+    return first, weights
+
+
+def _pil_pass(image: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One of Pillow's separable passes along ``axis`` (0 rows, 1 columns):
+    the weighted sum in fixed point from half a unit, shifted down and
+    clipped to uint8."""
+    first, weights = _pil_coeffs(image.shape[axis], out_size)
+    taps = np.minimum(first[:, None] + np.arange(weights.shape[1]),
+                      image.shape[axis] - 1)                 # [out, ksize]
+    src = np.take(image.astype(np.int64), taps, axis=axis)   # the axis -> [out, ksize]
+    shape = [1] * src.ndim
+    shape[axis], shape[axis + 1] = weights.shape
+    acc = (src * weights.reshape(shape)).sum(axis=axis + 1) + (1 << (_PRECISION_BITS - 1))
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def pil_bilinear(image: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """uint8 ``[H, W, C]`` resized to ``size = (width, height)`` as Pillow's
+    ``Image.fromarray(image).resize(size, Image.BILINEAR)`` gives it, byte
+    for byte: the triangle filter with its support widened by the reduction
+    factor, weights in 22-bit fixed point, a horizontal pass then a vertical
+    one (each skipped when its side keeps its size), each rounded and
+    clipped to uint8."""
+    image = np.ascontiguousarray(image, np.uint8)
+    width, height = size
+    if image.ndim != 3 or min(width, height, *image.shape[:2]) <= 0:
+        raise ValueError(f"cannot resize {image.shape} to {size}")
+    if width != image.shape[1]:
+        image = _pil_pass(image, width, 1)
+    if height != image.shape[0]:
+        image = _pil_pass(image, height, 0)
+    return image

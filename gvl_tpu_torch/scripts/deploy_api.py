@@ -5,11 +5,12 @@ JAX package's ``scripts/deploy_api.py``)::
         [--llm-checkpoint outputs/qa_lm [--int8]] [--device cpu]
 
 ``--llm-checkpoint`` takes a QA-model checkpoint directory (the
-repository's own format, ``qa_lm_config.json`` + ``params.npz``) and
-serves it through the continuous-batching engine (``POST /generate``,
-``POST /chat``); ``--int8`` quantizes its weights per output channel
-(weight-only) first.  Not ported, and refused: HF checkpoint directories
-(ROADMAP A10) and ``--tp`` / ``--dp`` above 1 (ROADMAP A12).
+repository's own format, ``qa_lm_config.json`` + ``params.npz``) or an HF
+``Qwen3ForCausalLM`` directory and serves it through the
+continuous-batching engine (``POST /generate``, ``POST /chat``);
+``--int8`` quantizes its weights per output channel (weight-only) first.
+An HF directory without a tokenizer serves ``prompt_ids`` only.  Not
+ported, and refused: ``--tp`` / ``--dp`` above 1 (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -26,10 +27,12 @@ logger = logging.getLogger(__name__)
 
 def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
                 int8: bool = False, tp: int = 1, dp: int = 1) -> None:
-    """Load a QA-model checkpoint on the service's device and serve it
-    through the shared continuous-batching engine; ``int8`` quantizes the
-    loaded weights per output channel (:func:`~gvl_tpu_torch.models.qwen3.
-    quantize_int8`)."""
+    """Load a QA-model checkpoint, or an HF Qwen3 checkpoint, on the
+    service's device and serve it through the shared continuous-batching
+    engine; ``int8`` quantizes the loaded weights per output channel
+    (:func:`~gvl_tpu_torch.models.qwen3.quantize_int8`).  An HF directory's
+    tokenizer serves string prompts; without one (a weights-only
+    checkpoint) ``/generate`` takes ``prompt_ids`` only, and EOS is 151645."""
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID, ByteTokenizer
     from gvl_tpu_torch.models.qwen3 import load_hf_qwen3, quantize_int8
     from gvl_tpu_torch.models.session import Qwen3ChatSession
@@ -39,20 +42,33 @@ def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
     if tp > 1 or dp > 1:
         raise NotImplementedError(
             f"--tp {tp} / --dp {dp}: multi-device serving is not ported yet (ROADMAP A12)")
-    if not is_qa_lm_checkpoint(checkpoint):
-        load_hf_qwen3(checkpoint)        # raises: HF checkpoints are ROADMAP A10
     device = service.device
-    config, state = load_qa_lm(checkpoint, device=device)
+    if is_qa_lm_checkpoint(checkpoint):
+        config, state = load_qa_lm(checkpoint, device=device)
+        tokenizer, eos = ByteTokenizer(), EOS_ID
+    else:
+        config, state = load_hf_qwen3(checkpoint)
+        state = {k: v.to(device) for k, v in state.items()}
+        try:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(checkpoint)
+        except Exception:  # weights-only checkpoint: serve prompt_ids
+            logger.warning("no tokenizer at %s — /generate accepts prompt_ids only",
+                           checkpoint)
+            tokenizer = None
+        eos = tokenizer.eos_token_id if tokenizer is not None else None
+        eos = eos if eos is not None else 151645
     if int8:
         state = quantize_int8(state, config)
         config = dataclasses.replace(config, quant_int8=True, lora_rank=0)
-    engine = ContinuousBatchingEngine(config, state, eos_token_id=EOS_ID,
+    engine = ContinuousBatchingEngine(config, state, eos_token_id=eos,
                                       num_slots=num_slots, device=device)
 
     def session_factory():
-        return Qwen3ChatSession(config, state, eos_token_id=EOS_ID, device=device)
+        return Qwen3ChatSession(config, state, eos_token_id=eos, device=device)
 
-    service.attach_engine(EngineServer(engine), tokenizer=ByteTokenizer(),
+    service.attach_engine(EngineServer(engine), tokenizer=tokenizer,
                           session_factory=session_factory)
 
 
@@ -68,8 +84,8 @@ def build_server(argv=None):
     parser.add_argument("--port", type=int, default=8080)
     parser.add_argument("--preset", default="light", choices=["light", "standard", "full"])
     parser.add_argument("--llm-checkpoint", default=None,
-                        help="QA-model checkpoint dir; enables POST /generate backed by "
-                             "the continuous-batching engine")
+                        help="QA-model or HF Qwen3 checkpoint dir; enables POST /generate "
+                             "backed by the continuous-batching engine")
     parser.add_argument("--num-slots", type=int, default=8,
                         help="concurrent decode slots for /generate")
     parser.add_argument("--int8", action="store_true",

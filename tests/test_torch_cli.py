@@ -245,9 +245,22 @@ def test_deploy_api_serves_metrics_and_generate(tiny_qa, int8):
     (["--llm-checkpoint", "{qa}", "--tp", "2"], "A12"),
 ])
 def test_deploy_api_refusals(tmp_path, tiny_qa, argv, label):
+    """``--tp`` / ``--dp`` above 1 are refused (ROADMAP A12).  The HF cases
+    (ROADMAP A10, whose reasoning half is ported) load the directory, whose
+    bare ``config.json`` fails in ``transformers`` with the error JAX's
+    script meets there (HF directories that load: ``tests/test_torch_hf_qwen3.py``)."""
     hf = tmp_path / "hf"
     hf.mkdir()
     (hf / "config.json").write_text("{}")
     argv = [a.format(hf=hf, qa=tiny_qa) for a in argv]
+    if label == "A10":
+        from gvl_tpu.models.qwen3 import load_hf_qwen3 as jax_load_hf
+
+        with pytest.raises(OSError) as want:
+            jax_load_hf(str(hf))
+        with pytest.raises(OSError) as got:
+            deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=label):
         deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])

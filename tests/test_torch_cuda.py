@@ -1251,3 +1251,82 @@ def test_perception_models_kernel_path_matches_plain_path(dev):
     got, want = both(asr, mel, prompts, 16,
                      fn=lambda m, p, n: greedy_decode_cached(asr, m, p, n))
     assert torch.equal(got, want)
+
+
+# B1 in Qwen3-VL's vision tower: head 72 (padded to 80 by the wrapper), not
+# causal, one sequence of the 448- and 256-pixel frames' patches
+@pytest.mark.parametrize("seq", [784, 256])
+def test_flash_attention_at_the_qwen3vl_tower_shape(dev, seq):
+    q, k, v = (_randn(dev, 1, 16, seq, 72, dtype=torch.bfloat16, seed=s) for s in (61, 62, 63))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), attention_reference(q, k, v).float(), **BF16_TOL)
+
+
+def _tiny_card_vl(dev, dtype):
+    """A small Qwen3-VL whose heads the kernels take (64), seeded weights."""
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VLVisionConfig, init_vl_params
+
+    vcfg = Qwen3VLVisionConfig(hidden_size=128, depth=3, num_heads=2, intermediate_size=256,
+                               out_hidden_size=128, num_position_embeddings=64,
+                               deepstack_visual_indexes=(0, 1))
+    tcfg = Qwen3Config(hidden_size=128, num_layers=3, num_heads=4, num_kv_heads=2,
+                       head_dim=64, intermediate_size=256, vocab_size=512,
+                       max_cache_length=256)
+    state = init_vl_params(vcfg, tcfg, torch.Generator(device=dev).manual_seed(3), dtype, dev)
+    return vcfg, tcfg, state
+
+
+def test_qwen3vl_kernel_path_matches_plain_path(dev):
+    """The tower (B1 per block), the decoder's prefill with the mRoPE table
+    and DeepStack (B1 per layer) and its decode steps (B2 and B3 per layer),
+    each through the kernels and through their plain versions, f32 weights;
+    the greedy tokens on bf16 caches equal."""
+    import numpy as np
+
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VL, patchify_frames
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+
+    vcfg, tcfg, state = _tiny_card_vl(dev, torch.float32)
+    vl = Qwen3VL(vcfg, tcfg, state, image_token_id=7, device=dev)
+    plain = Qwen3VL(vcfg, tcfg.plain(), state, image_token_id=7, device=dev)
+    set_flash_kernel(plain.vision, False)
+    frame = np.random.default_rng(0).integers(0, 256, (1, 64, 96, 3), dtype=np.uint8)
+    patches, grid = patchify_frames(frame, vcfg)
+    n_vis = patches.shape[0] // 4
+    ids = np.array([[11, 12, 5] + [7] * n_vis + [6] + list(range(20, 53))], np.int64)
+    counters = (flash_attention, decode_attention, cache_append)
+    before = [f.launches for f in counters]
+    got_tower = vl.encode_vision(patches, grid)
+    got_logits = vl.forward(ids, patches, grid)
+    tokens = vl.generate(ids, patches, grid, max_new_tokens=6, eos_token_id=-1)
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    # tower twice (encode_vision, forward) and once in generate's prefill
+    assert launched == [3 * vcfg.depth + 2 * tcfg.num_layers, 5 * tcfg.num_layers,
+                        5 * tcfg.num_layers]
+    before = [f.launches for f in counters]
+    want_tower = plain.encode_vision(patches, grid)
+    want_logits = plain.forward(ids, patches, grid)
+    want_tokens = plain.generate(ids, patches, grid, max_new_tokens=6, eos_token_id=-1)
+    assert [f.launches for f in counters] == before
+    torch.testing.assert_close(got_tower[0], want_tower[0], **F32_TOL)
+    for g, w in zip(got_tower[1], want_tower[1]):
+        torch.testing.assert_close(g, w, **F32_TOL)
+    torch.testing.assert_close(got_logits, want_logits, **F32_TOL)
+    assert tokens == want_tokens and len(tokens) == 6
+
+
+def test_qwen3vl_generate_refuses_an_f32_cache_on_the_card(dev):
+    """The decode kernel reads bf16 caches: an f32 cache raises, no cast."""
+    import numpy as np
+
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VL
+
+    vcfg, tcfg, state = _tiny_card_vl(dev, torch.bfloat16)
+    vl = Qwen3VL(vcfg, tcfg, state, device=dev)
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="bf16"):
+        vl.generate(np.array([[11, 12, 13]]), cache_dtype=torch.float32)
+    assert decode_attention.launches == before
+    assert len(vl.generate(np.array([[11, 12, 13]]), max_new_tokens=2, eos_token_id=-1)) == 2

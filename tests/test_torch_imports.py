@@ -21,7 +21,8 @@ QA_CKPT = REPO / "outputs" / "qa_lm"
 _BLOCKED_IMPORT = r"""
 import importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "gvl_tpu", "PIL", "scripts", "benchmarks")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "gvl_tpu", "PIL", "scripts", "benchmarks",
+           "transformers")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -65,7 +66,8 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.temporal.context_manager", "gvl_tpu_torch.runtime.native",
              "gvl_tpu_torch.agent.search", "gvl_tpu_torch.parallel",
              "gvl_tpu_torch.parallel.pipeline", "gvl_tpu_torch.scripts",
-             "gvl_tpu_torch.scripts.realtime_inference", "gvl_tpu_torch.scripts.deploy_api"):
+             "gvl_tpu_torch.scripts.realtime_inference", "gvl_tpu_torch.scripts.deploy_api",
+             "gvl_tpu_torch.models.qwen3vl", "gvl_tpu_torch.agent.special_tokens"):
     assert name in names, name
 import chip_smoke
 import launch_costs
@@ -149,9 +151,13 @@ def test_entry_points_raise_without_a_card(no_card):
     from gvl_tpu_torch.models.siglip import SigLIPVisionConfig, init_tower_params, load_tower
     from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
 
+    from gvl_tpu_torch.models.qwen3vl import Qwen3VL, Qwen3VLVisionConfig, init_vl_params
+
     cfg = Qwen3Config.tiny()
     state = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     calls = [
+        lambda: Qwen3VL(Qwen3VLVisionConfig.tiny(), cfg, {}),
+        lambda: init_vl_params(Qwen3VLVisionConfig.tiny(), cfg, torch.Generator()),
         lambda: resolve_device(),
         lambda: create_qa_backend(QA_CKPT),
         lambda: load_qa_lm(QA_CKPT),
@@ -196,6 +202,8 @@ def test_arm_entry_points_raise_without_a_card(no_card, tmp_path):
         lambda: ProjectorBank(),
         lambda: ReasoningCore(),
         lambda: create_reasoning_core(checkpoint_path=str(QA_CKPT)),
+        lambda: create_reasoning_core(checkpoint_path=str(tmp_path)),
+        lambda: create_reasoning_core(vl_checkpoint_path=str(tmp_path)),
         lambda: PerceptionReasoningLoop(),
         lambda: FullPipelineRunner(get_model_config("qa_lm")),
         lambda: InferenceService(arm).process("synthetic://concept_demo_x?duration=2"),

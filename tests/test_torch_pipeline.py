@@ -209,9 +209,10 @@ def test_unported_options_raise(tmp_path):
     """Batched and pipelined perception, refused before they were ported
     (ROADMAP A14), now run and give JAX's timeline here (on the fake
     encoders; on the trained weights: ``tests/test_torch_batched.py``), as
-    do SigLIP, VideoMAE and HiCo (the trained HiCo file).  What still
-    raises names its item: an HF LLM checkpoint (A10) and more than one
-    device for the LLM (A12)."""
+    do SigLIP, VideoMAE and HiCo (the trained HiCo file).  An HF LLM
+    checkpoint (A10's reasoning half, ported) is loaded as JAX loads it; one
+    without weights raises JAX's error.  More than one device for the LLM
+    still raises, naming A12."""
     from gvl_tpu_torch.scripts import deploy_api
 
     jcfg, tcfg = _tiny_presets(None)
@@ -236,10 +237,20 @@ def test_unported_options_raise(tmp_path):
     (hf / "config.json").write_text("{}")
     tcfg.reasoning.llm_checkpoint = str(hf)
     tpipe._LOOP_COMPONENT_CACHE.clear()
-    with pytest.raises(NotImplementedError, match="A10"):
+    # an HF directory reaches the HF branch of create_reasoning_core (ported
+    # with ROADMAP A10's reasoning half): this one holds no weights, and
+    # fails as it does under JAX's loader
+    from gvl_tpu.models.qwen3 import load_hf_qwen3 as jax_load_hf
+
+    with pytest.raises(OSError) as want:
+        jax_load_hf(str(hf))
+    with pytest.raises(OSError) as got:
         tpipe.process_video(clip, tcfg, use_cache=False, device="cpu")
-    for argv, label in ((["--llm-checkpoint", str(hf)], "A10"),
-                        (["--tp", "2"], "A12"), (["--dp", "2"], "A12"),
+    assert str(got.value) == str(want.value)
+    with pytest.raises(OSError) as got:
+        deploy_api.build_server(["--port", "0", "--device", "cpu", "--llm-checkpoint", str(hf)])
+    assert str(got.value) == str(want.value)
+    for argv, label in ((["--tp", "2"], "A12"), (["--dp", "2"], "A12"),
                         (["--llm-checkpoint", str(hf), "--tp", "2"], "A12")):
         with pytest.raises(NotImplementedError, match=label):
             deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])

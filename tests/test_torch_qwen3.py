@@ -177,10 +177,12 @@ def test_sampling_keeps_top_k():
     assert int(port.sample_logits(logits, temperature=0.0)) == 1
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """int8 and LoRA, refused before they were ported, now build with the
     JAX model's parameters (their logits: ``tests/test_torch_lora_int8.py``);
-    the HF rungs still raise, naming ROADMAP A10."""
+    so does the HF rung (ROADMAP A10's reasoning half): ``load_hf_qwen3``
+    reads a saved HF directory into JAX's config and weights (more in
+    ``tests/test_torch_hf_qwen3.py``)."""
     _, tcfg, params, _ = _tiny_pair(quant_int8=True, lora_rank=4)
     names = set(port.Qwen3Model(tcfg).state_dict())
     jax_leaves = {jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_leaves_with_path(params)}
@@ -194,8 +196,17 @@ def test_unported_options_raise():
     # scan_layers and chunk_verify are ported
     for kw in ({"scan_layers": True}, {"chunk_verify": True}):
         port.Qwen3Model(port.Qwen3Config.tiny(**kw))
-    with pytest.raises(NotImplementedError, match="A10"):
-        port.load_hf_qwen3("Qwen/Qwen3-8B")
+    from gvl_tpu.models.qwen3 import load_hf_qwen3 as jax_load_hf
+
+    from test_torch_hf_qwen3 import save_tiny_qwen3
+
+    path = save_tiny_qwen3(tmp_path / "hf", tokenizer=False)
+    hf_cfg, hf_state = port.load_hf_qwen3(path)
+    jax_model, jax_vars = jax_load_hf(str(path))
+    assert hf_cfg == port.Qwen3Config(**jax_model.config.__dict__)
+    want = params_from_jax(jax.tree.map(np.asarray, jax_vars), hf_cfg)
+    assert hf_state.keys() == want.keys()
+    assert all(torch.equal(hf_state[k], want[k]) for k in want)
 
 
 @pytest.fixture(scope="module")

@@ -151,16 +151,46 @@ def test_conversation_save_load_and_tool_loop(tmp_path):
 
 
 def test_create_reasoning_core_branches(tmp_path):
+    """Each branch of the factory as JAX's takes it: the grounded fake
+    without a checkpoint (the speculative knobs alone change nothing), the
+    Qwen3-VL backend and the HF text backend (with its session engine) on
+    saved tiny HF directories, answering as JAX's at temperature 0, and a
+    directory that holds no weights raising JAX's error (more in
+    ``tests/test_torch_qwen3vl.py`` and ``tests/test_torch_hf_qwen3.py``)."""
+    from test_torch_hf_qwen3 import save_tiny_qwen3, save_tiny_qwen3vl
+
     core = tcore.create_reasoning_core(ReasoningCoreConfig(embedding_model="hashing"),
                                        device="cpu")
     assert isinstance(core.backend, tcore.TimelineGroundedFakeBackend)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcore.create_reasoning_core(vl_checkpoint_path=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcore.create_reasoning_core(checkpoint_path=str(tmp_path), device="cpu")
-    # the HF branch's speculative knobs are not taken: no silent plain engine
-    with pytest.raises(TypeError):
-        tcore.create_reasoning_core(draft_checkpoint_path=str(tmp_path), device="cpu")
+    core = tcore.create_reasoning_core(ReasoningCoreConfig(embedding_model="hashing"),
+                                       draft_checkpoint_path=str(tmp_path),
+                                       use_prompt_lookup=True, device="cpu")
+    assert isinstance(core.backend, tcore.TimelineGroundedFakeBackend)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    for kw in ({"vl_checkpoint_path": str(empty)}, {"checkpoint_path": str(empty)}):
+        with pytest.raises(OSError) as want:
+            jcore.create_reasoning_core(JaxConfig(embedding_model="hashing"), **kw)
+        with pytest.raises(OSError) as got:
+            tcore.create_reasoning_core(ReasoningCoreConfig(embedding_model="hashing"),
+                                        device="cpu", **kw)
+        assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
+    common = dict(embedding_model="hashing", temperature=0.0, max_new_tokens=4,
+                  system_prompt="Answer from the timeline.")
+    frame = np.random.default_rng(0).integers(0, 256, (48, 80, 3), dtype=np.uint8)
+    for kw, backend_type in (
+            ({"vl_checkpoint_path": str(save_tiny_qwen3vl(tmp_path / "vl"))},
+             tcore.Qwen3VLChatBackend),
+            ({"checkpoint_path": str(save_tiny_qwen3(tmp_path / "text"))},
+             tcore.Qwen3ChatBackend)):
+        want_core = jcore.create_reasoning_core(JaxConfig(**common), **kw)
+        got_core = tcore.create_reasoning_core(ReasoningCoreConfig(**common), device="cpu",
+                                               **kw)
+        assert type(got_core.backend) is backend_type
+        assert getattr(got_core.backend, "session", True) is not None
+        ask = dict(current_frame=frame, track_conversation=False)
+        assert got_core.reason("what is on screen?", **ask) == want_core.reason(
+            "what is on screen?", **ask)
 
 
 def _small_config(pkg_config, **kw):
