@@ -124,10 +124,25 @@ Run from the root of the repository, on a machine with one CUDA card and
     the plain path and an f32 evaluation of the same weights, the first
     token on both paths, the other frame's logits apart; tower ms, prefill
     and decode wall and device ms, CUDA launches, busy share, tokens/s and
-    peak memory.
+    peak memory;
+16. the evaluation entry points on the ``qa_lm`` and ``gvp_light`` arms,
+    from a working directory holding phase 13's seeded checkpoints where
+    the presets look for them (its nudges and phase 12's speech nudge; the
+    trained QA model): ``python -m gvl_tpu_torch.eval.run_phase1`` on 8
+    synthetic glitchbench samples as two processes, one after the other
+    (the second caches no video and gives the first's predictions; no
+    sample errs; the card's allocator peak recorded; each process's
+    launches counted per arm), the same samples in process through
+    ``PhaseEvaluator`` on the kernel path and on the plain path (answers
+    at most one apart per arm; per-arm accuracy, Stage A and B seconds,
+    launches per sample), ``run_phase3`` and ``eval_harness --mock``
+    (their JSON layout), ``extract_features`` on a 4 s clip kernel path
+    against plain path and the projector demo over its embeddings,
+    ``smoke_test``, and the single-frame ``BenchmarkModelRunner`` on 4
+    samples; within ``EVAL_BUDGET_S``.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 15) and read just after it; each run must have launched
+path of phases 3 to 16) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -145,10 +160,12 @@ import json
 import logging
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 QA_CKPT = REPO / "outputs" / "qa_lm"
@@ -267,6 +284,24 @@ VL_QUESTIONS = ("What is the player doing on screen right now?",
 # L2 error; 27 bf16 blocks keep it near 1 %, a dropped or doubled key
 # block of one head would not stay under it
 VL_TOWER_REL = 0.05
+# phase 16: the evaluation entry points on phase 13's seeded checkpoints
+# (its nudges kept, phase 12's speech nudge added; torch's seed 16); the
+# first 8 synthetic samples of phase 1's glitchbench loader (seed 42), a
+# 4 s clip for extract_features and 4 samples for the single-frame runner
+EVAL_SEED, EVAL_ARMS, EVAL_SAMPLES, EVAL_SINGLE_FRAME = 16, ("qa_lm", "gvp_light"), 8, 4
+EVAL_ANSWER_SLACK = 1       # kernel vs plain path answers that may differ, per arm
+EVAL_CLIP = "synthetic://eval_features?duration=4&fps=2&entities=player,enemy,item&audio=1"
+EVAL_NPZ_SHARE = 1e-4       # extract_features arrays: share of their largest |value|
+EVAL_PROCESS_S = 300        # one run_phase1 process
+# the whole phase, wall: the same work read 124.8-187.8 s on three card
+# hosts (host-bound: two fresh processes and per-clip model loads); the
+# budget leaves room for that spread and fails on a hang or a doubling
+EVAL_BUDGET_S = 240
+# the kernels each arm's served path launches: qa_lm answers with the QA
+# model (B1 prefill, B2 + B3 per decode step), gvp_light with the grounded
+# fake; both perceive through the encoders (B1)
+EVAL_ARM_KERNELS = {"qa_lm": ("flash_attention", "decode_attention", "cache_append"),
+                    "gvp_light": ("flash_attention",)}
 
 _T0 = time.perf_counter()
 
@@ -1142,11 +1177,13 @@ APPEND_PER_DECODE = (("cache_append", "decode_attention"),
                      ("cache_append_stacked", "decode_attention_stacked"))
 
 
-def served_launches(phase: str, expected: tuple[str, ...]) -> dict[str, int]:
-    """The counts since the last reset; fails unless every kernel of the
-    served path was launched, and unless the appends equal the decode
-    attentions (one pair launch per layer and step)."""
-    launches = kernel_launches()
+def served_launches(phase: str, expected: tuple[str, ...],
+                    launches: Optional[dict[str, int]] = None) -> dict[str, int]:
+    """The counts since the last reset (or ``launches``, counted so in
+    another process); fails unless every kernel of the served path was
+    launched, and unless the appends equal the decode attentions (one pair
+    launch per layer and step)."""
+    launches = kernel_launches() if launches is None else launches
     missing = [name for name in expected if launches[name] == 0]
     log(phase, f"launches {launches}")
     if missing:
@@ -2553,9 +2590,11 @@ def profile_gvp(what: str, runner, video: str, dev) -> None:
                 f"{json.dumps({k: round(v, 3) for k, v in list(got['top_kernels_ms'].items())[:3]})}")
 
 
-def run_gvp(dev):
+def run_gvp(dev, keep: Optional[Path] = None):
     """Phase 13: the gvp_light and gvp_full arms (and gvp_full with VideoMAE
-    on) end to end on seeded checkpoints, each against its plain path."""
+    on) end to end on seeded checkpoints, each against its plain path; the
+    checkpoints (nudged) are moved to ``keep`` at the end when it is given
+    (phase 16 serves from them)."""
     import os
     import tempfile
 
@@ -2651,6 +2690,8 @@ def run_gvp(dev):
             profile_gvp(what, runner, samples[0].video_path, dev)
     finally:
         os.chdir(here)
+        if keep is not None:
+            shutil.move(str(Path(workdir.name, "outputs")), keep)
         workdir.cleanup()
     return total
 
@@ -3314,8 +3355,472 @@ def run_vl(dev):
     return launches_total
 
 
+
+# --------------------------------------------------------------------------
+# phase 16: the evaluation entry points
+
+def eval_ladders(dev, ckpts) -> None:
+    """Fails unless, from the phase's working directory, every ladder of the
+    two arms that phase 16 seeded resolves to its model on the seeded
+    checkpoint; the OCR ladder, not seeded, is named."""
+    from gvl_tpu_torch.agent.config import ReasoningCoreConfig
+    from gvl_tpu_torch.agent.retriever import make_embedder
+    from gvl_tpu_torch.audio.event_model import TorchAudioEventDetector
+    from gvl_tpu_torch.audio.processor import build_audio_stack
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner
+    from gvl_tpu_torch.perception.batch import build_segmenter, build_siglip_encoder
+    from gvl_tpu_torch.perception.ocr import create_ocr_pipeline
+    from gvl_tpu_torch.perception.segmenter import TorchSegmenterBackend
+    from gvl_tpu_torch.perception.semantic import TorchSigLIPBackend
+    from gvl_tpu_torch.training.asr_train import TrainedByteASR
+    from gvl_tpu_torch.training.retriever_train import TrainedTextEmbedder
+    from gvl_tpu_torch.utils.checkpoints import resolve_repo_path
+
+    def same(path, seeded) -> bool:
+        return path is not None and Path(path).resolve() == Path(seeded).resolve()
+
+    for arm in EVAL_ARMS:
+        cfg = FullPipelineRunner(get_model_config(arm), device=dev).preset
+        audio, _ = build_audio_stack(cfg.audio, device=dev)
+        got = {"ASR": type(audio.asr), "events": type(audio.event_backend),
+               "retriever": type(make_embedder(ReasoningCoreConfig(), dev))}
+        want = {"ASR": TrainedByteASR, "events": TorchAudioEventDetector,
+                "retriever": TrainedTextEmbedder}
+        paths = [(resolve_repo_path(cfg.audio.event_checkpoint), ckpts.events),
+                 (resolve_repo_path(cfg.audio.asr_checkpoint), ckpts.asr),
+                 (resolve_repo_path("outputs/retriever"), ckpts.retriever)]
+        if cfg.perception.use_sam:
+            got["segmenter"] = type(build_segmenter(cfg, device=dev).backend)
+            want["segmenter"] = TorchSegmenterBackend
+            paths.append((resolve_repo_path(cfg.perception.sam_checkpoint), ckpts.segmenter))
+        if cfg.perception.use_siglip:
+            encoder = build_siglip_encoder(cfg, device=dev)
+            got["SigLIP encoder"] = type(encoder.backend)
+            want["SigLIP encoder"] = TorchSigLIPBackend
+            paths.append((resolve_repo_path(cfg.perception.siglip_checkpoint), ckpts.minisiglip))
+        off = [(p, seeded) for p, seeded in paths if not same(p, seeded)]
+        if got != want or off:
+            raise AssertionError(f"eval: {arm}: ladders resolved to {got} on {paths}; want "
+                                 f"{want} on the seeded checkpoints")
+        ocr = type(create_ocr_pipeline(cfg.perception.ocr_backend, device=dev).engine).__name__
+        log("eval", f"{arm}: ladders {({k: v.__name__ for k, v in got.items()})} on the seeded "
+            f"checkpoints; OCR ({cfg.perception.ocr_backend!r}, not seeded: it reads the "
+            f"repository's outputs/ocr_params.npz) {ocr}; answers "
+            f"{resolve_repo_path(cfg.reasoning.llm_checkpoint) or 'the grounded fake'}")
+
+
+def eval_process(argv: list[str]) -> int:
+    """``run_phase1.main(argv)`` as the body of a process of its own (phase
+    16 starts it): prints each arm's launches, counted from the building of
+    its runner to the next arm's, on a line ``launches {...}`` at the end."""
+    from gvl_tpu_torch.eval import phase_runner, run_phase1
+
+    marks, runner_class = [], phase_runner.FullPipelineRunner
+
+    def marked(model_config, **kw):
+        marks.append((model_config.name, kernel_launches()))
+        return runner_class(model_config, **kw)
+
+    phase_runner.FullPipelineRunner = marked
+    rc = run_phase1.main(argv)
+    marks.append((None, kernel_launches()))
+    print("launches " + json.dumps({arm: {k: after[k] - n for k, n in before.items()}
+                                    for (arm, before), (_, after) in zip(marks, marks[1:])}))
+    return rc
+
+
+def run_eval_process(dev, root: Path, out: str) -> dict:
+    """``run_phase1`` on the phase's samples as a user runs it, from
+    ``root`` (its perception and feature caches, the seeded checkpoints):
+    its wall seconds, Stage A per arm (videos newly cached, of, seconds),
+    launches per arm, samples.json and aggregates.json."""
+    import os
+
+    args = ["--synthetic", "--max-samples", str(EVAL_SAMPLES), "--benchmark", "glitchbench",
+            "--configs", *EVAL_ARMS, "--device", dev.type, "--output-dir", str(root / out)]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.eval_process(sys.argv[1:]))", *args],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=EVAL_PROCESS_S)
+    wall = time.perf_counter() - t0
+    text = done.stdout
+    (root / f"{out}.log").write_text(text)
+    if done.returncode != 0:
+        raise AssertionError(f"eval: run_phase1 ({out}) exited {done.returncode}:\n"
+                             f"{text[-4000:]}")
+    stage_a = {m[0]: (int(m[1]), int(m[2]), float(m[3])) for m in re.findall(
+        r"Stage A \[(\w+)\]: (\d+)/(\d+) videos newly cached in ([\d.]+) s", text)}
+    launches = json.loads(re.findall(r"^launches (\{.*\})$", text, re.M)[-1])
+    samples, aggregates = (json.loads((root / out / "phase1" / f).read_text())
+                           for f in ("samples.json", "aggregates.json"))
+    return {"wall": wall, "stage_a": stage_a, "launches": launches, "samples": samples,
+            "aggregates": aggregates}
+
+
+def check_eval_samples(what: str, samples: list) -> None:
+    """No sample may have erred or gone unscored."""
+    bad = [(s["config_name"], s["sample_id"], s["error"]) for s in samples
+           if s["error"] or s["correct"] is None]
+    if bad:
+        raise AssertionError(f"eval: {what}: samples erred or went unscored: {bad}")
+
+
+def accuracy(samples: list, arm: str) -> str:
+    got = [s["correct"] for s in samples if s["config_name"] == arm]
+    return f"{sum(got)}/{len(got)}"
+
+
+def serve_eval(dev, root: Path, plain: bool) -> tuple[dict, dict]:
+    """The phase's samples of each arm through ``PhaseEvaluator`` in this
+    process (fresh perception caches, no feature cache), on the kernel path
+    or, with ``plain``, every attention through its plain version and the
+    QA engine on its plain route.  Returns {arm: samples as dicts} and
+    {arm: (Stage A s, Stage B s, launches, speech events, zero-shot
+    events)}; on the kernel path each arm's launches are counted from 0 and
+    checked against EVAL_ARM_KERNELS."""
+    import torch
+
+    from gvl_tpu_torch.eval.loaders import BenchmarkConfig, GlitchBenchLoader
+    from gvl_tpu_torch.eval.model_configs import get_model_config
+    from gvl_tpu_torch.eval.model_inference import FullPipelineRunner
+    from gvl_tpu_torch.eval.perception_cache import PerceptionCache
+    from gvl_tpu_torch.eval.phase_runner import PhaseEvaluator
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine
+    from gvl_tpu_torch.nn.layers import plain_attention
+    from gvl_tpu_torch.perception import frame_labeler
+
+    tag = "plain" if plain else "kernel"
+    evaluator = PhaseEvaluator(f"inprocess_{tag}", list(EVAL_ARMS),
+                               cache=PerceptionCache(root / "inprocess" / f"cache_{tag}"),
+                               output_dir=str(root / "inprocess" / "results"), device=dev)
+    loader = GlitchBenchLoader(BenchmarkConfig(synthetic=True, max_samples=EVAL_SAMPLES))
+    samples, parts = {}, {}
+    frame_labeler._LABELER_CACHE.clear()   # each path builds its own labeler
+    for arm in EVAL_ARMS:
+        torch.manual_seed(EVAL_SEED)
+        reset_launches()
+        with plain_attention() if plain else contextlib.nullcontext():
+            runner = FullPipelineRunner(get_model_config(arm), preset=evaluator.preset,
+                                        use_cache=False,
+                                        perception_cache=evaluator._arm_cache(arm), device=dev)
+            t0 = time.perf_counter()
+            evaluator.run_perception_caching(loader, runner, arm)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            core = next(iter(runner._processed.values())).loop.reasoning_core
+            engine = getattr(core.backend, "engine", None)
+            if plain and engine is not None:
+                core.backend.engine = Qwen3Engine(engine.config.plain(),
+                                                  engine.model.state_dict(),
+                                                  eos_token_id=EOS_ID, device=dev)
+            try:
+                results = [evaluator.evaluate_sample(runner, s, arm).to_dict()
+                           for s in loader.load()]
+            finally:
+                if engine is not None:
+                    core.backend.engine = engine
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = (kernel_launches() if plain else
+                    served_launches(f"eval {arm}", EVAL_ARM_KERNELS[arm]))
+        events = [e for pv in runner._processed.values() for e in pv.timeline.events]
+        parts[arm] = (t1 - t0, t2 - t1, launches,
+                      sum(e.modality.value == "speech" for e in events),
+                      sum((e.entity_id or "").startswith("zs_") for e in events))
+        samples[arm] = results
+        del runner, core, engine
+    return samples, parts
+
+
+def compare_features(kernel_dir: Path, plain_dir: Path) -> str:
+    """extract_features' outputs on the kernel path against the plain path:
+    features JSON and context text equal, npz arrays within EVAL_NPZ_SHARE
+    of their largest magnitude, the .pt tensors equal to the npz arrays."""
+    import numpy as np
+    import torch
+
+    names = sorted(p.name for p in kernel_dir.iterdir())
+    if names != sorted(p.name for p in plain_dir.iterdir()) or len(names) != 4:
+        raise AssertionError(f"eval: extract_features wrote {names}")
+    for name in names:
+        if name.endswith((".json", ".txt")) and (
+                (kernel_dir / name).read_bytes() != (plain_dir / name).read_bytes()):
+            raise AssertionError(f"eval: extract_features {name} differs kernel vs plain")
+    npz = next(n for n in names if n.endswith(".npz"))
+    shares = {}
+    with np.load(kernel_dir / npz) as got, np.load(plain_dir / npz) as want:
+        arrays = {k: got[k] for k in got.files}
+        for key in want.files:
+            if got[key].shape != want[key].shape:
+                raise AssertionError(f"eval: extract_features {key} shapes differ")
+            diff = float(np.abs(got[key] - want[key]).max()) if want[key].size else 0.0
+            scale = float(np.abs(want[key]).max()) if want[key].size else 0.0
+            shares[key] = diff / scale if scale else (0.0 if diff == 0 else math.inf)
+    if max(shares.values()) > EVAL_NPZ_SHARE or not arrays["siglip"].size:
+        raise AssertionError(f"eval: extract_features arrays kernel vs plain {shares}")
+    blob = torch.load(kernel_dir / npz.replace(".npz", ".pt"), weights_only=True)
+    if sorted(blob) != sorted(arrays) or any(
+            not np.array_equal(t.numpy(), arrays[k]) for k, t in blob.items()):
+        raise AssertionError("eval: extract_features .pt tensors are not the npz arrays")
+    return (f"{npz}: " + ", ".join(f"{k} {arrays[k].shape} {shares[k]:.2g}"
+                                   for k in sorted(arrays)))
+
+
+def run_eval(dev, seeded: Path):
+    """Phase 16: the evaluation entry points of the port on the two arms it
+    serves, as a user runs them, on phase 13's seeded checkpoints
+    (``seeded``, labels nudged; moved here): the phase runner as two
+    processes, one after the other, then in this process on the kernel path
+    and on the plain path, the other phases' and the harness's command
+    lines, feature extraction, the projector demo, the smoke test and the
+    single-frame runner.  Each served step's launches are counted from 0
+    and read right after it; their sum is returned."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch import pipeline
+    from gvl_tpu_torch.eval import eval_harness, run_phase3
+    from gvl_tpu_torch.eval.loaders import BenchmarkConfig, GlitchBenchLoader
+    from gvl_tpu_torch.eval.metrics import AggregateMetrics, SampleMetrics
+    from gvl_tpu_torch.eval.model_inference import BenchmarkModelRunner, check_correctness
+    from gvl_tpu_torch.nn.layers import plain_attention
+    from gvl_tpu_torch.perception import frame_labeler
+    from gvl_tpu_torch.perception.encoders import checkpoints_in
+    from gvl_tpu_torch.scripts import demo_projector_inference, extract_features, smoke_test
+
+    start = time.perf_counter()
+    total = dict.fromkeys(kernel_launches(), 0)
+
+    def add(launches: dict) -> None:
+        for name, n in launches.items():
+            total[name] += n
+
+    @contextlib.contextmanager
+    def counted(step: str, expected: tuple[str, ...] = ()):
+        """A served step: its launches from 0, checked, added to the phase's."""
+        reset_launches()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        add(served_launches(f"eval {step}", expected))
+        log("eval", f"{step}: {time.perf_counter() - t0:.1f} s")
+
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    root = Path(workdir.name)
+    shutil.move(str(seeded), root / "outputs")
+    ckpts = checkpoints_in(root / "outputs")
+    let_speech_through(ckpts, ARM_SPEECH_MARGIN)
+    # this process's own steps run from a directory of their own (their
+    # caches apart from the processes'), the seeded checkpoints linked in
+    (root / "inprocess").mkdir()
+    (root / "inprocess" / "outputs").symlink_to(root / "outputs", target_is_directory=True)
+    here = os.getcwd()
+    # the presets' relative checkpoint paths resolve against the working
+    # directory first: the seeded files there, the repository's untouched
+    os.chdir(root)
+    pipeline._LOOP_COMPONENT_CACHE.clear()
+    frame_labeler._LABELER_CACHE.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        eval_ladders(dev, ckpts)
+        log("eval", f"phase 13's seeded checkpoints (seed {GVP_SEED}) in {root}/outputs, "
+            f"speech let through in {t0 - start:.1f} s; ladders checked in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. run_phase1 as a user runs it, twice: the second process rebuilds
+        # every clip from the perception cache the first wrote
+        first = run_eval_process(dev, root, "first")
+        second = run_eval_process(dev, root, "second")
+        for what, run in (("first process", first), ("second process", second)):
+            check_eval_samples(what, run["samples"])
+            peaks = [s["peak_hbm_bytes"] for s in run["samples"]]
+            if dev.type == "cuda" and (None in peaks or any(
+                    a["hbm_source"] != "allocator_peak" for a in run["aggregates"])):
+                raise AssertionError(f"eval: {what}: peak memory {peaks}, sources "
+                                     f"{[a['hbm_source'] for a in run['aggregates']]}")
+            if sorted(run["stage_a"]) != sorted(EVAL_ARMS) or sorted(run["launches"]) != sorted(
+                    EVAL_ARMS):
+                raise AssertionError(f"eval: {what}: Stage A of {sorted(run['stage_a'])}, "
+                                     f"launches of {sorted(run['launches'])}")
+            log("eval", f"run_phase1 {what}: {run['wall']:.1f} s wall; Stage A (new/of, s) "
+                f"{run['stage_a']}; accuracy " + ", ".join(
+                    f"{arm} {accuracy(run['samples'], arm)}" for arm in EVAL_ARMS)
+                + "; Stage B s per sample " + ", ".join(
+                    f"{arm} {np.mean([s['total_time_sec'] for s in run['samples'] if s['config_name'] == arm]):.3f}"
+                    for arm in EVAL_ARMS)
+                + f"; peak {max(a['peak_hbm_gb'] for a in run['aggregates']):.3f} GiB "
+                f"({run['aggregates'][0]['hbm_source']})")
+        # the first process perceives and answers: every arm's kernels; the
+        # second rebuilds from the cache, so only the QA model's answers launch
+        for arm in EVAL_ARMS:
+            add(served_launches(f"eval run_phase1 first process {arm}", EVAL_ARM_KERNELS[arm],
+                                first["launches"][arm]))
+            add(served_launches(f"eval run_phase1 second process {arm}",
+                                EVAL_ARM_KERNELS[arm] if arm == "qa_lm" else (),
+                                second["launches"][arm]))
+        if any(new for new, _, _ in second["stage_a"].values()):
+            raise AssertionError(f"eval: the second process cached videos: {second['stage_a']}")
+
+        def predictions(samples):
+            return {(s["config_name"], s["sample_id"]): s["predicted"] for s in samples}
+
+        if predictions(second["samples"]) != predictions(first["samples"]):
+            raise AssertionError(f"eval: the second process predicted otherwise than the "
+                                 f"first: {predictions(second['samples'])} against "
+                                 f"{predictions(first['samples'])}")
+
+        # 2. the phase's samples in process, kernel path (each arm counted and
+        # checked) against plain path (nothing launched)
+        os.chdir(root / "inprocess")
+        kernel, parts = serve_eval(dev, root, plain=False)
+        for arm in EVAL_ARMS:
+            add(parts[arm][2])
+        with uncounted():
+            plain, plain_parts = serve_eval(dev, root, plain=True)
+        launched = {(arm, k): n for arm in EVAL_ARMS for k, n in plain_parts[arm][2].items() if n}
+        if launched:
+            raise AssertionError(f"eval: the plain path launched kernels: {launched}")
+        smi = nvidia_smi()
+        for arm in EVAL_ARMS:
+            check_eval_samples(f"{arm} in process", kernel[arm] + plain[arm])
+            agree = sum(a["predicted"] == b["predicted"] for a, b in zip(kernel[arm], plain[arm]))
+            same_process = sum(a["predicted"] == predictions(first["samples"])[arm, a["sample_id"]]
+                               for a in kernel[arm])
+            stage_a, stage_b, launches, speech, zero_shot = parts[arm]
+            n = len(kernel[arm])
+            log("eval", f"{arm} in process: accuracy kernel {accuracy(kernel[arm], arm)}, plain "
+                f"{accuracy(plain[arm], arm)}; answers kernel = plain {agree}/{n}, = the first "
+                f"process's {same_process}/{n}; Stage A {stage_a:.2f} s ({stage_a / n:.3f} s per "
+                f"sample), Stage B {stage_b:.2f} s ({stage_b / n:.3f} s per sample); plain "
+                f"path Stage A {plain_parts[arm][0]:.2f} s, B {plain_parts[arm][1]:.2f} s; "
+                "launches per sample " + ", ".join(
+                    f"{k} {launches[k] / n:.1f}"
+                    for k in ("flash_attention", "decode_attention", "cache_append"))
+                + f"; {speech} speech and {zero_shot} zero-shot events; {smi}")
+            if agree < n - EVAL_ANSWER_SLACK:
+                raise AssertionError(f"eval: {arm}: kernel and plain paths agree on {agree} of "
+                                     f"{n} answers")
+        if not parts["qa_lm"][3] or not parts["gvp_light"][4]:
+            raise AssertionError("eval: no speech events on qa_lm or no zero-shot events on "
+                                 "gvp_light: the seeded ladders did not reach their models")
+
+        # 3. run_phase3 (duration filters on) and the harness's mock run
+        sample_keys = set(SampleMetrics.__dataclass_fields__)
+        aggregate_keys = set(AggregateMetrics.__dataclass_fields__)
+        with counted("run_phase3", EVAL_ARM_KERNELS["qa_lm"]):
+            if run_phase3.main(["--synthetic", "--max-samples", "2", "--configs", "qa_lm",
+                                "--min-duration", "5", "--max-duration", "30", "--device",
+                                dev.type, "--output-dir", "phase3_results"]) != 0:
+                raise AssertionError("eval: run_phase3 failed")
+        phase3 = [json.loads(Path("phase3_results", "phase3", f).read_text())
+                  for f in ("samples.json", "aggregates.json")]
+        check_eval_samples("run_phase3", phase3[0])
+        with counted("eval_harness --mock"):
+            if eval_harness.main(["--generate-example", "example.json", "--benchmark",
+                                  "example.json", "--mock", "--device", dev.type,
+                                  "--output-dir", "harness_results"]) != 0:
+                raise AssertionError("eval: eval_harness failed")
+        harness = [json.loads(Path("harness_results", "eval_harness", f).read_text())
+                   for f in ("samples.json", "aggregates.json")]
+        rows = json.loads(Path("example.json").read_text())["samples"]
+        if (len(phase3[0]) != 4 or len(phase3[1]) != 2 or len(harness[0]) != len(rows) != 10
+                or any(set(s) != sample_keys for s in phase3[0] + harness[0])
+                or any(set(a) != aggregate_keys for a in phase3[1] + harness[1])
+                or {a["benchmark"] for a in phase3[1]} != {"longvideobench", "mlvu"}):
+            raise AssertionError(f"eval: run_phase3 / eval_harness JSON layout: {phase3}, "
+                                 f"{harness}")
+        log("eval", f"run_phase3 ({len(phase3[0])} samples, accuracy "
+            f"{accuracy(phase3[0], 'qa_lm')}) and eval_harness --mock ({len(harness[0])} "
+            f"samples, accuracy {harness[1][0]['accuracy']:.3f}): exit 0, layouts as JAX's")
+
+        # 4. extract_features, kernel path against plain path; the projector demo
+        argv = ["--video", EVAL_CLIP, "--device", dev.type, "--output-dir"]
+        with counted("extract_features", ("flash_attention",)):
+            if extract_features.main(argv + ["features_kernel"]) != 0:
+                raise AssertionError("eval: extract_features failed")
+        with uncounted(), plain_attention():
+            reset_launches()
+            if extract_features.main(argv + ["features_plain"]) != 0:
+                raise AssertionError("eval: extract_features failed on the plain path")
+            launched = {k: n for k, n in kernel_launches().items() if n}
+        if launched:
+            raise AssertionError(f"eval: extract_features' plain path launched {launched}")
+        compared = compare_features(Path("features_kernel"), Path("features_plain"))
+        npz = next(Path("features_kernel").glob("*.npz"))
+        out = io.StringIO()
+        with counted("demo_projector_inference"), contextlib.redirect_stdout(out):
+            rc = demo_projector_inference.main(["--embeddings", str(npz), "--device", dev.type])
+        response = out.getvalue().split("\n", 2)[-1].strip()
+        if rc != 0 or not response or response == "[no response]":
+            raise AssertionError(f"eval: projector demo exited {rc}: {out.getvalue()!r}")
+        log("eval", f"extract_features kernel = plain path ({compared}); projector demo: "
+            f"{response.splitlines()[0][:80]!r}")
+
+        # 5. the smoke test on the card
+        out = io.StringIO()
+        with counted("smoke_test"), contextlib.redirect_stdout(out):
+            rc = smoke_test.main(["--device", dev.type])
+        if rc != 0 or out.getvalue().count("PASS  ") != 7:
+            raise AssertionError(f"eval: smoke_test exited {rc}:\n{out.getvalue()}")
+        log("eval", f"smoke_test --device {dev.type}: 7/7 checks pass")
+
+        # 6. the single-frame runner on video samples (the card has no Pillow)
+        with counted("single-frame runner"):
+            runner = BenchmarkModelRunner(preset="light", device=dev)
+            core = runner._get_core()
+            calls, reason = [], core.reason
+
+            def recorded(query, **kw):
+                response = reason(query, **kw)
+                calls.append((query, response))
+                return response
+
+            core.reason = recorded
+            single = GlitchBenchLoader(BenchmarkConfig(synthetic=True,
+                                                       max_samples=EVAL_SINGLE_FRAME)).load()
+            answers = [runner.run_inference(s)[0] for s in single]
+        frames = [runner._load_frame(s) is not None for s in single]
+        if (not all(frames) or len(calls) != len(single) or not all(answers)
+                or any("[Visual Analysis]" not in q or "Visual analysis unavailable" in q
+                       or not r for q, r in calls)):
+            raise AssertionError(f"eval: single-frame runner: frames {frames}, answers "
+                                 f"{answers}, calls {calls}")
+        correct = sum(check_correctness(a, s) for a, s in zip(answers, single))
+        log("eval", f"single-frame runner: {len(single)} frames decoded, answers {answers} "
+            f"({correct}/{len(single)} correct), {runner.total_inference_time:.2f} s")
+        del runner, core
+
+        elapsed = time.perf_counter() - start
+        log("eval", f"phase 16 in {elapsed:.1f} s (budget {EVAL_BUDGET_S} s); launches "
+            f"{total}; in-process peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+            f"GiB; {nvidia_smi()}")
+        if elapsed > EVAL_BUDGET_S:
+            raise AssertionError(f"eval: phase 16 took {elapsed:.1f} s, over its "
+                                 f"{EVAL_BUDGET_S} s budget")
+    finally:
+        os.chdir(here)
+        pipeline._LOOP_COMPONENT_CACHE.clear()
+        frame_labeler._LABELER_CACHE.clear()
+        workdir.cleanup()
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import tempfile
+
     import torch
 
     from gvl_tpu_torch.ops import _build
@@ -3362,13 +3867,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.append(run_arm(dev))
     torch.cuda.empty_cache()
-    served.append(run_gvp(dev))
+    seeded = tempfile.TemporaryDirectory(prefix="chip_smoke_seeded_")
+    served.append(run_gvp(dev, keep=Path(seeded.name, "outputs")))
     torch.cuda.empty_cache()
     served.append(run_slice(dev))
     torch.cuda.empty_cache()
     served.append(run_vl(dev))
+    torch.cuda.empty_cache()
+    served.append(run_eval(dev, seeded=Path(seeded.name, "outputs")))
+    seeded.cleanup()
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-15): {launches}")
+    log("launches", f"served paths (phases 3-16): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

@@ -873,8 +873,10 @@ def create_hf_backend(checkpoint_path, device="cuda", lora_path=None,
                       use_prompt_lookup: bool = False) -> Qwen3ChatBackend:
     """An HF Qwen3 checkpoint (a directory with its tokenizer) behind a chat
     backend on ``device``, as the JAX factory's HF branch builds it: a LoRA
-    adapter at ``lora_path`` merged in first (a misfit raises here, as in
-    JAX), then a :class:`~gvl_tpu_torch.models.speculative.SpeculativeEngine`
+    adapter at ``lora_path`` merged in first, unguarded as in JAX (ROADMAP
+    C12: a tensor whose shape misfits the base raises ``ValueError``, a
+    config without ``lora_rank`` ``KeyError``, both in the merge; targets
+    the base does not have add nothing), then a :class:`~gvl_tpu_torch.models.speculative.SpeculativeEngine`
     with the draft checkpoint, else a ``PromptLookupEngine`` when
     ``use_prompt_lookup``, else a :class:`~gvl_tpu_torch.models.session.
     Qwen3ChatSession` for text-only turns.  The weights are moved to the

@@ -1,235 +1,9 @@
-"""Benchmark samples: the unified sample schema and the grounded synthetic
-samples over ``synthetic://concept_demo_*`` clips (the port's copy of
-``BenchmarkSample`` and ``BenchmarkLoader.synthetic_samples`` of
-``benchmarks/loaders/base.py``).  The dataset loaders are not ported.
-"""
+"""The sample schema and the synthetic samples under their earlier names:
+:mod:`gvl_tpu_torch.eval.loaders.base` holds them."""
 
-from __future__ import annotations
-
-import random
-from dataclasses import dataclass, field
-from enum import Enum
-from typing import Any, Optional
-
-
-class TaskType(Enum):
-    GLITCH_DETECTION = "glitch_detection"
-    PHYSICS_VIOLATION = "physics_violation"
-    VISUAL_QA = "visual_qa"
-    NEEDLE_IN_HAYSTACK = "needle_in_haystack"
-    BUG_REPORT = "bug_report"
-    TEMPORAL_REASONING = "temporal_reasoning"
-    ACTION_RECOGNITION = "action_recognition"
-    OBJECT_TRACKING = "object_tracking"
-
-
-class AnswerFormat(Enum):
-    BINARY = "binary"
-    MCQ = "mcq"
-    FREE_TEXT = "free_text"
-    CLASSIFICATION = "classification"
-
-
-@dataclass
-class BenchmarkSample:
-    """One sample in the unified schema."""
-
-    sample_id: str
-    benchmark_name: str
-    video_path: Optional[str] = None
-    image_path: Optional[str] = None
-    video_url: Optional[str] = None
-    question: str = ""
-    options: list[str] = field(default_factory=list)
-    ground_truth: str = ""
-    task_type: TaskType = TaskType.VISUAL_QA
-    answer_format: AnswerFormat = AnswerFormat.FREE_TEXT
-    category: str = "general"
-    subcategory: str = ""
-    video_duration_sec: Optional[float] = None
-    start_time_sec: Optional[float] = None
-    end_time_sec: Optional[float] = None
-    game_name: Optional[str] = None
-    description: Optional[str] = None
-    metadata: dict = field(default_factory=dict)
-
-    def to_dict(self) -> dict[str, Any]:
-        return {
-            "sample_id": self.sample_id,
-            "benchmark_name": self.benchmark_name,
-            "video_path": self.video_path,
-            "image_path": self.image_path,
-            "question": self.question,
-            "options": self.options,
-            "ground_truth": self.ground_truth,
-            "task_type": self.task_type.value,
-            "answer_format": self.answer_format.value,
-            "category": self.category,
-            "game_name": self.game_name,
-            "video_duration_sec": self.video_duration_sec,
-        }
-
-    def get_prompt(self, include_options: bool = True) -> str:
-        prompt = self.question
-        if include_options and self.options:
-            prompt += "\n\nOptions:"
-            for i, option in enumerate(self.options):
-                prompt += f"\n{chr(ord('A') + i)}) {option}"
-            prompt += "\n\nAnswer with the letter of the correct option."
-        return prompt
-
-    get_formatted_prompt = get_prompt
-
-
-class SyntheticLoader:
-    """The synthetic-sample half of ``benchmarks.loaders.base.
-    BenchmarkLoader``: ``name`` prefixes every clip and sample id, and
-    ``random_seed`` seeds the draw, as the JAX loader's config does."""
-
-    def __init__(self, name: str = "benchmark", random_seed: int = 42):
-        self.name = name
-        self.random_seed = random_seed
-
-    # the three non-player concepts the shipped segmenter checkpoint was
-    # trained on (gvl_tpu_torch.training.segmenter_train.CONCEPT_SPECS)
-    _SYNTH_CONCEPTS = ("enemy", "boss", "item")
-
-    def synthetic_samples(self, n: int = 8) -> list[BenchmarkSample]:
-        """GROUNDED fallback samples over procedural concept_demo videos.
-
-        Ground truth is derived from the entities the renderer actually
-        DRAWS (``entities=`` URL param), which the shipped trained
-        segmenter detects reliably — so a correct answer requires the
-        whole perceive → index → retrieve → generate → parse loop to
-        work, and accuracy here is a real regression signal (not the
-        round-2 state where truths were random coin flips no backend
-        could match)."""
-        rng = random.Random(self.random_seed)
-        out = []
-        n_audio = 0  # audio MCQs emitted so far (distinct-line cycling)
-        for i in range(n):
-            duration = rng.choice([10, 20])
-            if i % 8 == 2:
-                # audio-IMPLICATION MCQ (VERDICT r3 #8): the clip's
-                # scheduled non-speech event (impact/UI chime) must be
-                # classified, indexed, retrieved by timestamp AND mapped
-                # to its gameplay implication — the option text never
-                # appears in the timeline, so the answer requires audio
-                # REASONING, not lookup (reference capability:
-                # qwen_audio_processor.analyze_audio_events)
-                from gvl_tpu_torch.audio.event_model import CLASS_IMPLICATIONS
-                from gvl_tpu_torch.io.video import SyntheticVideo
-
-                entities = "player," + rng.choice(self._SYNTH_CONCEPTS)
-                video_path = (
-                    f"synthetic://concept_demo_{self.name}_{i}"
-                    f"?duration={duration}&fps=2&entities={entities}"
-                    "&audio=1")
-                sv = SyntheticVideo.from_url(video_path)
-                kind_desc = {"impact": "impact sound", "ui": "UI chime"}
-                targets = [(t, kind_desc[kind])
-                           for t, kind, _ in sv.audio_ground_truth()
-                           if kind in kind_desc]
-                if not targets:
-                    raise ValueError(
-                        f"no non-speech audio event for {video_path}")
-                t_ev, desc = targets[(i // 8) % len(targets)]
-                # the event classifier emits 1 s windows at integer
-                # offsets, so the perceived timeline timestamp is the
-                # window start containing the scheduled event
-                mmss = f"{int(t_ev) // 60:02d}:{int(t_ev) % 60:02d}"
-                truth = CLASS_IMPLICATIONS[desc]
-                options = list(CLASS_IMPLICATIONS.values())[:4]
-                if truth not in options:
-                    options[-1] = truth
-                question = (f"What does the sound at [{mmss}] imply "
-                            "about the gameplay?")
-                answer_format = AnswerFormat.MCQ
-            elif i % 2 == 0:
-                # binary presence: truth decided first, scene built to it
-                present = rng.choice(self._SYNTH_CONCEPTS)
-                if rng.random() < 0.5:
-                    asked, truth = present, "Yes"
-                else:
-                    asked = rng.choice([c for c in self._SYNTH_CONCEPTS
-                                        if c != present])
-                    truth = "No"
-                entities = f"player,{present}"
-                question = (f"Does a {asked} appear at any point in this "
-                            f"video? Answer Yes or No.")
-                options = ["Yes", "No"]
-                answer_format = AnswerFormat.BINARY
-            elif i % 4 == 3:
-                # audio-grounded MCQ: the clip renders a deterministic
-                # speech utterance (io.video audio_ground_truth); the
-                # answer requires event detection → gated ASR →
-                # timeline speech event → retrieval — the audio stack
-                # end to end, not just the visual one
-                from gvl_tpu_torch.io.video import SyntheticVideo
-
-                if duration < 6:
-                    raise ValueError(
-                        "audio-grounded samples need duration >= 6 s for "
-                        f"a speech event (got {duration})")
-                entities = "player," + rng.choice(self._SYNTH_CONCEPTS)
-                # Distinct spoken lines within one loader: cycle the
-                # target line by audio-sample index and re-roll the
-                # scene nonce until the soundtrack (derived from the
-                # scene name) speaks it — otherwise two audio samples
-                # can hash to the same line and a constant-answer
-                # model aces the family by chance (ADVICE r3).  The
-                # sample's video_path IS the probed URL, so truth can
-                # never desync from the rendered clip.
-                want = SyntheticVideo.SPEECH_LINES[
-                    n_audio % len(SyntheticVideo.SPEECH_LINES)]
-                spoken = video_path = None
-                for nonce in range(64):
-                    scene = (f"concept_demo_{self.name}_{i}"
-                             + (f"_{nonce}" if nonce else ""))
-                    video_path = (
-                        f"synthetic://{scene}?duration={duration}"
-                        f"&fps=2&entities={entities}&audio=1")
-                    sv = SyntheticVideo.from_url(video_path)
-                    spoken = next((payload for _, kind, payload
-                                   in sv.audio_ground_truth()
-                                   if kind == "speech"), None)
-                    if spoken == want:
-                        break
-                if spoken is None:
-                    raise ValueError(
-                        f"no speech event rendered for {video_path}")
-                n_audio += 1
-                options = list(SyntheticVideo.SPEECH_LINES)
-                truth = spoken
-                question = ("What does the voice in this clip say? "
-                            "Pick the option matching the spoken line.")
-                answer_format = AnswerFormat.MCQ
-            else:
-                # MCQ: exactly one (or none) of the options is rendered
-                present = rng.choice(self._SYNTH_CONCEPTS + (None,))
-                entities = ("player" if present is None
-                            else f"player,{present}")
-                options = list(self._SYNTH_CONCEPTS) + ["None of these"]
-                truth = present if present else "None of these"
-                question = ("Besides the player, which of the following "
-                            "entities appears in this video?")
-                answer_format = AnswerFormat.MCQ
-            if i % 4 != 3 and i % 8 != 2:
-                # audio branches already built their exact (audio=1) URL
-                video_path = (
-                    f"synthetic://concept_demo_{self.name}_{i}"
-                    f"?duration={duration}&fps=2&entities={entities}")
-            out.append(BenchmarkSample(
-                sample_id=f"{self.name}_synth_{i:04d}",
-                benchmark_name=self.name,
-                video_path=video_path,
-                question=question,
-                options=options,
-                ground_truth=truth,
-                task_type=TaskType.VISUAL_QA,
-                answer_format=answer_format,
-                category="synthetic_grounded",
-                video_duration_sec=float(duration),
-                metadata={"synthetic": True, "entities": entities},
-            ))
-        return out
+from gvl_tpu_torch.eval.loaders.base import (  # noqa: F401
+    AnswerFormat,
+    BenchmarkSample,
+    SyntheticLoader,
+    TaskType,
+)

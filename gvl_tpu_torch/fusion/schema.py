@@ -128,6 +128,42 @@ def kb_to_schema_dict(
     }
 
 
+def kb_from_schema_dict(doc: dict) -> "KnowledgeBaseBuilder":
+    """The knowledge base a schema-v1 dict (:func:`kb_to_schema_dict`)
+    describes: every entity with its category, times, attributes and state
+    history, and every relationship, in their order.  The JAX package has
+    no inverse of the export (ROADMAP C13)."""
+    from gvl_tpu_torch.fusion.knowledge_base import (
+        EntityCategory,
+        EntityState,
+        KnowledgeBaseBuilder,
+        RelationType,
+    )
+
+    def as_tuple(value):
+        return tuple(value) if value is not None else None
+
+    kb = KnowledgeBaseBuilder()
+    for ent in doc.get("entities", []):
+        node = kb.register_entity(ent["entity_id"], ent["label"],
+                                  EntityCategory(ent.get("category", "unknown")),
+                                  timestamp=float(ent.get("first_seen", 0.0)),
+                                  attributes=dict(ent.get("attributes") or {}))
+        node.last_seen = float(ent.get("last_seen", node.first_seen))
+        node.is_active = bool(ent.get("is_active", True))
+        node.state_history = [
+            EntityState(timestamp=float(st["timestamp"]), position=as_tuple(st.get("position")),
+                        bbox=as_tuple(st.get("bbox")), visible=bool(st.get("visible", True)),
+                        attributes=dict(st.get("attributes") or {}))
+            for st in ent.get("states", [])]
+    for rel in doc.get("relationships", []):
+        kb.add_relationship(rel["source"], rel["target"], RelationType(rel["type"]),
+                            float(rel["start_time"]), end_time=rel.get("end_time"),
+                            confidence=float(rel.get("confidence", 1.0)),
+                            metadata=dict(rel.get("metadata") or {}))
+    return kb
+
+
 def export_kb_to_json(
     kb: "KnowledgeBaseBuilder",
     path: str | Path,

@@ -505,6 +505,16 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
     return params
 
 
+def call_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """``generator``, or a new one seeded 0 on ``device``: a call given no
+    generator draws as JAX's engines do given no key (``PRNGKey(0)`` for
+    that call), so that its samples depend on nothing run before it
+    (ROADMAP C14)."""
+    if generator is not None:
+        return generator
+    return torch.Generator(device=device).manual_seed(0)
+
+
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
                   temperature: float = 0.7, top_p: float = 0.8,
                   top_k: int = 20) -> torch.Tensor:
@@ -571,8 +581,11 @@ class Qwen3Engine:
         The stream ends early, without raising, once the cache is full: the
         last token yielded is the one whose logits came from the last cache
         row.  (The JAX engine goes on decoding with its write start clamped
-        onto the last row, over a corrupted cache.)"""
+        onto the last row, over a corrupted cache.)  Without ``generator``
+        a sampled stream draws from a new generator seeded 0
+        (:func:`call_generator`)."""
         dev = self.device
+        generator = call_generator(generator, dev)
         ids = torch.as_tensor(np.asarray(prompt_ids, np.int64), device=dev)[None]
         n_prefix = 0 if inputs_embeds_prefix is None else len(inputs_embeds_prefix)
         true_len = ids.shape[1] + n_prefix

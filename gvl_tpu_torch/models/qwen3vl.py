@@ -43,6 +43,7 @@ from gvl_tpu_torch.models.qwen3 import (
     KVCache,
     Qwen3Config,
     Qwen3Model,
+    call_generator,
     convert_hf_qwen3,
     hf_text_config,
     init_params,
@@ -454,7 +455,9 @@ class Qwen3VL:
         kernel (``ValueError`` otherwise: no cast is made).  The tokens are
         JAX's for the same weights and an f32 cache; no step runs after the
         last token is produced (``last_decode_steps`` counts the steps).
+        Without ``generator`` a sampled stream draws from a new one seeded 0.
         """
+        generator = call_generator(generator, self.device)
         ids = np.asarray(input_ids, np.int64)
         if ids.shape[0] != 1:
             raise ValueError("Qwen3VL.generate takes one sequence (batch 1)")

@@ -28,6 +28,7 @@ from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.models.qwen3 import (
     KVCache,
     Qwen3Config,
+    call_generator,
     load_model,
     sample_logits,
 )
@@ -91,8 +92,10 @@ class Qwen3ChatSession:
         top_k: int = 20,
         generator: Optional[torch.Generator] = None,
     ) -> Iterator[int]:
-        """Yield generated token ids; reuses the cached transcript prefix."""
+        """Yield generated token ids; reuses the cached transcript prefix
+        (without ``generator``, sampled from a new one seeded 0)."""
         cfg = self.config
+        generator = call_generator(generator, self.device)
         ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if len(ids) + max_new_tokens > cfg.max_cache_length:
             raise ValueError("prompt + max_new_tokens exceeds cache")

@@ -24,7 +24,7 @@ from typing import Iterator, Optional
 import torch
 
 from gvl_tpu_torch import resolve_device
-from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, load_model
+from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, call_generator, load_model
 
 PROMPT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -205,7 +205,9 @@ class SpeculativeEngine:
         top_k: Optional[int] = None,       # not applied (as in JAX)
         inputs_embeds_prefix=None,
     ) -> Iterator[int]:
-        """Yield new tokens (in bursts of up to gamma + 1 per round)."""
+        """Yield new tokens (in bursts of up to gamma + 1 per round;
+        without ``generator``, sampled from a new one seeded 0)."""
+        generator = call_generator(generator, self.device)
         if inputs_embeds_prefix is not None:
             raise ValueError(
                 "speculative decoding does not support embedding-prefix "

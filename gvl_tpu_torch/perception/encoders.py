@@ -16,6 +16,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -80,6 +82,14 @@ class Checkpoints:
     hico: str              # flat npz, as outputs/hico_params.npz (FRAME → CLIP pool)
 
 
+def checkpoints_in(out_dir) -> Checkpoints:
+    """The paths :func:`write_random_checkpoints` writes under ``out_dir``."""
+    out = Path(out_dir)
+    return Checkpoints(str(out / "sam_params.npz"), str(out / "audio_event_params.npz"),
+                       str(out / "asr"), str(out / "retriever"), str(out / "minisiglip"),
+                       str(out / "videomae"), str(out / "hico_params.npz"))
+
+
 def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
                              seed: int = 0) -> Checkpoints:
     """Checkpoints of the segmenter, event net, byte ASR, retriever,
@@ -98,7 +108,6 @@ def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
     trained files)."""
     import json
     from dataclasses import asdict
-    from pathlib import Path
 
     from gvl_tpu_torch.audio.event_model import AudioEventNet, EventModelConfig
     from gvl_tpu_torch.models import convert
@@ -132,9 +141,7 @@ def write_random_checkpoints(out_dir, device: str | torch.device = "cuda",
     for sub in ("asr", "retriever", "minisiglip", "videomae"):
         (out / sub).mkdir(parents=True, exist_ok=True)
     text_cfg, sam_cfg, asr_cfg = SigLIPTextConfig(**RETRIEVER_CONFIG), SamConfig(), asr_config()
-    paths = Checkpoints(str(out / "sam_params.npz"), str(out / "audio_event_params.npz"),
-                        str(out / "asr"), str(out / "retriever"), str(out / "minisiglip"),
-                        str(out / "videomae"), str(out / "hico_params.npz"))
+    paths = checkpoints_in(out)
     write("retriever", SigLIPTextTower, text_cfg,
           lambda t: convert.siglip_text_params_from_jax(t, text_cfg.num_layers),
           out / "retriever" / "params.npz")

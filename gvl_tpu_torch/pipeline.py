@@ -372,15 +372,30 @@ def process_video(
 
 
 def processed_from_features(video_path: str, config: SystemConfig,
-                            features: dict, device="cuda") -> ProcessedVideo:
+                            features: dict, device="cuda",
+                            embedding_model: Optional[str] = None) -> ProcessedVideo:
     """Build a live :class:`ProcessedVideo` (incl. the reasoning loop)
     from a previously persisted feature dict (the ``_to_cache_dict``
-    layout) WITHOUT running any perception."""
+    layout) WITHOUT running any perception (``embedding_model`` as
+    :func:`process_video` takes it).
+
+    ROADMAP C13: JAX's rebuild keeps only the knowledge base's entity
+    names (``_restore_from_cache``) and clears the reasoning core's
+    conversation, so a process that answers a benchmark from a perception
+    cache prompts otherwise than the process that wrote it (whose answers
+    follow one another in one conversation, the videos having been built
+    before the first answer).  Here the whole knowledge base is rebuilt
+    from the stored schema dict and the conversation is kept, so a cold
+    process answers as the warm one did."""
+    from gvl_tpu_torch.fusion.schema import kb_from_schema_dict
+
     timer = StageTimer()
     result = ProcessedVideo(video_path=video_path)
     with timer.stage("cache_restore"):
         _restore_from_cache(result, features)
-    _finalize_processed(result, config, timer, device=device)
+        result.knowledge_base = kb_from_schema_dict(features.get("knowledge_base") or {})
+    _finalize_processed(result, config, timer, device=device,
+                        embedding_model=embedding_model, clear_conversation=False)
     return result
 
 
@@ -394,8 +409,11 @@ def _config_width(checkpoint: Optional[str], name: str, section: str) -> Optiona
 
 def _finalize_processed(result: ProcessedVideo, config: SystemConfig,
                         timer: StageTimer, device="cuda",
-                        embedding_model: Optional[str] = None) -> None:
-    """Shared tail of process_video: projector-dim resolution + loop."""
+                        embedding_model: Optional[str] = None,
+                        clear_conversation: bool = True) -> None:
+    """Shared tail of process_video: projector-dim resolution + loop (the
+    shared reasoning core's conversation cleared for the new video, unless
+    ``clear_conversation`` is off)."""
     timeline, kb = result.timeline, result.knowledge_base
     reasoning_config = ReasoningCoreConfig(
         max_new_tokens=config.reasoning.max_new_tokens,
@@ -431,7 +449,8 @@ def _finalize_processed(result: ProcessedVideo, config: SystemConfig,
             reasoning_config, config.reasoning.projector_path,
             resolve_repo_path(getattr(config.reasoning, "llm_checkpoint", None)),
             device=device)
-        core.clear_conversation()
+        if clear_conversation:
+            core.clear_conversation()
         loop = PerceptionReasoningLoop(
             config=reasoning_config,
             timeline_indexer=timeline,

@@ -25,7 +25,13 @@ from typing import Optional
 import torch
 
 from gvl_tpu_torch import resolve_device
-from gvl_tpu_torch.models.qwen3 import KVCache, Qwen3Config, load_model, sample_logits
+from gvl_tpu_torch.models.qwen3 import (
+    KVCache,
+    Qwen3Config,
+    call_generator,
+    load_model,
+    sample_logits,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -77,7 +83,8 @@ class ContinuousBatchingEngine:
         self.dtype = dtype
         self.device = resolve_device(device)
         self._sampling = (float(temperature), float(top_p), int(top_k))
-        self._generator = generator
+        # one generator for the engine, seeded 0 unless given (JAX: one key)
+        self._generator = call_generator(generator, self.device)
         self.model = load_model(config, state_dict, self.device)
         # the same weights, with multi-token chunks attending at the offset
         self._chunk_model = load_model(

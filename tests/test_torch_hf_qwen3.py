@@ -232,6 +232,90 @@ def test_hf_lora_adapter_merges_like_jax(hf_dirs, tmp_path):
     assert got == want and got != base
 
 
+
+# C12: adapters that do not fit the tiny HF base (hidden 64, MLP 128, 2
+# layers): (adapter_config.json, npz tensor shapes)
+_MISFITS = {
+    "input_width": ({"lora_rank": 4, "lora_alpha": 8.0, "targets": ["q_proj"]},
+                    {"layers_0/self_attn/q_proj/lora_a": (32, 4),
+                     "layers_0/self_attn/q_proj/lora_b": (4, 64)}),
+    "rank": ({"lora_rank": 8, "lora_alpha": 8.0, "targets": ["q_proj"]},
+             {"layers_0/self_attn/q_proj/lora_a": (64, 4),
+              "layers_0/self_attn/q_proj/lora_b": (4, 64)}),
+    "target": ({"lora_rank": 4, "lora_alpha": 8.0, "targets": ["down_proj"]},
+               {"layers_1/mlp/down_proj/lora_a": (64, 4),
+                "layers_1/mlp/down_proj/lora_b": (4, 64)}),
+    "no_rank": ({"lora_alpha": 8.0, "targets": ["q_proj"]},
+                {"layers_0/self_attn/q_proj/lora_a": (64, 4),
+                 "layers_0/self_attn/q_proj/lora_b": (4, 64)}),
+}
+
+
+def _raised(call):
+    """(exception, names of the package's frames from the factory down)."""
+    import traceback
+
+    with pytest.raises(Exception) as info:
+        call()
+    frames = [f for f in traceback.extract_tb(info.value.__traceback__)
+              if "gvl_tpu" in f.filename]
+    return info.value, frames
+
+
+@pytest.mark.parametrize("misfit", sorted(_MISFITS))
+def test_c12_a_misfit_adapter_raises_as_jax_does(hf_dirs, tmp_path, misfit):
+    """ROADMAP C12: an adapter whose shapes, rank or targets do not fit the
+    HF base (or whose config lacks its rank) makes both packages' factories
+    raise the same exception, with the same message, in the same step: the
+    merge (``load_adapter_and_merge`` of ``models/qwen3.py``), before the
+    tokenizer or any engine is built."""
+    meta, shapes = _MISFITS[misfit]
+    rng = np.random.default_rng(12)
+    np.savez(tmp_path / "adapter_final.npz",
+             **{k: rng.normal(0, 0.5, s).astype(np.float32) for k, s in shapes.items()})
+    (tmp_path / "adapter_config.json").write_text(json.dumps(meta))
+    common = dict(embedding_model="hashing", temperature=0.0, max_new_tokens=8)
+    want, want_frames = _raised(lambda: jax_create_core(
+        JaxCoreConfig(**common), checkpoint_path=str(hf_dirs["target"]),
+        lora_path=str(tmp_path)))
+    got, got_frames = _raised(lambda: tcore.create_reasoning_core(
+        ReasoningCoreConfig(**common), checkpoint_path=str(hf_dirs["target"]),
+        lora_path=str(tmp_path), device="cpu"))
+    assert type(got) is type(want) and type(want) in (ValueError, KeyError)
+    assert str(got) == str(want)
+
+    def step(frames):
+        return next(f.name for f in frames if f.filename.endswith("models/qwen3.py"))
+
+    assert step(got_frames) == step(want_frames) == "load_adapter_and_merge"
+    factory = {"create_reasoning_core", "create_hf_backend"}
+    for frames in (got_frames, want_frames):
+        assert frames[0].name == "create_reasoning_core"
+        assert all(f.name in factory for f in frames[:frames.index(
+            next(f for f in frames if f.filename.endswith("models/qwen3.py")))])
+
+
+def test_c12_an_adapter_of_unknown_targets_adds_nothing_in_both(hf_dirs, tmp_path):
+    """An adapter whose targets name no layer of the base: neither factory
+    raises, and both answer as their base does (JAX's behaviour, kept)."""
+    np.savez(tmp_path / "adapter_final.npz",
+             **{"layers_0/self_attn/w_proj/lora_a": np.ones((64, 4), np.float32),
+                "layers_0/self_attn/w_proj/lora_b": np.ones((4, 64), np.float32)})
+    (tmp_path / "adapter_config.json").write_text(json.dumps(
+        {"lora_rank": 4, "lora_alpha": 8.0, "targets": ["w_proj"]}))
+    common = dict(embedding_model="hashing", temperature=0.0, max_new_tokens=8,
+                  system_prompt=SYSTEM)
+    jax_core = jax_create_core(JaxCoreConfig(**common), checkpoint_path=str(hf_dirs["target"]),
+                               lora_path=str(tmp_path))
+    cores = [tcore.create_reasoning_core(ReasoningCoreConfig(**common),
+                                         checkpoint_path=str(hf_dirs["target"]),
+                                         lora_path=lora, device="cpu")
+             for lora in (str(tmp_path), None)]
+    jt, tt = _timelines()
+    want = _answers(jax_core, jt, QUESTIONS[:1])
+    got, base = (_answers(core, tt, QUESTIONS[:1]) for core in cores)
+    assert got == want == base
+
 def _request(port_no, path, body):
     conn = http.client.HTTPConnection("127.0.0.1", port_no, timeout=120)
     conn.request("POST", path, body=json.dumps(body),

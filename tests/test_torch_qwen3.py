@@ -177,6 +177,44 @@ def test_sampling_keeps_top_k():
     assert int(port.sample_logits(logits, temperature=0.0)) == 1
 
 
+
+def _sampled_engines():
+    """Every engine of the port that samples per call, on one tiny model:
+    (name, a callable drawing one sampled stream of 12 tokens)."""
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
+    from gvl_tpu_torch.models.speculative import PromptLookupEngine
+
+    _, tcfg, _, state = _tiny_pair()
+    prompt = [5, 9, 11, 5, 9, 11, 5, 9]
+    kw = dict(max_new_tokens=12, temperature=1.0)
+    engine = port.Qwen3Engine(tcfg, state, eos_token_id=-1, device="cpu")
+    session = Qwen3ChatSession(tcfg, state, eos_token_id=-1, device="cpu")
+    lookup = PromptLookupEngine(tcfg, state, gamma=3, eos_token_id=-1, device="cpu")
+
+    def fresh_session():
+        session.reset()
+        return list(session.stream(prompt, **kw))
+
+    return {"Qwen3Engine": lambda: list(engine.stream(prompt, **kw)),
+            "Qwen3ChatSession": fresh_session,
+            "PromptLookupEngine": lambda: lookup.generate(prompt, 12, temperature=1.0)}
+
+
+@pytest.mark.parametrize("name", ["Qwen3Engine", "Qwen3ChatSession", "PromptLookupEngine"])
+def test_c14_a_call_without_a_generator_samples_alike_whatever_ran_before(name):
+    """ROADMAP C14: JAX's engines draw a call given no key from
+    ``PRNGKey(0)``, so a sampled answer depends on nothing run before it;
+    the port's draw from a new generator seeded 0 (``call_generator``), not
+    from torch's global one, whose state the work before the call moved."""
+    draw = _sampled_engines()[name]
+    torch.manual_seed(1)
+    first = draw()
+    torch.manual_seed(2)
+    torch.rand(100)
+    assert draw() == first
+    gen = torch.Generator().manual_seed(0)
+    assert port.call_generator(gen, "cpu") is gen
+
 def test_unported_options_raise(tmp_path):
     """int8 and LoRA, refused before they were ported, now build with the
     JAX model's parameters (their logits: ``tests/test_torch_lora_int8.py``);
