@@ -19,8 +19,10 @@ Run from the root of the repository, on a machine with one CUDA card and
    the kernel) are held bit for bit against their plain versions and timed
    against the same two writes made by other means (``pairs`` of rows 3
    and 5), the flash kernel also at the bf16 SigLIP so400m tower's
-   attention and its MAP head and at Qwen3-VL's tower (``lines`` of row
-   1), and the int8 product
+   attention and its MAP head, at Qwen3-VL's tower, the perception
+   encoders' shapes and the HF rungs' (wav2vec2-large, Whisper-base's
+   encoder, VideoMAE-base, SigLIP so400m's text tower; ``lines`` of row 1,
+   device ms from the profiler where measured), and the int8 product
    at all four products of a fused so400m layer and the regions' qkv
    (``lines`` of its row), after ``cuobjdump`` shows that its built kernels
    issue warpgroup products (IGMMA) and no ``mma.sync`` (IMMA);
@@ -139,10 +141,27 @@ Run from the root of the repository, on a machine with one CUDA card and
     (their JSON layout), ``extract_features`` on a 4 s clip kernel path
     against plain path and the projector demo over its embeddings,
     ``smoke_test``, and the single-frame ``BenchmarkModelRunner`` on 4
-    samples; within ``EVAL_BUDGET_S``.
+    samples; within ``EVAL_BUDGET_S``;
+17. the HF perception rungs at the JAX package's default geometries
+    (all-MiniLM-L6-v2, wav2vec2-large, whisper-base, videomae-base, SigLIP
+    so400m vision and text, sam-vit-base) on seeded f32 weights drawn in the
+    HF checkpoint layout (``gvl_tpu_torch.models.hf_layouts``) and put
+    through the port's ``convert_hf_*``, each built as its rung builds it
+    (crc32-seeded token ids where the rung would call a tokenizer) and
+    served once with every kernel's launches counted from 0 and held to the
+    count the code implies: MiniLM's embeddings of 64 texts (no kernel;
+    card against the CPU), the wav2vec2 chunk embedder on 2 chunks of 10 s,
+    Whisper's greedy decode of one 30 s window (16 steps), VideoMAE on 2
+    clips of 16 frames, ``SigLIPSemanticEncoder.from_tower_state``'s fused
+    W8A8 tower and the composite's bf16 'cls' backend on 8 frames at 384,
+    the text tower on 8 prompts, and the open-vocab composite (SAM
+    point-grid proposals, 4 x 4 points on 2 frames, named by the SigLIP
+    pair); each against its plain path (encoder outputs within 1e-4 of
+    their largest magnitude, pooled cosine >= 0.9995, tokens and detections
+    equal); wall ms per model, allocator peak, within ``HF_BUDGET_S``.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 16) and read just after it; each run must have launched
+path of phases 3 to 17) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -302,6 +321,19 @@ EVAL_BUDGET_S = 240
 # fake; both perceive through the encoders (B1)
 EVAL_ARM_KERNELS = {"qa_lm": ("flash_attention", "decode_attention", "cache_append"),
                     "gvp_light": ("flash_attention",)}
+# phase 17: the HF perception rungs at the JAX package's default (published)
+# geometries, seeded f32 weights drawn in the HF checkpoint layout
+# (gvl_tpu_torch.models.hf_layouts) and converted by the port's convert_hf_*
+HF_SEED = 17
+HF_TEXTS, HF_CPU_TEXTS = 64, 16        # MiniLM: served texts; of them, held to the CPU
+HF_W2V_CHUNKS, HF_W2V_SECONDS = 2, 10  # wav2vec2-large chunks of 10 s at 16 kHz
+HF_WHISPER_STEPS = 16                  # Whisper-base: greedy steps on one 30 s window
+HF_CLIPS = 2                           # VideoMAE-base clips of 16 x 224 x 224
+HF_FRAMES, HF_PROMPTS = 8, 8           # SigLIP so400m: frames at 384, text prompts
+HF_SAM_FRAMES, HF_SAM_GRID = 2, 4      # SAM ViT-base at 1024: frames, point grid side
+HF_SHARE = 1e-4         # encoder outputs, kernel vs plain path: share of the largest |value|
+HF_CONF_TOL = 1e-4      # the composite's detection scores (cosines), kernel vs plain path
+HF_BUDGET_S = 120
 
 _T0 = time.perf_counter()
 
@@ -628,6 +660,30 @@ def check_kernels(dev) -> list[dict]:
         flash["lines"].append(dict(
             name="flash_attention", shape=shape, max_abs_err=err,
             ms=time_ms(lambda: flash_attention(qt, kt, vt), 50),
+            plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
+            bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+            library="SDPA, f32",
+            library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
+
+    # the HF perception rungs' attention (phase 17), f32 as their checkpoints
+    # load: wav2vec2-large on one 10 s chunk, Whisper-base's encoder on one
+    # 30 s window, VideoMAE-base on 2 clips, SigLIP so400m's text tower on 8
+    # prompts (head 72 padded to 80 by the wrapper)
+    for shape, b, h, s_len, d in (
+            ("wav2vec2-large: q/k/v [1,16,499,64] f32", 1, 16, 499, 64),
+            ("Whisper-base encoder: q/k/v [1,8,1500,64] f32", 1, 8, 1500, 64),
+            ("VideoMAE-base: q/k/v [2,12,1568,64] f32", 2, 12, 1568, 64),
+            ("SigLIP so400m text tower: q/k/v [8,16,64,72] f32 (head padded to 80)",
+             8, 16, 64, 72)):
+        qt, kt, vt = (randn(b, h, s_len, d) for _ in range(3))
+        err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt),
+                           attention_reference(qt, kt, vt), F32_TOL)
+        line_bound = bound_ms(4 * qt.nbytes, 4.0 * b * h * d * s_len * s_len, torch.bfloat16)
+        flash["lines"].append(dict(
+            name="flash_attention", shape=shape, max_abs_err=err,
+            ms=time_ms(lambda: flash_attention(qt, kt, vt), 50),
+            device_ms=kernel_device_ms(lambda: flash_attention(qt, kt, vt),
+                                       ("flash_attention",)),
             plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
             bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
             library="SDPA, f32",
@@ -3817,6 +3873,291 @@ def run_eval(dev, seeded: Path):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 17: the HF perception rungs
+# --------------------------------------------------------------------------
+
+def seeded_ids(text: str, length: int, vocab: int, low: int = 1000) -> "np.ndarray":
+    """Token ids a text always gets here (crc32-seeded), where the card has
+    no tokenizer: ``length`` ids in [low, vocab)."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(text.encode()))
+    return rng.integers(low, vocab, length)
+
+
+class SeededWhisperTokenizer:
+    """What ``WhisperTorchASR`` asks of ``transformers.WhisperTokenizer``:
+    whisper-base's prompt ids, and token ids joined as text."""
+
+    PROMPT = {"<|startoftranscript|>": 50258, "<|en|>": 50259, "<|transcribe|>": 50359,
+              "<|notimestamps|>": 50363}
+
+    def convert_tokens_to_ids(self, tokens):
+        return [self.PROMPT[t] for t in tokens]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(str(i) for i in ids)
+
+
+def decode_steps(tokens, prompt_len: int, eos: int) -> int:
+    """How many decoder steps ``greedy_decode_cached`` ran for one stream:
+    up to the first generated EOS, else every position but the last."""
+    row = tokens[0].tolist()
+    ends = [j for j in range(prompt_len, len(row)) if row[j] == eos]
+    return ends[0] if ends else len(row) - 1
+
+
+def run_hf(dev):
+    """Phase 17: each HF rung's model at its published geometry, from seeded
+    weights in the HF layout through the port's converter, served once
+    through its entry point with every kernel's launches counted from 0 and
+    held to the count the code implies, then against its plain path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.audio.mel import log_mel_spectrogram
+    from gvl_tpu_torch.audio.processor import Wav2Vec2TorchEmbedder, WhisperTorchASR
+    from gvl_tpu_torch.models import hf_layouts as L
+    from gvl_tpu_torch.models import minilm, sam_vit, videomae, wav2vec2, whisper
+    from gvl_tpu_torch.models import siglip
+    from gvl_tpu_torch.nn.layers import plain_attention
+    from gvl_tpu_torch.perception import encoders as E
+    from gvl_tpu_torch.perception.open_vocab import OpenVocabSamBackend
+    from gvl_tpu_torch.perception.semantic import (
+        NaFlexConfig,
+        SigLIPSemanticEncoder,
+        TorchSigLIPBackend,
+    )
+    from gvl_tpu_torch.temporal.clip_encoder import TorchVideoMAEClipEncoder
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(HF_SEED)
+    rng = np.random.default_rng(HF_SEED)
+    total, walls = {}, {}
+
+    def draw(layout):
+        return L.random_state(layout, gen, dev)
+
+    def served(name: str, fn, want):
+        """``fn()`` once with the launches counted from 0; ``want`` (a dict,
+        or a function of the result giving one) is every kernel's count the
+        code implies, the others 0."""
+        with uncounted():
+            fn()                         # lazy kernel loads, allocator growth
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0)
+        counts = kernel_launches()
+        expected = want(out) if callable(want) else want
+        wrong = {k: (v, expected.get(k, 0)) for k, v in counts.items()
+                 if v != expected.get(k, 0)}
+        log("hf", f"{name}: {walls[name]:.1f} ms wall (host clock); launches "
+            f"{ {k: v for k, v in counts.items() if v} } (implied {expected})")
+        if wrong:
+            raise AssertionError(f"hf: {name}: launches (counted, implied) {wrong}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def share(what: str, got, want) -> float:
+        got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"hf: {what}: {tuple(got.shape)} vs {tuple(want.shape)} "
+                                 "or not finite")
+        scale = want.abs().max().item()
+        return check_share("hf", f"{what}: max abs err per max |value| {scale:.3g}",
+                           (got - want.to(got.device)).abs().max().item() / scale, HF_SHARE)
+
+    # 1. MiniLM (all-MiniLM-L6-v2): plain attention, as in JAX; card vs CPU
+    cfg = minilm.MiniLMConfig()
+    model = minilm.load_minilm(cfg, minilm.convert_hf_bert(draw(L.bert_layout(cfg)), cfg), dev)
+
+    def bert_tokenize(texts, max_len):
+        ids = np.zeros((len(texts), max_len), np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            n = min(max_len, 4 + 2 * len(text.split()))
+            ids[i, :n], mask[i, :n] = seeded_ids(text, n, cfg.vocab_size), 1
+        return ids, mask
+
+    texts = E.retrieval_texts(HF_TEXTS, HF_SEED)[1]
+    encoder = minilm.MiniLMSentenceEncoder(model, bert_tokenize)
+    got = served("MiniLM", lambda: encoder.encode(texts), {})
+    cpu = minilm.MiniLMSentenceEncoder(copy.deepcopy(model).cpu(), bert_tokenize)
+    share(f"MiniLM ({HF_CPU_TEXTS} of {HF_TEXTS} texts): card vs CPU", got[:HF_CPU_TEXTS],
+          cpu.encode(texts[:HF_CPU_TEXTS]))
+    del model, encoder, cpu
+
+    # 2. wav2vec2-large (the preset's wav2vec_model): 24 layers, B1 in each
+    cfg = wav2vec2.Wav2Vec2Config.large()
+    w2v = wav2vec2.load_wav2vec2(
+        cfg, wav2vec2.convert_hf_wav2vec2(draw(L.wav2vec2_layout(cfg)), cfg), dev)
+    embedder = Wav2Vec2TorchEmbedder(w2v, chunk_seconds=HF_W2V_SECONDS)
+    audio = E.soundtrack(HF_W2V_CHUNKS * HF_W2V_SECONDS, seed=HF_SEED)
+    chunks = audio.reshape(HF_W2V_CHUNKS, -1)
+    got = served("wav2vec2-large", lambda: np.stack([embedder(c, 16000) for c in chunks]),
+                 {"flash_attention": cfg.num_layers * HF_W2V_CHUNKS})
+    with uncounted(), torch.inference_mode():
+        wav = torch.from_numpy(chunks).to(dev)
+        states = w2v(wav)["last_hidden_state"]
+        with plain_attention():
+            want_states = w2v(wav)["last_hidden_state"]
+            want = np.stack([embedder(c, 16000) for c in chunks])
+    log("hf", f"wav2vec2-large: {tuple(states.shape)} states of {HF_W2V_CHUNKS} chunks")
+    share("wav2vec2-large: encoder states, kernel vs plain path", states, want_states)
+    check_cosine("hf", "wav2vec2-large chunk embeddings: kernel vs plain path", got, want,
+                 COS_KERNEL_PLAIN)
+    del w2v, embedder, states, want_states
+
+    # 3. Whisper-base: one 30 s window, the cached greedy decode
+    cfg = whisper.WhisperConfig.base()
+    model = whisper.load_whisper(
+        cfg, whisper.convert_hf_whisper(draw(L.whisper_layout(cfg)), cfg), dev)
+    asr = WhisperTorchASR(model, SeededWhisperTokenizer(), max_new_tokens=HF_WHISPER_STEPS)
+    speech = E.soundtrack(30, seed=HF_SEED + 1)
+    prompt_len = asr._prompt.shape[1]
+    tokens = served("Whisper-base", lambda: asr.decode(speech), lambda out: {
+        "flash_attention": cfg.encoder_layers
+        + cfg.decoder_layers * decode_steps(out, prompt_len, cfg.eos_token_id)})
+    with uncounted(), torch.inference_mode():
+        text, conf = asr(speech, 16000)
+        mel = log_mel_spectrogram(torch.from_numpy(speech).to(dev))[None]
+        states = model.encoder(mel)
+        with plain_attention():
+            want_states = model.encoder(mel)
+            want_tokens = asr.decode(speech)
+    share("Whisper-base: encoder states [1,1500,512], kernel vs plain path", states,
+          want_states)
+    if not torch.equal(tokens, want_tokens):
+        raise AssertionError(f"hf: Whisper tokens differ: kernel {tokens.tolist()}, plain "
+                             f"{want_tokens.tolist()}")
+    log("hf", f"Whisper-base: greedy tokens equal on both paths "
+        f"({decode_steps(tokens, prompt_len, cfg.eos_token_id)} decoder steps); transcript "
+        f"{len(text.split())} ids, confidence {conf}")
+    del model, asr, states, want_states
+
+    # 4. VideoMAE-base: 2 clips of 16 frames in one forward
+    cfg = videomae.VideoMAEConfig.base()
+    clip_encoder = TorchVideoMAEClipEncoder(videomae.load_videomae(
+        cfg, videomae.convert_hf_videomae(draw(L.videomae_layout(cfg)), cfg), dev))
+    clips = [np.stack(E.gameplay_frames(cfg.num_frames, seed=HF_SEED + i))
+             for i in range(HF_CLIPS)]
+    got = served("VideoMAE-base", lambda: clip_encoder.encode_clips(clips),
+                 {"flash_attention": cfg.num_layers})
+    with uncounted(), plain_attention():
+        want = clip_encoder.encode_clips(clips)
+    share(f"VideoMAE-base ({HF_CLIPS} clips): clip vectors, kernel vs plain path", got, want)
+    check_cosine("hf", "VideoMAE-base clip vectors: kernel vs plain path", got, want,
+                 COS_KERNEL_PLAIN)
+    del clip_encoder
+
+    # 5. SigLIP so400m vision from HF weights: the preset's fused W8A8 tower
+    # (mean pooling: no MAP head), and the bf16 'cls' backend of the composite
+    vcfg = siglip.SigLIPVisionConfig.so400m()
+    vstate = siglip.convert_hf_siglip_vision(draw(L.siglip_vision_layout(vcfg)), vcfg)
+    semantic = SigLIPSemanticEncoder.from_tower_state(
+        vcfg, vstate, NaFlexConfig(quant_fused=True), dev)
+    del vstate
+    frames = [rng.integers(0, 256, (384, 384, 3), dtype=np.uint8) for _ in range(HF_FRAMES)]
+    prepared = np.stack([semantic.region_extractor.prepare(f)[0] for f in frames])
+    got = served("SigLIP so400m fused W8A8 (from HF weights)",
+                 lambda: semantic.encode_images_batch(frames),
+                 dict(FUSED_LAUNCHES, attention_fused_qkv=vcfg.num_layers))
+    with uncounted():
+        want = plain_pooled(semantic.backend, prepared)
+    check_cosine("hf", f"SigLIP fused ({HF_FRAMES} frames): kernel vs plain path", got, want,
+                 COS_KERNEL_PLAIN)
+    nc = NaFlexConfig(pool_strategy="cls")
+    cls_backend = TorchSigLIPBackend(semantic.backend.tower, nc.dtype, image_mean=nc.image_mean,
+                                     image_std=nc.image_std, pool_strategy="cls")
+    got = served("SigLIP so400m 'cls' backend", lambda: cls_backend(prepared)[1],
+                 {"flash_attention": vcfg.num_layers + 1})
+    with uncounted(), plain_attention():
+        want = cls_backend(prepared)[1]
+    check_cosine("hf", f"SigLIP 'cls' backend ({HF_FRAMES} frames): kernel vs plain path",
+                 got, want, COS_KERNEL_PLAIN)
+    del semantic
+
+    # 6. SigLIP so400m text tower: 8 prompts at 64 positions
+    tcfg = siglip.SigLIPTextConfig()
+    text_tower = siglip.load_text_tower(
+        tcfg, siglip.convert_hf_siglip_text(draw(L.siglip_text_layout(tcfg)), tcfg), dev)
+    prompts = ["the player icon", "an enemy sprite", "the boss on screen", "a health bar",
+               "a door", "a treasure chest", "a gold coin", "a sword"][:HF_PROMPTS]
+
+    def tokenize(batch):
+        return np.stack([seeded_ids(t, tcfg.max_position, tcfg.vocab_size) for t in batch])
+
+    ids = torch.from_numpy(tokenize(prompts)).to(dev)
+    with torch.inference_mode():
+        got = served("SigLIP so400m text tower", lambda: text_tower(ids)["pooled"],
+                     {"flash_attention": tcfg.num_layers})
+        with uncounted(), plain_attention():
+            want = text_tower(ids)["pooled"]
+    share(f"SigLIP text ({HF_PROMPTS} prompts): pooled, kernel vs plain path", got, want)
+
+    # 7. SAM ViT-base point-grid proposals named by the SigLIP pair: the HF
+    # open-vocab composite, every proposal kept (score threshold -1)
+    scfg = sam_vit.SamViTConfig()
+    sam = sam_vit.load_sam_vit(scfg, sam_vit.convert_hf_sam(draw(L.sam_layout(scfg)), scfg), dev)
+
+    def composite():
+        return OpenVocabSamBackend(scfg, sam, cls_backend, text_tower, None, tokenize,
+                                   grid=HF_SAM_GRID, score_threshold=-1.0)
+
+    sam_frames = E.gameplay_frames(HF_SAM_FRAMES, seed=HF_SEED)
+    indices = list(range(HF_SAM_FRAMES))
+
+    def implied(results):      # the text tower once, the 'cls' tower once a frame with regions
+        named = sum(1 for frame in results if any(frame))
+        return {"flash_attention": tcfg.num_layers + (vcfg.num_layers + 1) * named}
+
+    served_backend = composite()
+    got = served("open-vocab composite (SAM ViT-base + SigLIP)",
+                 lambda: (served_backend._text_cache.clear(),
+                          served_backend(sam_frames, prompts, indices))[1], implied)
+    with uncounted(), plain_attention():
+        want = composite()(sam_frames, prompts, indices)
+
+    def detections(results):
+        return [[[(d["mask"].mask.tobytes(), tuple(vars(d["mask"].bbox).values()),
+                   d["mask"].area_pixels) for d in concept] for concept in frame]
+                for frame in results]
+
+    if detections(got) != detections(want):
+        raise AssertionError("hf: the composite's detections differ between the kernel and "
+                             "the plain path")
+    conf = [(a["mask"].confidence, b["mask"].confidence) for fa, fb in zip(got, want)
+            for ca, cb in zip(fa, fb) for a, b in zip(ca, cb)]
+    worst = max((abs(a - b) for a, b in conf), default=0.0)
+    check_share("hf", f"composite: {len(conf)} detections on {HF_SAM_FRAMES} frames equal; "
+                "scores max abs err", worst, HF_CONF_TOL)
+    with uncounted():
+        masks, iou = served_backend._proposals(sam_frames)
+    log("hf", f"SAM ViT-base: {HF_SAM_GRID ** 2} point prompts a frame, masks "
+        f"{tuple(masks.shape)}, {float(masks.mean()):.3f} of cells set, IoU "
+        f"{iou.min():.3f}..{iou.max():.3f}")
+    del sam, text_tower, cls_backend, served_backend
+
+    elapsed = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("hf", f"phase 17 in {elapsed:.1f} s (budget {HF_BUDGET_S} s), allocator peak "
+        f"{peak:.2f} GiB; wall ms {', '.join(f'{k} {v:.1f}' for k, v in walls.items())}; "
+        f"launches {total}; {nvidia_smi()}")
+    if elapsed > HF_BUDGET_S:
+        raise AssertionError(f"hf: phase 17 took {elapsed:.1f} s, over its {HF_BUDGET_S} s")
+    return total
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import tempfile
@@ -3876,8 +4217,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.append(run_eval(dev, seeded=Path(seeded.name, "outputs")))
     seeded.cleanup()
+    torch.cuda.empty_cache()
+    served.append(run_hf(dev))
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-16): {launches}")
+    log("launches", f"served paths (phases 3-17): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

@@ -5,7 +5,8 @@ Timestamps: HH:MM:SS, MM:SS and "at/around N seconds".  Semantic retrieval
 is cosine top-k over event-description embeddings from a
 :class:`TextEmbedder`: the trained byte tower
 (:class:`~gvl_tpu_torch.training.retriever_train.TrainedTextEmbedder`) when
-``outputs/retriever`` is there, else the feature-hashing embedder.  The
+``outputs/retriever`` is there, the MiniLM encoder of an HF directory
+(:mod:`gvl_tpu_torch.models.minilm`), else the feature-hashing embedder.  The
 timeline is a :class:`gvl_tpu_torch.fusion.timeline.TimelineIndexer`.
 """
 
@@ -57,8 +58,10 @@ def make_embedder(config: ReasoningCoreConfig,
     """The embedder ladder of ``gvl_tpu.agent.retriever.make_embedder``:
     "auto" → the trained tower when ``outputs/retriever`` is there, else
     hashing; "hashing" → hashing; a trained retriever directory → its
-    tower on ``device``; another directory → the MiniLM rung, not ported
-    (ROADMAP A10: raises); any other name → sentence-transformers if it
+    tower on ``device``; another directory → the HF MiniLM encoder on
+    ``device`` (:class:`~gvl_tpu_torch.models.minilm.MiniLMSentenceEncoder`),
+    which raises when the directory cannot be loaded where JAX falls
+    through (ROADMAP C15); any other name → sentence-transformers if it
     loads, else hashing."""
     name = config.embedding_model
     if name == "auto":
@@ -77,8 +80,15 @@ def make_embedder(config: ReasoningCoreConfig,
         if is_trained_retriever_checkpoint(name):
             logger.info("semantic retriever: self-trained tower from %s", name)
             return TrainedTextEmbedder.from_dir(name, device=device)
-        raise NotImplementedError(
-            f"{name}: the MiniLM checkpoint rung is not ported yet (ROADMAP A10)")
+        from gvl_tpu_torch.models.minilm import MiniLMSentenceEncoder
+
+        try:
+            return MiniLMSentenceEncoder.from_hf_checkpoint(name, device=device)
+        except Exception as exc:
+            raise ValueError(
+                f"MiniLM checkpoint {name} cannot be used ({exc}); the JAX package "
+                "would fall through to sentence-transformers and hashing here "
+                "(ROADMAP C15)") from exc
     try:  # optional learned embedder (requires local weights)
         from sentence_transformers import SentenceTransformer
 

@@ -5,11 +5,13 @@ The host reads WAV (:func:`gvl_tpu_torch.runtime.native.read_wav_native`,
 the port's build of the JAX package's native reader), resamples, and cuts 30 s chunks
 with 0.5 s overlap; the card classifies 1 s windows with the trained event
 net (:class:`~gvl_tpu_torch.audio.event_model.TorchAudioEventDetector`)
-and transcribes speech spans with the trained byte ASR
-(:class:`~gvl_tpu_torch.training.asr_train.TrainedByteASR`).  Without
-checkpoints the spectral heuristic and :class:`DeterministicFakeASR` keep
-the pipeline running.  Not ported (ROADMAP A10): the HF Whisper and
-wav2vec2 rungs; other containers than WAV read as silence with a warning.
+and transcribes speech spans with an HF Whisper checkpoint
+(:class:`WhisperTorchASR`) or the trained byte ASR
+(:class:`~gvl_tpu_torch.training.asr_train.TrainedByteASR`); an HF wav2vec2
+checkpoint gives the chunk embeddings (:class:`Wav2Vec2TorchEmbedder`).
+Without checkpoints the spectral heuristic and :class:`DeterministicFakeASR`
+keep the pipeline running.  Other containers than WAV read as silence with
+a warning.
 """
 
 from __future__ import annotations
@@ -260,6 +262,38 @@ class DeterministicFakeASR:
         return " ".join(rng.choice(self._WORDS, n_words)), 0.5
 
 
+class WhisperTorchASR:
+    """HF Whisper backend (``gvl_tpu.audio.processor.WhisperJaxASR``): the
+    chunk's log-mel, then greedy decoding with the cross K/V computed once
+    (:func:`~gvl_tpu_torch.models.whisper.greedy_decode_cached`) after the
+    ``<|startoftranscript|><|en|><|transcribe|><|notimestamps|>`` prompt,
+    on the model's device; text through the HF tokenizer."""
+
+    def __init__(self, model, tokenizer, max_new_tokens: int = 128):
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_new_tokens = max_new_tokens
+        self.device = next(model.parameters()).device
+        prompt = tokenizer.convert_tokens_to_ids(
+            ["<|startoftranscript|>", "<|en|>", "<|transcribe|>", "<|notimestamps|>"])
+        self._prompt = torch.tensor([prompt], dtype=torch.int64, device=self.device)
+        self._eos = model.config.eos_token_id
+
+    def decode(self, chunk: np.ndarray) -> torch.Tensor:
+        """Greedy tokens ``[1, 4 + max_new_tokens]`` of one chunk."""
+        from gvl_tpu_torch.audio.mel import log_mel_spectrogram
+        from gvl_tpu_torch.models.whisper import greedy_decode_cached
+
+        wav = torch.from_numpy(np.asarray(chunk, np.float32)).to(self.device)
+        return greedy_decode_cached(self.model, log_mel_spectrogram(wav)[None],
+                                    self._prompt, max_new_tokens=self.max_new_tokens)
+
+    def __call__(self, chunk: np.ndarray, sample_rate: int) -> tuple[str, float]:
+        tokens = self.decode(chunk)[0, self._prompt.shape[1]:].cpu().numpy()
+        text_ids = [int(t) for t in tokens if t != self._eos]
+        return self.tokenizer.decode(text_ids, skip_special_tokens=True).strip(), 0.9
+
+
 class AudioProcessor:
     """Dual-mode audio analysis: ASR + event detection.
 
@@ -489,6 +523,30 @@ class HashAudioEmbedder:
         return rng.standard_normal(self.dim).astype(np.float32)
 
 
+class Wav2Vec2TorchEmbedder:
+    """wav2vec2 chunk embeddings (``gvl_tpu.audio.processor.
+    Wav2Vec2JaxEmbedder``): each chunk zero-padded (or cut) to a fixed bucket
+    of ``chunk_seconds`` at ``sample_rate``, one f32 forward on the
+    encoder's device, the last hidden state mean-pooled there; only the
+    ``[hidden]`` vector comes back."""
+
+    def __init__(self, encoder, chunk_seconds: float = 10.0, sample_rate: int = 16000):
+        self.encoder = encoder
+        self.dim = encoder.config.hidden_size
+        self.device = next(encoder.parameters()).device
+        self._bucket = int(chunk_seconds * sample_rate)
+
+    @torch.inference_mode()
+    def __call__(self, chunk: np.ndarray, sample_rate: int) -> np.ndarray:
+        wav = np.asarray(chunk, np.float32)
+        if len(wav) < self._bucket:
+            wav = np.pad(wav, (0, self._bucket - len(wav)))
+        else:
+            wav = wav[: self._bucket]
+        out = self.encoder(torch.from_numpy(wav[None]).to(self.device))
+        return out["last_hidden_state"][0].mean(0).float().cpu().numpy()
+
+
 def create_audio_processor(
     whisper_checkpoint: Optional[str] = None,
     config: Optional[AudioConfig] = None,
@@ -499,14 +557,20 @@ def create_audio_processor(
     """Factory: the best rung of the ASR ladder plus the trained event
     classifier when its checkpoint resolves, both on ``device``.
 
-    ASR ladder: ``whisper_checkpoint`` (an HF Whisper directory: not
-    ported, raises, ROADMAP A10) → ``asr_checkpoint`` (the trained byte
-    ASR) → the deterministic fake."""
+    ASR ladder: ``whisper_checkpoint`` (an HF Whisper directory:
+    :class:`WhisperTorchASR`, its tokenizer ``transformers.WhisperTokenizer``
+    imported here only) → ``asr_checkpoint`` (the trained byte ASR) → the
+    deterministic fake."""
     asr_backend = None
     if whisper_checkpoint and Path(whisper_checkpoint).exists():
-        raise NotImplementedError(
-            f"{whisper_checkpoint}: the HF Whisper rung is not ported yet (ROADMAP A10)")
-    if asr_checkpoint:
+        from transformers import WhisperTokenizer
+
+        from gvl_tpu_torch.models.whisper import load_hf_whisper, load_whisper
+
+        config, state = load_hf_whisper(whisper_checkpoint)
+        tokenizer = WhisperTokenizer.from_pretrained(whisper_checkpoint)
+        asr_backend = WhisperTorchASR(load_whisper(config, state, device), tokenizer)
+    if asr_backend is None and asr_checkpoint:
         from gvl_tpu_torch.training.asr_train import TrainedByteASR, is_trained_asr_checkpoint
 
         if is_trained_asr_checkpoint(asr_checkpoint):
@@ -527,13 +591,14 @@ def build_audio_stack(preset_audio, device: str | torch.device = "cuda"
     """(processor, chunk_embedder) from the preset's checkpoint ladder
     (``gvl_tpu.audio.processor.build_audio_stack``; ``preset_audio`` is the
     :class:`gvl_tpu_torch.config.presets.AudioConfig` section), its models
-    on ``device``: ASR ``whisper_checkpoint`` (the HF Whisper rung: not
-    ported, raises, ROADMAP A10) > ``asr_checkpoint`` (the trained byte
-    ASR) > the deterministic fake; events from ``event_checkpoint`` when
-    it resolves.  Chunk embeddings: ``wav2vec2_checkpoint`` (not ported,
-    raises, ROADMAP A10) > the event net's pooled features (with
-    ``event_checkpoint``) > :class:`HashAudioEmbedder`, the last two only
-    while ``use_wav2vec`` is on, as in JAX."""
+    on ``device``: ASR ``whisper_checkpoint`` (HF Whisper,
+    :class:`WhisperTorchASR`) > ``asr_checkpoint`` (the trained byte ASR) >
+    the deterministic fake; events from ``event_checkpoint`` when it
+    resolves.  Chunk embeddings, while ``use_wav2vec`` is on (as in JAX):
+    ``wav2vec2_checkpoint`` (HF wav2vec2, :class:`Wav2Vec2TorchEmbedder`
+    over ``wav2vec2_chunk_seconds`` buckets) > the event net's pooled
+    features (with ``event_checkpoint``); :class:`HashAudioEmbedder`
+    otherwise."""
     from gvl_tpu_torch.utils.checkpoints import resolve_repo_path
 
     config = AudioConfig(sample_rate=getattr(preset_audio, "sample_rate", 16000))
@@ -542,13 +607,21 @@ def build_audio_stack(preset_audio, device: str | torch.device = "cuda"
     asr_ckpt = resolve_repo_path(getattr(preset_audio, "asr_checkpoint", None))
     processor = create_audio_processor(whisper_dir, config, event_checkpoint=event_ckpt,
                                        asr_checkpoint=asr_ckpt, device=device)
+    if whisper_dir:
+        logger.info("audio ASR: HF Whisper from %s", whisper_dir)
     embedder: Callable = HashAudioEmbedder(1024)
     if getattr(preset_audio, "use_wav2vec", True):
         w2v_dir = resolve_repo_path(getattr(preset_audio, "wav2vec2_checkpoint", None))
         if w2v_dir:
-            raise NotImplementedError(
-                f"{w2v_dir}: the wav2vec2 chunk-embedder rung is not ported yet (ROADMAP A10)")
-        if event_ckpt:
+            from gvl_tpu_torch.models.wav2vec2 import load_hf_wav2vec2, load_wav2vec2
+
+            w2v_config, state = load_hf_wav2vec2(w2v_dir)
+            embedder = Wav2Vec2TorchEmbedder(
+                load_wav2vec2(w2v_config, state, device),
+                chunk_seconds=getattr(preset_audio, "wav2vec2_chunk_seconds", 10.0),
+                sample_rate=config.sample_rate)
+            logger.info("audio embeddings: HF wav2vec2 from %s", w2v_dir)
+        elif event_ckpt:
             from gvl_tpu_torch.audio.event_model import TrainedAudioEmbedder
 
             embedder = TrainedAudioEmbedder.from_checkpoint(event_ckpt, device=device)

@@ -8,7 +8,10 @@ pooled output.  Pixels are channels-last ``[B, H, W, 3]`` as in the JAX
 package.  The text tower (:class:`SigLIPTextTower`) carries the trained
 retriever.  ``quant_int8`` builds the W8A8 encoder (dynamic activation
 scales, or static ones with ``quant_static_act``); :func:`quantize_siglip_int8`
-and :func:`calibrate_siglip_int8` make its weights.
+and :func:`calibrate_siglip_int8` make its weights.  HF ``SiglipVisionModel``
+and ``SiglipTextModel`` checkpoints convert with :func:`convert_hf_siglip_vision`
+and :func:`convert_hf_siglip_text` (loaders :func:`load_hf_siglip`,
+:func:`load_hf_siglip_text`).
 """
 
 from __future__ import annotations
@@ -293,3 +296,105 @@ class SigLIPTextTower(nn.Module):
             x = layer(x)
         x = self.final_norm(x)
         return {"last_hidden_state": x, "pooled": self.head(x[:, -1])}
+
+
+def load_text_tower(config: SigLIPTextConfig, state: dict[str, torch.Tensor],
+                    device: str | torch.device = "cuda") -> SigLIPTextTower:
+    """A :class:`SigLIPTextTower` in eval mode on ``device`` holding the
+    state dict's tensors."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        tower = SigLIPTextTower(config)
+    return load_module(tower, state, device)
+
+
+# --------------------------------------------------------------------------
+# HuggingFace weight conversion
+# --------------------------------------------------------------------------
+
+def _hf_blocks(sd: dict, num_layers: int) -> dict[str, torch.Tensor]:
+    """The encoder layers of a HF ``SiglipEncoder`` under the port's
+    :class:`~gvl_tpu_torch.nn.layers.TransformerBlock` names."""
+    names = {"ln1": "layer_norm1", "attention.q_proj": "self_attn.q_proj",
+             "attention.k_proj": "self_attn.k_proj", "attention.v_proj": "self_attn.v_proj",
+             "attention.o_proj": "self_attn.out_proj", "ln2": "layer_norm2",
+             "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}
+    return {f"layers.{i}.{ours}.{leaf}": sd[f"encoder.layers.{i}.{theirs}.{leaf}"]
+            for i in range(num_layers) for ours, theirs in names.items()
+            for leaf in ("weight", "bias")}
+
+
+def convert_hf_siglip_vision(state_dict: dict, config: SigLIPVisionConfig
+                             ) -> dict[str, torch.Tensor]:
+    """A HF ``SiglipVisionModel`` state dict as the port's
+    :class:`SigLIPVisionTower` state dict (JAX's ``convert_hf_siglip_vision``):
+    the patch convolution ``[D, C, kh, kw]`` becomes the projection ``[D,
+    kh*kw*C]`` in (row, col, channel) order, and the MAP head's fused
+    ``in_proj`` splits into q, k and v."""
+    sd = {k.removeprefix("vision_model."): torch.as_tensor(v) for k, v in state_dict.items()}
+    d = config.hidden_size
+    conv = sd["embeddings.patch_embedding.weight"]
+    out = {"patch_embed.proj.weight": conv.permute(0, 2, 3, 1).reshape(d, -1),
+           "patch_embed.proj.bias": sd["embeddings.patch_embedding.bias"],
+           "pos_embed": sd["embeddings.position_embedding.weight"],
+           "post_norm.weight": sd["post_layernorm.weight"],
+           "post_norm.bias": sd["post_layernorm.bias"]}
+    out.update(_hf_blocks(sd, config.num_layers))
+    if "head.probe" in sd:
+        in_w, in_b = sd["head.attention.in_proj_weight"], sd["head.attention.in_proj_bias"]
+        out["head.probe"] = sd["head.probe"].reshape(1, 1, d)
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"head.{name}.weight"] = in_w[j * d:(j + 1) * d]
+            out[f"head.{name}.bias"] = in_b[j * d:(j + 1) * d]
+        for ours, theirs in (("o_proj", "attention.out_proj"), ("norm", "layernorm"),
+                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            out[f"head.{ours}.weight"] = sd[f"head.{theirs}.weight"]
+            out[f"head.{ours}.bias"] = sd[f"head.{theirs}.bias"]
+    return out
+
+
+def load_hf_siglip(model_name_or_path, config: SigLIPVisionConfig | None = None
+                   ) -> tuple[SigLIPVisionConfig, dict[str, torch.Tensor]]:
+    """A HF ``SiglipVisionModel`` checkpoint (a local directory) as
+    ``(config, state_dict)`` on the CPU; ``transformers`` is imported here
+    only."""
+    from transformers import SiglipVisionModel
+
+    model = SiglipVisionModel.from_pretrained(model_name_or_path)
+    hf = model.config
+    config = config or SigLIPVisionConfig(
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=hf.num_attention_heads,
+        patch_size=hf.patch_size, image_size=hf.image_size)
+    return config, convert_hf_siglip_vision(model.state_dict(), config)
+
+
+def convert_hf_siglip_text(state_dict: dict, config: SigLIPTextConfig
+                           ) -> dict[str, torch.Tensor]:
+    """A HF ``SiglipTextModel`` state dict as the port's
+    :class:`SigLIPTextTower` state dict (JAX's ``convert_hf_siglip_text``)."""
+    sd = {k.removeprefix("text_model."): torch.as_tensor(v) for k, v in state_dict.items()}
+    out = {"token_embed.weight": sd["embeddings.token_embedding.weight"],
+           "pos_embed": sd["embeddings.position_embedding.weight"],
+           "final_norm.weight": sd["final_layer_norm.weight"],
+           "final_norm.bias": sd["final_layer_norm.bias"],
+           "head.weight": sd["head.weight"], "head.bias": sd["head.bias"]}
+    out.update(_hf_blocks(sd, config.num_layers))
+    return out
+
+
+def load_hf_siglip_text(model_name_or_path, config: SigLIPTextConfig | None = None
+                        ) -> tuple[SigLIPTextConfig, dict[str, torch.Tensor]]:
+    """A HF ``SiglipTextModel`` checkpoint (a local directory) as
+    ``(config, state_dict)`` on the CPU; ``transformers`` is imported here
+    only."""
+    from transformers import SiglipTextModel
+
+    model = SiglipTextModel.from_pretrained(model_name_or_path)
+    hf = model.config
+    config = config or SigLIPTextConfig(
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=hf.num_attention_heads,
+        vocab_size=hf.vocab_size, max_position=hf.max_position_embeddings,
+        projection_size=getattr(hf, "projection_size", hf.hidden_size))
+    return config, convert_hf_siglip_text(model.state_dict(), config)

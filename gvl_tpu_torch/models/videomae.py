@@ -5,14 +5,14 @@ convolution is a reshape and one matrix product; positions are the fixed
 sinusoidal table; the layers are pre-LN with BEiT-style attention biases
 (q and v only) and exact GELU, their attention through the flash kernel
 (:func:`gvl_tpu_torch.nn.layers.attend`).  Video is channels-last
-``[B, T, H, W, 3]`` as in the JAX package.  The HF converter and loader
-(``convert_hf_videomae``, ``load_hf_videomae``) are not ported (ROADMAP
-A10).
+``[B, T, H, W, 3]`` as in the JAX package.  ``convert_hf_videomae`` and
+``load_hf_videomae`` read HF ``VideoMAEModel`` checkpoints.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -133,11 +133,60 @@ class VideoMAEEncoder(nn.Module):
         return {"last_hidden_state": x, "clip_embedding": x.mean(1)}
 
 
-def convert_hf_videomae(state_dict, config: VideoMAEConfig):
-    """HF ``VideoMAEModel`` state dicts: not ported (ROADMAP A10)."""
-    raise NotImplementedError("the HF VideoMAE converter is not ported yet (ROADMAP A10)")
+_LAYER_NAMES = {"norm_before": "layernorm_before", "q_proj": "attention.attention.query",
+                "k_proj": "attention.attention.key", "v_proj": "attention.attention.value",
+                "o_proj": "attention.output.dense", "norm_after": "layernorm_after",
+                "fc1": "intermediate.dense", "fc2": "output.dense"}
 
 
-def load_hf_videomae(model_name_or_path: str, config=None):
-    """HF VideoMAE checkpoints: not ported (ROADMAP A10)."""
-    raise NotImplementedError("HF VideoMAE checkpoints are not ported yet (ROADMAP A10)")
+def convert_hf_videomae(state_dict: dict, config: VideoMAEConfig) -> dict[str, torch.Tensor]:
+    """A HF ``VideoMAEModel`` state dict as the port's :class:`VideoMAEEncoder`
+    state dict (JAX's ``convert_hf_videomae``): the tubelet convolution's
+    weight ``[D, C, t, kh, kw]`` flattens to the projection's ``[D,
+    C*t*kh*kw]``; the q and v biases are BEiT-style parameters of their
+    own, k has none."""
+    sd = {k.removeprefix("videomae."): torch.as_tensor(v) for k, v in state_dict.items()}
+    conv = sd["embeddings.patch_embeddings.projection.weight"]
+    out = {"patch_embed.proj.weight": conv.reshape(conv.shape[0], -1),
+           "patch_embed.proj.bias": sd["embeddings.patch_embeddings.projection.bias"]}
+    for i in range(config.num_layers):
+        pre = f"encoder.layer.{i}."
+        for ours, theirs in _LAYER_NAMES.items():
+            out[f"layers.{i}.{ours}.weight"] = sd[pre + theirs + ".weight"]
+            if ours not in ("q_proj", "k_proj", "v_proj"):
+                out[f"layers.{i}.{ours}.bias"] = sd[pre + theirs + ".bias"]
+        out[f"layers.{i}.q_proj.bias"] = sd[pre + "attention.attention.q_bias"]
+        out[f"layers.{i}.v_proj.bias"] = sd[pre + "attention.attention.v_bias"]
+    return out
+
+
+def hf_videomae_config(hf) -> VideoMAEConfig:
+    """The port's config for a HF ``VideoMAEConfig``."""
+    return VideoMAEConfig(
+        hidden_size=hf.hidden_size, intermediate_size=hf.intermediate_size,
+        num_layers=hf.num_hidden_layers, num_heads=hf.num_attention_heads,
+        image_size=hf.image_size, patch_size=hf.patch_size, num_frames=hf.num_frames,
+        tubelet_size=hf.tubelet_size)
+
+
+def load_hf_videomae(model_name_or_path, config: Optional[VideoMAEConfig] = None
+                     ) -> tuple[VideoMAEConfig, dict[str, torch.Tensor]]:
+    """A HF ``VideoMAEModel`` checkpoint (a local directory) as ``(config,
+    state_dict)`` on the CPU; ``transformers`` is imported here only."""
+    from transformers import VideoMAEModel
+
+    model = VideoMAEModel.from_pretrained(model_name_or_path)
+    config = config or hf_videomae_config(model.config)
+    return config, convert_hf_videomae(model.state_dict(), config)
+
+
+def load_videomae(config: VideoMAEConfig, state: dict[str, torch.Tensor],
+                  device: str | torch.device = "cuda") -> VideoMAEEncoder:
+    """The port's state dict as a :class:`VideoMAEEncoder` on ``device``."""
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.nn.layers import load_module
+
+    device = resolve_device(device)
+    with torch.device("meta"):
+        model = VideoMAEEncoder(config)
+    return load_module(model, state, device)

@@ -1,6 +1,6 @@
 """Whisper-class encoder-decoder ASR model (counterpart of
-:mod:`gvl_tpu.models.whisper` up to its greedy decoders; the HF converter
-is not ported).
+:mod:`gvl_tpu.models.whisper`: the model, its greedy decoders and the HF
+``WhisperModel`` converter).
 
 Encoder: two 1-D convolutions (stride 1, then 2; padding 1 each side),
 exact (erf) GELU, fixed sinusoidal positions, pre-norm layers.  Decoder:
@@ -292,3 +292,72 @@ def greedy_decode_cached(model: WhisperModel, mel: torch.Tensor,
         if bool(done.all()):
             break
     return out
+
+
+# --------------------------------------------------------------------------
+# HF conversion
+# --------------------------------------------------------------------------
+
+_ATTN = {"q_proj": "q_proj", "k_proj": "k_proj", "v_proj": "v_proj", "o_proj": "out_proj"}
+
+
+def convert_hf_whisper(state_dict: dict, config: WhisperConfig) -> dict[str, torch.Tensor]:
+    """A HF ``WhisperModel`` state dict (or ``WhisperForConditionalGeneration``'s,
+    prefixed ``model.``) as the port's :class:`WhisperModel` state dict
+    (JAX's ``convert_hf_whisper``); torch's layouts are kept as they are."""
+    sd = {k.removeprefix("model."): torch.as_tensor(v) for k, v in state_dict.items()}
+    out = {}
+
+    def copy(ours: str, theirs: str, leaves=("weight", "bias")) -> None:
+        for leaf in leaves:
+            out[f"{ours}.{leaf}"] = sd[f"{theirs}.{leaf}"]
+
+    def attention(ours: str, theirs: str) -> None:
+        for a, b in _ATTN.items():
+            copy(f"{ours}.{a}", f"{theirs}.{b}", ("weight",) if a == "k_proj" else
+                 ("weight", "bias"))
+
+    copy("encoder.conv1", "encoder.conv1")
+    copy("encoder.conv2", "encoder.conv2")
+    copy("encoder.final_norm", "encoder.layer_norm")
+    for i in range(config.encoder_layers):
+        ours, theirs = f"encoder.layers.{i}", f"encoder.layers.{i}"
+        copy(f"{ours}.attn_norm", f"{theirs}.self_attn_layer_norm")
+        attention(f"{ours}.self_attn", f"{theirs}.self_attn")
+        for name, hf_name in (("ff_norm", "final_layer_norm"), ("fc1", "fc1"), ("fc2", "fc2")):
+            copy(f"{ours}.{name}", f"{theirs}.{hf_name}")
+    out["decoder.embed_tokens"] = sd["decoder.embed_tokens.weight"]
+    out["decoder.embed_positions"] = sd["decoder.embed_positions.weight"]
+    copy("decoder.final_norm", "decoder.layer_norm")
+    for i in range(config.decoder_layers):
+        ours, theirs = f"decoder.layers.{i}", f"decoder.layers.{i}"
+        copy(f"{ours}.self_norm", f"{theirs}.self_attn_layer_norm")
+        attention(f"{ours}.self_attn", f"{theirs}.self_attn")
+        copy(f"{ours}.cross_norm", f"{theirs}.encoder_attn_layer_norm")
+        attention(f"{ours}.cross_attn", f"{theirs}.encoder_attn")
+        for name, hf_name in (("ff_norm", "final_layer_norm"), ("fc1", "fc1"), ("fc2", "fc2")):
+            copy(f"{ours}.{name}", f"{theirs}.{hf_name}")
+    return out
+
+
+def hf_whisper_config(hf) -> WhisperConfig:
+    """The port's config for a HF ``WhisperConfig``."""
+    return WhisperConfig(
+        d_model=hf.d_model, encoder_layers=hf.encoder_layers,
+        decoder_layers=hf.decoder_layers, num_heads=hf.encoder_attention_heads,
+        ffn_dim=hf.encoder_ffn_dim, num_mel_bins=hf.num_mel_bins,
+        max_source_positions=hf.max_source_positions,
+        max_target_positions=hf.max_target_positions, vocab_size=hf.vocab_size,
+        decoder_start_token_id=hf.decoder_start_token_id, eos_token_id=hf.eos_token_id)
+
+
+def load_hf_whisper(model_name_or_path, config: Optional[WhisperConfig] = None
+                    ) -> tuple[WhisperConfig, dict[str, torch.Tensor]]:
+    """A HF ``WhisperModel`` checkpoint (a local directory) as
+    ``(config, state_dict)`` on the CPU; ``transformers`` is imported here
+    only."""
+    from transformers import WhisperModel as HFWhisper
+
+    model = HFWhisper.from_pretrained(model_name_or_path)
+    config = config or hf_whisper_config(model.config)
+    return config, convert_hf_whisper(model.state_dict(), config)

@@ -160,9 +160,11 @@ def build_segmenter(config, device: str | torch.device = "cuda"):
     fake otherwise or for "fake".  "open_vocab" takes the trained
     composite (segmenter proposals named by the mini-SigLIP,
     :mod:`gvl_tpu_torch.perception.open_vocab`) when ``sam_checkpoint`` and
-    a mini-SigLIP ``siglip_checkpoint`` resolve; HF directories
-    (``sam_vit_dir``) raise (ROADMAP A10); with neither it falls back to
-    "auto", as in JAX.
+    a mini-SigLIP ``siglip_checkpoint`` resolve, else the HF composite (SAM
+    point-grid proposals named by an HF SigLIP pair,
+    :func:`~gvl_tpu_torch.perception.open_vocab.create_open_vocab_segmenter`)
+    when ``sam_vit_dir`` and ``siglip_checkpoint`` resolve; with neither it
+    falls back to "auto", as in JAX.
 
     Unlike the JAX package (ROADMAP C7), a checkpoint that resolves but
     cannot be read, or whose geometry is not the model's, raises: the arm
@@ -195,7 +197,7 @@ def build_segmenter(config, device: str | torch.device = "cuda"):
         if sam_dir and siglip_dir:
             from gvl_tpu_torch.perception.open_vocab import create_open_vocab_segmenter
 
-            return create_open_vocab_segmenter(sam_dir, siglip_dir)
+            return create_open_vocab_segmenter(sam_dir, siglip_dir, device=device)
         logger.warning(
             "sam_backend='open_vocab' needs sam_vit_dir + siglip_checkpoint HF "
             "directories (or sam_checkpoint + a trained mini-SigLIP dir); falling "
@@ -221,8 +223,9 @@ def build_siglip_encoder(config, device: str | torch.device = "cuda"):
     """Semantic encoder from the preset ladder: the trained mini-SigLIP
     (:meth:`SigLIPSemanticEncoder.from_trained_checkpoint`, its own f32
     numerics; ``siglip_int8`` gives its dynamic W8A8 blocks) when
-    ``siglip_checkpoint`` is one, an HF checkpoint otherwise (not ported,
-    ROADMAP A10), the so400m tower on seeded random weights for
+    ``siglip_checkpoint`` is one, an HF checkpoint's tower otherwise
+    (:meth:`SigLIPSemanticEncoder.from_hf_checkpoint`: the fused W8A8 tower
+    when ``siglip_fused``, the dynamic W8A8 one for ``siglip_int8``), the so400m tower on seeded random weights for
     ``siglip_backend="jax"`` (the fused W8A8 tower when ``siglip_fused``),
     the deterministic fake for "fake" or without a checkpoint."""
     from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
@@ -248,7 +251,8 @@ def build_siglip_encoder(config, device: str | torch.device = "cuda"):
         if is_minisiglip_checkpoint(ckpt):
             return SigLIPSemanticEncoder.from_trained_checkpoint(ckpt, config=nf,
                                                                  device=device)
-        return SigLIPSemanticEncoder.from_hf_checkpoint(ckpt, config=_fused(nf))
+        return SigLIPSemanticEncoder.from_hf_checkpoint(ckpt, config=_fused(nf),
+                                                        device=device)
     if backend == "jax":
         return SigLIPSemanticEncoder.with_random_tower(config=_fused(nf), device=device)
     return SigLIPSemanticEncoder()

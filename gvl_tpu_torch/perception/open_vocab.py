@@ -1,21 +1,18 @@
-"""Open-vocabulary segmentation: segmenter proposals named in the
-mini-SigLIP's image-text space (counterpart of
-:mod:`gvl_tpu.perception.open_vocab`).
+"""Open-vocabulary segmentation: class-agnostic mask proposals named in a
+SigLIP image-text space (counterpart of :mod:`gvl_tpu.perception.open_vocab`).
 
-:class:`OpenVocabSamBackend` takes class-agnostic mask proposals (from the
-trained promptable segmenter prompted with its training concepts, after
-mask NMS), crops each onto the mini-SigLIP canvas and scores it against the
-caller's text prompts, each embedded under a template ensemble; the
+:class:`OpenVocabSamBackend` takes mask proposals (from SAM ViT prompted
+with a point grid, :mod:`gvl_tpu_torch.models.sam_vit`, under an HF SAM and
+SigLIP pair; or from the trained promptable segmenter prompted with its
+training concepts), keeps them after mask NMS, crops each onto the SigLIP
+canvas and scores it against the caller's text prompts, each embedded
+under a template ensemble where one is set; the
 :class:`LexiconPromptResolver` first maps unseen phrasings onto the
 trained concepts through the trained retriever's text space.  It follows
 the segmenter backend protocol (``(frames, concepts, frame_indices) →
-results[frame][concept]``), so the tracker stacks on it unchanged.  Both
-towers and the segmenter run on ``device``, their attention through the
-flash kernel.
-
-The HF rung (SAM point-grid proposals scored by an HF SigLIP pair:
-``from_checkpoints``, ``create_open_vocab_segmenter``) is not ported and
-raises (ROADMAP A10).
+results[frame][concept]``), so the tracker stacks on it unchanged.  The
+towers and the proposer run on ``device``, the towers' attention through
+the flash kernel (SAM's is plain PyTorch, as in JAX).
 """
 
 from __future__ import annotations
@@ -31,6 +28,10 @@ from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.perception.segmenter import BoundingBox, SegmentationMask
 
 logger = logging.getLogger(__name__)
+
+# HF SamProcessor normalization (ImageNet)
+SAM_MEAN = (123.675, 116.28, 103.53)
+SAM_STD = (58.395, 57.12, 57.375)
 
 # default ensemble for the self-trained composite (the JAX module's)
 TRAINED_PROMPT_TEMPLATES = ("{}", "sprite of {}", "a {}", "the {}")
@@ -141,11 +142,14 @@ class OpenVocabSamBackend:
     """Mask proposals + SigLIP text scoring.
 
     ``propose_fn`` (frames → proposal masks ``[B, P, h, w]`` and scores
-    ``[B, P]``) supplies the proposals; the SAM point-grid proposer the JAX
-    class builds without one needs the HF SAM port (ROADMAP A10).
-    ``vision_backend`` is a uint8-in, pooled-out backend
-    (:class:`~gvl_tpu_torch.perception.semantic.TorchSigLIPBackend` with
-    'cls' pooling); ``text_tower`` a text tower on the same device."""
+    ``[B, P]``) supplies the proposals; without one, ``sam_params`` (a
+    :class:`~gvl_tpu_torch.models.sam_vit.SamViT` on its device; JAX's is
+    its parameter tree) is prompted with a ``grid`` x ``grid`` point grid,
+    one point a prompt, and each point's best of the three masks (by
+    predicted IoU) is its proposal.  ``vision_backend`` is a uint8-in,
+    pooled-out backend (:class:`~gvl_tpu_torch.perception.semantic.
+    TorchSigLIPBackend` with 'cls' pooling); ``text_tower`` a text tower
+    holding its weights (``text_params`` is unused: JAX's parameter tree)."""
 
     def __init__(self, sam_config, sam_params, vision_backend, text_tower, text_params,
                  tokenize, grid: int = 4, iou_threshold: float = 0.7,
@@ -155,10 +159,6 @@ class OpenVocabSamBackend:
                  prompt_resolver: Optional[LexiconPromptResolver] = None):
         from gvl_tpu_torch.perception.semantic import NaFlexConfig, RegionExtractor
 
-        if propose_fn is None:
-            raise NotImplementedError(
-                "SAM point-grid proposals need the HF SAM ViT port, which is not "
-                "ported yet (ROADMAP A10): pass propose_fn")
         self.sam_config = sam_config
         self.sam_params = sam_params
         self.vision_backend = vision_backend
@@ -178,7 +178,45 @@ class OpenVocabSamBackend:
         if region_resolution:
             self._naflex.region_resolution = region_resolution
         self._extractor = RegionExtractor(self._naflex)
-        self._proposals = propose_fn
+        if propose_fn is not None:
+            self._proposals = propose_fn
+        else:
+            step = sam_config.image_size / grid
+            axis = (np.arange(grid) + 0.5) * step
+            self._points = np.stack(np.meshgrid(axis, axis, indexing="xy"), -1).reshape(
+                -1, 1, 2).astype(np.float32)                  # [G², 1, 2]
+            self._proposals = self._sam_proposals
+
+    @torch.inference_mode()
+    def _propose(self, pixels_u8: torch.Tensor, points: torch.Tensor,
+                 labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        from gvl_tpu_torch.models.sam_vit import sam_predict
+
+        device = pixels_u8.device
+        pixels = (pixels_u8.float() - torch.tensor(SAM_MEAN, device=device)) \
+            / torch.tensor(SAM_STD, device=device)
+        masks, iou = sam_predict(self.sam_params, pixels, input_points=points,
+                                 input_labels=labels, multimask_output=True)
+        best = iou.argmax(-1)          # the best of the 3 multimask outputs a point
+        mask = masks.gather(2, best[:, :, None, None, None].expand(
+            -1, -1, 1, *masks.shape[3:]))[:, :, 0]
+        return mask > 0.0, iou.max(-1).values
+
+    def _sam_proposals(self, frames):
+        """Point-grid SAM proposals → (masks ``[B, P, h', w']``, scores ``[B, P]``)."""
+        from gvl_tpu_torch.runtime.native import resize_image
+
+        size = self.sam_config.image_size
+        device = next(self.sam_params.parameters()).device
+        batch = np.stack([resize_image(np.ascontiguousarray(f), size, size)
+                          for f in frames]).astype(np.uint8)
+        n_pts = self._points.shape[0]
+        points = np.broadcast_to(self._points[None], (len(frames), n_pts, 1, 2)).copy()
+        labels = np.ones((len(frames), n_pts, 1), np.int64)
+        masks, iou = self._propose(torch.from_numpy(batch).to(device),
+                                   torch.from_numpy(points).to(device),
+                                   torch.from_numpy(labels).to(device))
+        return masks.cpu().numpy(), iou.float().cpu().numpy()
 
     @torch.inference_mode()
     def _embed_text(self, ids: np.ndarray) -> np.ndarray:
@@ -191,11 +229,43 @@ class OpenVocabSamBackend:
 
     @classmethod
     def from_checkpoints(cls, sam_dir: str, siglip_vision_dir: str,
-                         siglip_text_dir: Optional[str] = None, **kw) -> "OpenVocabSamBackend":
-        """HF SAM + SigLIP checkpoint directories: not ported (ROADMAP A10)."""
-        raise NotImplementedError(
-            "open-vocab segmentation from HF SAM and SigLIP checkpoints is not "
-            "ported yet (ROADMAP A10)")
+                         siglip_text_dir: Optional[str] = None,
+                         device: str | torch.device = "cuda", **kw) -> "OpenVocabSamBackend":
+        """From local HF checkpoint directories, every model on ``device``:
+        SAM ViT proposals; the SigLIP vision tower behind the bf16 'cls'
+        backend (SigLIP's image-text space is the MAP head's output); the
+        text tower and its tokenizer (``transformers.AutoTokenizer``,
+        imported here only) from ``siglip_text_dir`` or the vision
+        directory."""
+        from transformers import AutoTokenizer
+
+        from gvl_tpu_torch.models.sam_vit import load_hf_sam, load_sam_vit
+        from gvl_tpu_torch.models.siglip import (
+            load_hf_siglip,
+            load_hf_siglip_text,
+            load_text_tower,
+            load_tower,
+        )
+        from gvl_tpu_torch.perception.semantic import NaFlexConfig, TorchSigLIPBackend
+
+        device = resolve_device(device)
+        sam_config, sam_state = load_hf_sam(sam_dir)
+        vision_config, vision_state = load_hf_siglip(siglip_vision_dir)
+        nc = NaFlexConfig(pool_strategy="cls")
+        vision_backend = TorchSigLIPBackend(
+            load_tower(vision_config, vision_state, device), nc.dtype,
+            image_mean=nc.image_mean, image_std=nc.image_std, pool_strategy=nc.pool_strategy)
+        text_dir = siglip_text_dir or siglip_vision_dir
+        text_config, text_state = load_hf_siglip_text(text_dir)
+        tokenizer = AutoTokenizer.from_pretrained(text_dir)
+
+        def tokenize(texts):
+            return tokenizer(list(texts), padding="max_length", truncation=True,
+                             max_length=text_config.max_position,
+                             return_tensors="np")["input_ids"]
+
+        return cls(sam_config, load_sam_vit(sam_config, sam_state, device), vision_backend,
+                   load_text_tower(text_config, text_state, device), None, tokenize, **kw)
 
     @classmethod
     def from_trained_checkpoints(cls, segmenter_checkpoint: str, minisiglip_dir: str,
@@ -335,11 +405,15 @@ class OpenVocabSamBackend:
 
 
 def create_open_vocab_segmenter(sam_dir: str, siglip_vision_dir: str,
-                                siglip_text_dir: Optional[str] = None, config=None, **kw):
-    """HF SAM + SigLIP composite: not ported (ROADMAP A10)."""
-    raise NotImplementedError(
-        "open-vocab segmentation from HF SAM and SigLIP checkpoints is not ported "
-        "yet (ROADMAP A10)")
+                                siglip_text_dir: Optional[str] = None, config=None,
+                                device: str | torch.device = "cuda", **kw):
+    """SAMConceptSegmenter (tracking included) over the HF composite
+    (:meth:`OpenVocabSamBackend.from_checkpoints`)."""
+    from gvl_tpu_torch.perception.segmenter import SAMConceptSegmenter, SAMConfig
+
+    backend = OpenVocabSamBackend.from_checkpoints(
+        sam_dir, siglip_vision_dir, siglip_text_dir, device=device, **kw)
+    return SAMConceptSegmenter(config or SAMConfig(), backend=backend)
 
 
 def create_trained_open_vocab_segmenter(segmenter_checkpoint: str, minisiglip_dir: str,

@@ -309,9 +309,30 @@ class SigLIPSemanticEncoder:
         self.projection = projection
 
     @classmethod
-    def from_hf_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None):
-        raise NotImplementedError(
-            "HF SigLIP checkpoints are not ported yet (ROADMAP A10)")
+    def from_hf_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None,
+                           device: str | torch.device = "cuda"):
+        """An HF ``SiglipVisionModel`` directory's tower on ``device``
+        (``transformers`` imported by the loader only), served as
+        :meth:`from_tower_state` serves it."""
+        from gvl_tpu_torch.models.siglip import load_hf_siglip
+
+        vision_config, state = load_hf_siglip(path)
+        return cls.from_tower_state(vision_config, state, config, device)
+
+    @classmethod
+    def from_tower_state(cls, vision_config: SigLIPVisionConfig, state: dict,
+                         config: Optional[NaFlexConfig] = None,
+                         device: str | torch.device = "cuda"):
+        """The tower of a converted state dict (f32, as an HF checkpoint
+        converts) behind the backend ``config`` asks for: the fused W8A8
+        tower with ``quant_fused``, the dynamic W8A8 tower with
+        ``quant_int8``, else the tower itself in the promoted type of the
+        pixels' and its own."""
+        config = config or NaFlexConfig()
+        device = resolve_device(device)
+        vcfg, state = _maybe_quantize_tower(vision_config, state, config)
+        tower = load_tower(vcfg, state, device)
+        return cls(config, backend=build_vision_backend(tower, config))
 
     @classmethod
     def from_trained_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None,

@@ -237,8 +237,14 @@ def test_create_audio_processor_takes_the_same_rungs(monkeypatch):
     assert isinstance(proc.event_backend, tev.TorchAudioEventDetector)
     assert isinstance(tproc.create_audio_processor(None, device="cpu").asr,
                       tproc.DeterministicFakeASR)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a Whisper directory reaches the HF Whisper rung (ROADMAP A10, ported):
+    # the byte ASR's directory is none, and fails as under JAX's loader
+    # (HF directories that load: tests/test_torch_hf_encoders.py)
+    with pytest.raises(OSError) as want:
+        jproc.create_audio_processor(str(ASR_CKPT))
+    with pytest.raises(OSError) as got:
         tproc.create_audio_processor(str(ASR_CKPT), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def _write_wav(path, samples: np.ndarray, width: int, rate: int, fmt: int = 1):

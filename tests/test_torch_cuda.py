@@ -1253,6 +1253,115 @@ def test_perception_models_kernel_path_matches_plain_path(dev):
     assert torch.equal(got, want)
 
 
+def _hf_model(dev, gen, layout, convert, load):
+    """A model of the HF rungs from seeded weights in its HF layout, through
+    the port's converter, on the card."""
+    from gvl_tpu_torch.models.hf_layouts import random_state
+
+    return load(convert(random_state(layout, gen, dev)), dev)
+
+
+def _kernel_and_plain(fn):
+    """``fn()`` through the flash kernel and through its plain version, and
+    the kernel launches of the first."""
+    from gvl_tpu_torch.nn.layers import plain_attention
+
+    with torch.inference_mode():
+        before = flash_attention.launches
+        got = fn()
+        launched = flash_attention.launches - before
+        with plain_attention():
+            want = fn()
+    return got, want, launched
+
+
+def test_hf_audio_and_video_models_kernel_path_matches_plain_path(dev):
+    """wav2vec2 (stable and post-norm), Whisper and VideoMAE, small, from
+    HF-layout weights: the kernel path against the plain path on the card."""
+    import dataclasses
+
+    from gvl_tpu_torch.models import hf_layouts as L
+    from gvl_tpu_torch.models import videomae, wav2vec2, whisper
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for stable in (True, False):
+        cfg = dataclasses.replace(wav2vec2.Wav2Vec2Config.tiny(stable), hidden_size=128,
+                                  num_heads=2, num_layers=2)
+        w2v = _hf_model(dev, gen, L.wav2vec2_layout(cfg),
+                        lambda s: wav2vec2.convert_hf_wav2vec2(s, cfg),
+                        lambda s, d: wav2vec2.load_wav2vec2(cfg, s, d))
+        wav = torch.randn(2, 8000, generator=gen, device=dev)
+        got, want, launched = _kernel_and_plain(lambda: w2v(wav)["last_hidden_state"])
+        assert launched == 2
+        torch.testing.assert_close(got, want, **F32_TOL)
+    cfg = dataclasses.replace(whisper.WhisperConfig.tiny_random(), d_model=128, num_heads=2,
+                              num_mel_bins=80, max_source_positions=300)
+    asr = _hf_model(dev, gen, L.whisper_layout(cfg), lambda s: whisper.convert_hf_whisper(s, cfg),
+                    lambda s, d: whisper.load_whisper(cfg, s, d))
+    mel = torch.randn(1, 600, 80, generator=gen, device=dev)
+    got, want, launched = _kernel_and_plain(lambda: asr.encoder(mel))
+    assert launched == 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+    prompt = torch.tensor([[50258, 50259]], device=dev)
+    got, want, launched = _kernel_and_plain(
+        lambda: whisper.greedy_decode_cached(asr, mel, prompt, 8))
+    assert torch.equal(got, want) and launched >= 2
+    cfg = dataclasses.replace(videomae.VideoMAEConfig.tiny(), hidden_size=128, num_heads=2)
+    clip = _hf_model(dev, gen, L.videomae_layout(cfg),
+                     lambda s: videomae.convert_hf_videomae(s, cfg),
+                     lambda s, d: videomae.load_videomae(cfg, s, d))
+    video = torch.randn(2, 4, 32, 32, 3, generator=gen, device=dev)
+    got, want, launched = _kernel_and_plain(lambda: clip(video)["last_hidden_state"])
+    assert launched == 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def test_hf_siglip_and_sam_models_kernel_path_matches_plain_path(dev):
+    """The SigLIP pair (head 72, padded to 80) and SAM ViT from HF-layout
+    weights, MiniLM beside them: kernel path against plain path on the card
+    (SAM's and MiniLM's attention is plain on both, as in JAX)."""
+    from gvl_tpu_torch.models import hf_layouts as L
+    from gvl_tpu_torch.models import minilm, sam_vit, siglip
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    vcfg = siglip.SigLIPVisionConfig(hidden_size=144, intermediate_size=256, num_layers=2,
+                                     num_heads=2, image_size=56)
+    tower = _hf_model(dev, gen, L.siglip_vision_layout(vcfg),
+                      lambda s: siglip.convert_hf_siglip_vision(s, vcfg),
+                      lambda s, d: siglip.load_tower(vcfg, s, d))
+    pixels = torch.randn(3, 56, 56, 3, generator=gen, device=dev)
+    got, want, launched = _kernel_and_plain(lambda: tower(pixels)["pooled"])
+    assert launched == 3
+    torch.testing.assert_close(got, want, **F32_TOL)
+    tcfg = siglip.SigLIPTextConfig.tiny(hidden_size=144, num_heads=2, projection_size=144)
+    text = _hf_model(dev, gen, L.siglip_text_layout(tcfg),
+                     lambda s: siglip.convert_hf_siglip_text(s, tcfg),
+                     lambda s, d: siglip.load_text_tower(tcfg, s, d))
+    ids = torch.randint(0, 256, (4, 16), generator=gen, device=dev)
+    got, want, launched = _kernel_and_plain(lambda: text(ids)["pooled"])
+    assert launched == 2
+    torch.testing.assert_close(got, want, **F32_TOL)
+    scfg = sam_vit.SamViTConfig(image_size=128, hidden_size=64, num_layers=2, num_heads=2,
+                                mlp_dim=128, output_channels=32, window_size=4,
+                                global_attn_indexes=(1,), prompt_hidden=32, num_pos_feats=16,
+                                decoder_heads=2, decoder_mlp_dim=64, iou_head_hidden=32)
+    sam = _hf_model(dev, gen, L.sam_layout(scfg), lambda s: sam_vit.convert_hf_sam(s, scfg),
+                    lambda s, d: sam_vit.load_sam_vit(scfg, s, d))
+    pixels = torch.randn(2, 128, 128, 3, generator=gen, device=dev)
+    points = torch.rand(2, 4, 1, 2, generator=gen, device=dev) * 128
+    labels = torch.ones(2, 4, 1, dtype=torch.int64, device=dev)
+    got, want, launched = _kernel_and_plain(
+        lambda: sam_vit.sam_predict(sam, pixels, points, labels))
+    assert launched == 0 and got[0].shape == (2, 4, 3, 32, 32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    mcfg = minilm.MiniLMConfig.tiny()
+    bert = _hf_model(dev, gen, L.bert_layout(mcfg), lambda s: minilm.convert_hf_bert(s, mcfg),
+                     lambda s, d: minilm.load_minilm(mcfg, s, d))
+    ids = torch.randint(0, 512, (3, 20), generator=gen, device=dev)
+    got, want, launched = _kernel_and_plain(lambda: bert(ids))
+    assert launched == 0 and torch.isfinite(got).all()
+
+
 # B1 in Qwen3-VL's vision tower: head 72 (padded to 80 by the wrapper), not
 # causal, one sequence of the 448- and 256-pixel frames' patches
 @pytest.mark.parametrize("seq", [784, 256])

@@ -78,7 +78,9 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.scripts.extract_features",
              "gvl_tpu_torch.scripts.demo_projector_inference",
              "gvl_tpu_torch.scripts.run_phase_evidence",
-             "gvl_tpu_torch.scripts.summarize_phase_results"):
+             "gvl_tpu_torch.scripts.summarize_phase_results",
+             "gvl_tpu_torch.models.minilm", "gvl_tpu_torch.models.wav2vec2",
+             "gvl_tpu_torch.models.sam_vit", "gvl_tpu_torch.models.hf_layouts"):
     assert name in names, name
 import chip_smoke
 import launch_costs
@@ -169,6 +171,8 @@ def test_entry_points_raise_without_a_card(no_card):
     from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
 
     from gvl_tpu_torch.models.qwen3vl import Qwen3VL, Qwen3VLVisionConfig, init_vl_params
+    from gvl_tpu_torch.models import hf_layouts, minilm, sam_vit, videomae, wav2vec2
+    from gvl_tpu_torch.models.siglip import SigLIPTextConfig, load_text_tower
 
     cfg = Qwen3Config.tiny()
     state = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -189,6 +193,13 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: SigLIPSemanticEncoder.with_random_tower(NaFlexConfig(quant_fused=True)),
         lambda: init_tower_params(SigLIPVisionConfig.tiny(), torch.Generator()),
         lambda: load_tower(SigLIPVisionConfig.tiny(), {}),
+        lambda: load_text_tower(SigLIPTextConfig.tiny(), {}),
+        lambda: minilm.load_minilm(minilm.MiniLMConfig.tiny(), {}),
+        lambda: wav2vec2.load_wav2vec2(wav2vec2.Wav2Vec2Config.tiny(), {}),
+        lambda: sam_vit.load_sam_vit(sam_vit.SamViTConfig(), {}),
+        lambda: videomae.load_videomae(videomae.VideoMAEConfig.tiny(), {}),
+        lambda: hf_layouts.random_state({}, torch.Generator()),
+        lambda: SigLIPSemanticEncoder.from_tower_state(SigLIPVisionConfig.tiny(), {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -97,14 +97,21 @@ def test_open_vocab_rung_of_the_segmenter_ladder(tmp_path):
     assert (type(tbatch.build_segmenter(tcfg, device="cpu").backend).__name__,
             type(jbatch.build_segmenter(jcfg).backend).__name__) == \
         ("TorchSegmenterBackend", "JaxSegmenterBackend")
-    # HF SAM + SigLIP directories: not ported
+    # HF SAM + SigLIP directories (ROADMAP A10, ported) are loaded as JAX
+    # loads them; these hold nothing, and fail with JAX's error (directories
+    # that load: tests/test_torch_hf_encoders.py)
     hf = tmp_path / "hf"
     hf.mkdir()
-    tcfg.perception.sam_vit_dir = tcfg.perception.siglip_checkpoint = str(hf)
-    with pytest.raises(NotImplementedError, match="A10"):
+    for cfg in (jcfg, tcfg):
+        cfg.perception.sam_vit_dir = cfg.perception.siglip_checkpoint = str(hf)
+    with pytest.raises(OSError) as want:
+        jbatch.build_segmenter(jcfg)
+    with pytest.raises(OSError) as got:
         tbatch.build_segmenter(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tov.OpenVocabSamBackend.from_checkpoints(str(hf), str(hf))
+    assert str(got.value) == str(want.value)
+    with pytest.raises(OSError) as got:
+        tov.OpenVocabSamBackend.from_checkpoints(str(hf), str(hf), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_seeded_siglip_clip_and_hico_checkpoints_take_the_trained_layouts(tmp_path, caplog):

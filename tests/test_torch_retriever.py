@@ -120,7 +120,10 @@ def test_make_embedder_takes_the_same_rung(name, monkeypatch):
 
 
 def test_make_embedder_minilm_rung_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
+    """The MiniLM rung (ROADMAP A10) is ported since; a directory that
+    resolves but holds no MiniLM checkpoint raises (C15), where JAX falls
+    through (tests/test_torch_minilm.py)."""
+    with pytest.raises(ValueError, match="C15"):
         tret.make_embedder(port_config.ReasoningCoreConfig(embedding_model=str(tmp_path)),
                            device="cpu")
 

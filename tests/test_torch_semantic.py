@@ -222,9 +222,15 @@ def test_companion_backend_pools_like_jax():
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
-def test_checkpoint_entry_points_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tsem.SigLIPSemanticEncoder.from_hf_checkpoint("somewhere")
+def test_checkpoint_entry_points_name_their_roadmap_items(tmp_path):
+    # the HF rung (ROADMAP A10) is ported: a directory with no checkpoint
+    # fails in the loader as JAX's does (directories that load:
+    # tests/test_torch_hf_encoders.py)
+    with pytest.raises(OSError) as want:
+        jsem.SigLIPSemanticEncoder.from_hf_checkpoint(str(tmp_path))
+    with pytest.raises(OSError) as got:
+        tsem.SigLIPSemanticEncoder.from_hf_checkpoint(str(tmp_path), device="cpu")
+    assert str(got.value) == str(want.value)
     # the trained mini-SigLIP rung, ported since (held to JAX in
     # tests/test_torch_minisiglip.py): it loads, 'cls'-pooled at its canvas
     trained = tsem.SigLIPSemanticEncoder.from_trained_checkpoint("outputs/minisiglip",
