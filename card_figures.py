@@ -3,6 +3,7 @@
 
     python3 card_figures.py qa                  # the QA model's held-out accuracy
     python3 card_figures.py fused               # the fused W8A8 tower against bf16
+    python3 card_figures.py grad_drift          # phase 18's gradient check, read further
     python3 card_figures.py --cpu gvp_light open_vocab clip lora
 
 Run from the root of the repository, on a machine with one CUDA card and
@@ -51,6 +52,22 @@ lora_path="outputs/lora_adapter")``), ``evaluate_qa_lm`` n 60 on the
 ``adapter_config.json``: lora_causal 0.633, lora_mix 0.833; base 0.0 and
 0.883); whether the adapter merged or was skipped (ROADMAP C6) is part of
 the reading.
+
+``grad_drift``: ``chip_smoke.py`` phase 18's gradient check, read on more
+batches (seeds 18 to 25; 2 rows of phase B's batch of 16 x 4096 each, the
+served QA model with remat) over 3 trainer steps, in two modes: ``shared``,
+the check as the script makes it (every path takes its gradients at the
+f32 path's parameters), and, on seeds 18 to 20, ``own``, each path along
+its own trajectory with its own optimizer.  Five paths: the kernel path
+and the plain path in bf16; two witnesses in bf16, the plain path with
+PyTorch's ``scaled_dot_product_attention`` as the attention forward (a
+library's flash kernel in B1's place, for the forward and the backward's
+``delta`` alike; a yardstick the port never calls) and the plain path with
+the batch's two rows swapped (the same loss, its sums over the batch in
+another order); and the plain path in f32, the truth.  Per step and path:
+the worst share of the script's limit (relative L2 error against the truth
+over 1.5 x the plain path's, plus 1e-3; per parameter tensor and the
+loss), the share on layer 0's ``q_norm`` and the loss's relative error.
 
 Prints the device (the card's name and power limit, or the CPU), one line
 per reading, and one JSON object as its last line.
@@ -255,8 +272,126 @@ def lora_figure(dev) -> dict:
     return out
 
 
+# grad_drift: chip_smoke.py phase 18's check (its constants), further batches
+DRIFT_SEEDS, DRIFT_OWN_SEEDS = tuple(range(18, 26)), (18, 19, 20)
+DRIFT_ROWS, DRIFT_STEPS, DRIFT_RATIO, DRIFT_FLOOR = 2, 3, 1.5, 1e-3
+DRIFT_BATCH, DRIFT_LEN = 16, 4096
+DRIFT_PHASE_B = dict(learning_rate=1.5e-4, pipeline_frac=0.3, short_mix=0.15, lookup_frac=0.1,
+                     family_weights=(0.15, 0.15, 0.2, 0.2, 0.3, 0.0))
+DRIFT_TENSOR = "layers.0.self_attn.q_norm.weight"
+
+
+def sdpa_attention(q, k, v, *, causal=False, sm_scale=None, kv_len=None):
+    """PyTorch's ``scaled_dot_product_attention`` with the plain version's
+    arguments (no ``kv_len``: the training path has none)."""
+    assert kv_len is None
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k, v = k.repeat_interleave(group, dim=1), v.repeat_interleave(group, dim=1)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                            scale=sm_scale)
+
+
+def grad_drift_figure(dev) -> dict:
+    from dataclasses import replace
+
+    from gvl_tpu_torch.models.byte_tokenizer import ByteTokenizer
+    from gvl_tpu_torch.models.qwen3 import load_model
+    from gvl_tpu_torch.ops import attention
+    from gvl_tpu_torch.training import qa_lm_train as T
+
+    base_cfg, base = T.load_qa_lm(REPO / "outputs" / "qa_lm", device=dev)
+    model_cfg = replace(base_cfg, remat=True)
+    plain = model_cfg.plain()
+    # name: (config, loss dtype, rows swapped, the plain path's attention
+    # forward); the truth last, so that its gradients are still in place
+    # for its update
+    paths = {"kernel": (model_cfg, torch.bfloat16, False, None),
+             "plain": (plain, torch.bfloat16, False, None),
+             "sdpa": (plain, torch.bfloat16, False, sdpa_attention),
+             "swapped": (plain, torch.bfloat16, True, None),
+             "f32": (plain, torch.float32, False, None)}
+    witnesses = ("kernel", "sdpa", "swapped")
+
+    def rel_l2(x, ref) -> float:
+        diff, norm = (x.float() - ref.float()).norm().item(), ref.float().norm().item()
+        return diff / norm if norm else diff
+
+    def loss_and_grads(model, dtype, tokens, mask, forward):
+        reference = attention.attention_reference
+        attention.attention_reference = forward or reference
+        try:
+            loss = T.qa_loss(model, tokens, mask, dtype)
+            loss.backward()
+        finally:
+            attention.attention_reference = reference
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    def run(mode, cfg, tokens, mask) -> list:
+        if mode == "shared":
+            truth = T.training_model(plain, base, dev)
+            state = dict(truth.state_dict())
+            models = {name: truth if name == "f32" else load_model(c, state, dev)
+                      for name, (c, *_) in paths.items()}
+            opts = [T.qa_optimizer(cfg, truth.parameters())]
+        else:
+            models = {name: T.training_model(c, base, dev) for name, (c, *_) in paths.items()}
+            opts = [T.qa_optimizer(cfg, m.parameters()) for m in models.values()]
+        rows = []
+        for step in range(DRIFT_STEPS):
+            got = {}
+            for name, (_, dtype, swapped, forward) in paths.items():
+                model = models[name]
+                got[name] = loss_and_grads(model, dtype, tokens.flip(0) if swapped else tokens,
+                                           mask.flip(0) if swapped else mask, forward)
+                if mode == "shared" and name != "f32":
+                    for p in model.parameters():
+                        p.grad = None
+            truth_loss, truth_grads = got["f32"]
+            err = {name: {**{n: rel_l2(got[name][1][n], g) for n, g in truth_grads.items()},
+                          "loss": abs(got[name][0] - truth_loss) / abs(truth_loss)}
+                   for name in ("plain",) + witnesses}
+            row = {"step": step, "losses": {name: got[name][0] for name in paths},
+                   "plain_loss_err": err["plain"]["loss"]}
+            for name in witnesses:
+                share = {n: e / (DRIFT_RATIO * err["plain"][n] + DRIFT_FLOOR)
+                         for n, e in err[name].items()}
+                worst = max(share, key=share.get)
+                row[name] = {"worst": worst, "share": share[worst], "err": err[name][worst],
+                             "plain_err": err["plain"][worst], "loss_err": err[name]["loss"],
+                             "q_norm_share": share[DRIFT_TENSOR]}
+            rows.append(row)
+            for opt in opts:        # after the reading: the clip scales gradients in place
+                opt.step()
+        del models, opts, got
+        return rows
+
+    out = {}
+    for seed in DRIFT_SEEDS:
+        cfg = T.QATrainConfig(steps=DRIFT_STEPS, batch_size=DRIFT_BATCH, max_len=DRIFT_LEN,
+                              pool_size=DRIFT_BATCH, seed=seed, log_every=0,
+                              compute_dtype="bfloat16", model=model_cfg, **DRIFT_PHASE_B)
+        tokens, mask = (torch.from_numpy(a[:DRIFT_ROWS]).to(dev) for a in T._render_batch(
+            np.random.default_rng(seed), cfg, ByteTokenizer()))
+        for mode in ("shared", "own") if seed in DRIFT_OWN_SEEDS else ("shared",):
+            start = time.perf_counter()
+            rows = run(mode, cfg, tokens, mask)
+            out[f"seed {seed} {mode}"] = rows
+            for r in rows:
+                print(f"grad_drift seed {seed} {mode} step {r['step']}: plain loss err "
+                      f"{r['plain_loss_err']:.4g}; " + "; ".join(
+                          f"{name} worst {r[name]['worst']} share {r[name]['share']:.4f} "
+                          f"(err {r[name]['err']:.4g}, plain {r[name]['plain_err']:.4g}), "
+                          f"q_norm {r[name]['q_norm_share']:.4f}, loss err "
+                          f"{r[name]['loss_err']:.4g}" for name in witnesses), flush=True)
+            print(f"grad_drift seed {seed} {mode}: {time.perf_counter() - start:.1f} s",
+                  flush=True)
+    return out
+
+
 FIGURES = {"qa": qa_figure, "fused": fused_figure, "gvp_light": gvp_light_figure,
-           "open_vocab": open_vocab_figure, "clip": clip_figure, "lora": lora_figure}
+           "open_vocab": open_vocab_figure, "clip": clip_figure, "lora": lora_figure,
+           "grad_drift": grad_drift_figure}
 
 
 def main(argv) -> int:

@@ -158,10 +158,35 @@ Run from the root of the repository, on a machine with one CUDA card and
     point-grid proposals, 4 x 4 points on 2 frames, named by the SigLIP
     pair); each against its plain path (encoder outputs within 1e-4 of
     their largest magnitude, pooled cosine >= 0.9995, tokens and detections
-    equal); wall ms per model, allocator peak, within ``HF_BUDGET_S``.
+    equal); wall ms per model, allocator peak, within ``HF_BUDGET_S``;
+18. training the served decoder (``gvl_tpu_torch.training``): ``train_qa_lm``
+    warm-started from ``outputs/qa_lm`` (10 layers, hidden 640, 10/5 heads of
+    64, intermediate 2560) with phase B's settings (batch 16 at max_len 4096,
+    every weight cast to bf16 in the loss, each layer rematerialised, lr
+    1.5e-4, pipeline 0.3, short 0.15, lookup 0.1) for 6 steps on one fixed
+    batch: ms per step, token positions per second, device ms, busy share
+    and B1's share (profiler, steps 3 and 4), allocator peak, B1 launches per
+    step (30: forward, remat's recompute and the blockwise backward's delta
+    recompute, per layer), the loss falling and finite; one step's forward,
+    backward and optimizer timed apart (events); 3 steps on 2 rows of that
+    batch along the f32 plain path's trajectory, the kernel path, the plain
+    path and the f32 path each taking its gradients at the same parameters:
+    every gradient and the loss within 1.5x the plain path's error of f32
+    plus ``GRAD_FLOOR``; ``save_qa_lm`` and ``load_qa_lm`` bit-equal, then 8
+    held-out answers of the saved model (B1, B2, B3); ``train_qa_lm_lora``
+    (rank 32, batch 16 x 2560, f32) for 4 steps: 20 B1 launches a step,
+    frozen tensors bit-equal, every ``lora_b`` moved, the adapter merged
+    through ``create_reasoning_core(lora_path=)`` answering 8 samples as its
+    plain path does; ``ProjectorTrainer``'s generative objective over the
+    frozen QA model on seeded embeddings (10 B1 launches a step, the LLM
+    bit-equal, ``projector_weights.pt`` read back through
+    ``ProjectorBank``); ``python -m gvl_tpu_torch.scripts.train_qa_lm
+    --geometry v5`` and ``finetune_lora --data`` as two processes run
+    together (exit 0, their files); within ``TRAIN_BUDGET_S``.  Phase 2
+    also times B1 at the training shape (row 1r).
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 17) and read just after it; each run must have launched
+path of phases 3 to 18) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -334,6 +359,32 @@ HF_SAM_FRAMES, HF_SAM_GRID = 2, 4      # SAM ViT-base at 1024: frames, point gri
 HF_SHARE = 1e-4         # encoder outputs, kernel vs plain path: share of the largest |value|
 HF_CONF_TOL = 1e-4      # the composite's detection scores (cosines), kernel vs plain path
 HF_BUDGET_S = 120
+# phase 18: training the served decoder: outputs/qa_lm (the 62M geometry)
+# warm-started with phase B's settings (scripts/run_qa_lm_phaseB.sh: lr
+# 1.5e-4, pipeline 0.3, short 0.15, lookup 0.1, its family weights), batch
+# 16 at max_len 4096, every weight cast to bf16 in the loss, each layer
+# rematerialised; one fixed batch (pool_size = batch), so the loss must fall
+TRAIN_SEED = 18
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LEN = 6, 16, 4096
+TRAIN_PHASE_B = dict(learning_rate=1.5e-4, pipeline_frac=0.3, short_mix=0.15,
+                     lookup_frac=0.1, family_weights=(0.15, 0.15, 0.2, 0.2, 0.3, 0.0))
+TRAIN_PROFILED = (3, 5)     # the profiler's window: steps 3 and 4
+# B1 launches per step implied by the code: at seq 4096 with remat the
+# forward, remat's recompute and the blockwise backward's delta recompute,
+# each once a layer; at 2560 without remat (LoRA) the forward and delta;
+# at 33 (projector: one projected row and 32 target bytes) the forward alone
+B1_PER_LAYER = {"remat 4096": 3, "lora 2560": 2, "projector 33": 1}
+# gradients (relative L2 error per parameter tensor) and the loss against
+# an f32 evaluation of the plain path, on 2 rows of a batch over 3 steps of
+# the f32 path's trajectory (the three paths at the same parameters each
+# step): the kernel path may stray by 1.5x the bf16 plain path's error plus this
+GRAD_ROWS, GRAD_STEPS, GRAD_FLOOR = 2, 3, 1e-3
+TRAIN_EVAL_SAMPLES = 8
+LORA_TRAIN_STEPS = 4
+PROJ_ROWS, PROJ_BATCH = 16, 8   # seeded embeddings per modality, batch
+PROJ_F16_REL = 5e-3         # projections after the f16 round trip of projector_weights.pt
+TRAIN_PROCESS_S = 150       # each of the phase's two processes (run together)
+TRAIN_BUDGET_S = 180
 
 _T0 = time.perf_counter()
 
@@ -688,6 +739,29 @@ def check_kernels(dev) -> list[dict]:
             bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
             library="SDPA, f32",
             library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
+
+    # the QA model's training step (phase 18, PERF.md row 1r): 16 rows of
+    # 4096 bytes with every weight cast to bf16, causal, 10 heads over 5 KV
+    # heads; the plain version holds f32 scores of every pair (~11 GB)
+    shape = "QA training (phase 18): q [16,10,4096,64], k/v [16,5,4096,64] bf16, causal"
+    qt = randn(16, 10, 4096, 64, dtype=torch.bfloat16)
+    kt, vt = (randn(16, 5, 4096, 64, dtype=torch.bfloat16) for _ in range(2))
+    err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt, causal=True),
+                       attention_reference(qt, kt, vt, causal=True), BF16_TOL)
+    line_bound = bound_ms(sum(t.nbytes for t in (qt, kt, vt)) + qt.nbytes,
+                          4.0 * 16 * 10 * 64 * attention_pairs(4096, 4096, True, None),
+                          torch.bfloat16)
+    flash["lines"].append(dict(
+        name="flash_attention", shape=shape, max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(qt, kt, vt, causal=True), 10),
+        device_ms=kernel_device_ms(lambda: flash_attention(qt, kt, vt, causal=True),
+                                   ("flash_attention",), 10),
+        plain_ms=time_ms(lambda: attention_reference(qt, kt, vt, causal=True), 3),
+        bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+        library="SDPA, bf16",
+        library_ms=time_ms(lambda: library_flash(qt, kt, vt, True), 10)))
+    del qt, kt, vt
+    torch.cuda.empty_cache()
 
     live = 3072   # a usual QA prompt: the decode reads ~3K of the 4608 rows
     q = randn(1, 10, 64)
@@ -4158,6 +4232,372 @@ def run_hf(dev):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 18: training the served decoder
+# --------------------------------------------------------------------------
+
+def rel_l2(x, ref) -> float:
+    """||x - ref|| / ||ref|| (0 when both are 0)."""
+    diff, norm = (x.float() - ref.float()).norm().item(), ref.float().norm().item()
+    return diff / norm if norm else diff
+
+
+def check_gradients(dev, base, model_cfg, train_cfg, tokens, mask) -> str:
+    """GRAD_STEPS steps of the QA trainer on one batch from ``base``, along
+    the f32 plain path's trajectory: at each step the kernel path (bf16),
+    the plain path (bf16) and the f32 plain path take their loss and
+    gradients at the same parameters (three models over one set of
+    tensors), then the f32 gradients update them.  Every gradient and the
+    loss of the kernel path must lie within BF16_ERR_RATIO x the plain
+    path's error against f32, plus GRAD_FLOOR; B1 launches as implied on the
+    kernel path, none on the plain paths."""
+    import torch
+
+    from gvl_tpu_torch.models.qwen3 import load_model
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.training import qa_lm_train as T
+
+    truth = T.training_model(model_cfg.plain(), base, dev)
+    shared = dict(truth.state_dict())
+    paths = (("kernel", load_model(model_cfg, shared, dev), torch.bfloat16),
+             ("plain", load_model(model_cfg.plain(), shared, dev), torch.bfloat16),
+             ("f32", truth, torch.float32))      # last: its gradients make the update
+    opt = T.qa_optimizer(train_cfg, truth.parameters())
+    want_b1 = B1_PER_LAYER["remat 4096"] * model_cfg.num_layers
+    worst, lines = 0.0, []
+    with uncounted():
+        for step in range(GRAD_STEPS):
+            got = {}
+            for name, model, dtype in paths:
+                before = flash_attention.launches
+                loss = T.qa_loss(model, tokens, mask, dtype)
+                loss.backward()
+                torch.cuda.synchronize()
+                got[name] = (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                             flash_attention.launches - before)
+                if model is not truth:
+                    for p in model.parameters():
+                        p.grad = None
+            launched = {name: n for name, (_, _, n) in got.items()}
+            if launched != {"kernel": want_b1, "plain": 0, "f32": 0}:
+                raise AssertionError(f"train: step {step} B1 launches {launched}, want "
+                                     f"{want_b1} on the kernel path and none on the plain")
+            (lk, gk, _), (lp, gp, _), (lt, gt, _) = got["kernel"], got["plain"], got["f32"]
+            errs = [(rel_l2(gk[n], gt[n]), rel_l2(gp[n], gt[n]), n) for n in gt]
+            errs.append((abs(lk - lt) / abs(lt), abs(lp - lt) / abs(lt), "loss"))
+            for ek, ep, name in errs:
+                share = ek / (BF16_ERR_RATIO * ep + GRAD_FLOOR)
+                worst = max(worst, share)
+                if share > 1 or not math.isfinite(ek):
+                    raise AssertionError(
+                        f"train: step {step} {name}: the kernel path's error {ek:.3g} against"
+                        f" f32 passes {BF16_ERR_RATIO} x the plain path's {ep:.3g} + "
+                        f"{GRAD_FLOOR}")
+            ek_max = max(errs[:-1])
+            lines.append(f"step {step} loss {lk:.6f} / {lp:.6f} / f32 {lt:.6f}, worst gradient"
+                         f" {ek_max[2]} {ek_max[0]:.3g} (plain {ek_max[1]:.3g})")
+            opt.step()
+    del paths, truth, shared, opt
+    return f"{'; '.join(lines)}; worst share of the limit {worst:.3f}"
+
+
+def train_processes(dev, root: Path) -> str:
+    """``train_qa_lm --geometry v5`` and ``finetune_lora --data`` as two
+    processes, started together: each must exit 0 and write its files."""
+    import os
+
+    from gvl_tpu_torch.scripts import generate_training_data
+
+    pairs = root / "pairs.json"
+    generate_training_data.main(["--out", str(pairs), "--count", "24"])
+    commands = {
+        "train_qa_lm": (["gvl_tpu_torch.scripts.train_qa_lm", "--geometry", "v5",
+                         "--init-from", str(QA_CKPT), "--steps", "2", "--batch-size", "2",
+                         "--eval-samples", "8", "--out", str(root / "proc_qa_lm")],
+                        root / "proc_qa_lm", ("params.npz", "qa_lm_config.json", "metrics.json")),
+        "finetune_lora": (["gvl_tpu_torch.scripts.finetune_lora", "--data", str(pairs),
+                           "--epochs", "1", "--output-dir", str(root / "proc_lora")],
+                          root / "proc_lora", ("adapter_config.json", "adapter_final.npz")),
+    }
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = {name: subprocess.Popen([sys.executable, "-m", *argv], cwd=REPO, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, (argv, _, _) in commands.items()}
+    notes = []
+    try:
+        for name, proc in procs.items():
+            t0 = time.perf_counter()
+            out, _ = proc.communicate(timeout=TRAIN_PROCESS_S)
+            _, where, files = commands[name]
+            missing = [f for f in files if not (where / f).exists()]
+            if proc.returncode != 0 or missing:
+                raise AssertionError(f"train: {name} exited {proc.returncode}, missing "
+                                     f"{missing}; its output ends:\n{out[-3000:]}")
+            tail = [line for line in out.splitlines() if "acc=" in line or "done:" in line]
+            notes.append(f"{name} exit 0, {sorted(p.name for p in where.iterdir())}"
+                         f" ({tail[-1].strip()[:120] if tail else ''})")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "; ".join(notes)
+
+
+def run_train(dev):
+    """Phase 18 (the module docstring): the QA model's trainer, its LoRA
+    trainer and the projector trainer on the card, and the two scripts."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvl_tpu_torch.agent.config import ReasoningCoreConfig
+    from gvl_tpu_torch.agent.core import create_reasoning_core
+    from gvl_tpu_torch.device_times import _device_us
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID, ByteTokenizer
+    from gvl_tpu_torch.models.projector import ProjectorBank
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.training import (
+        MultimodalProjectorDataset,
+        ProjectorTrainer,
+        ProjectorTrainingConfig,
+    )
+    from gvl_tpu_torch.training import qa_lm_train as T
+
+    start = time.perf_counter()
+    base_cfg, base = T.load_qa_lm(QA_CKPT, device=dev)
+    layers = base_cfg.num_layers
+    model_cfg = replace(base_cfg, remat=True)
+    cfg = T.QATrainConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, max_len=TRAIN_LEN,
+                          pool_size=TRAIN_BATCH, seed=TRAIN_SEED, log_every=0,
+                          compute_dtype="bfloat16", model=model_cfg, **TRAIN_PHASE_B)
+    served = []
+
+    # 1. train_qa_lm: per step its wall, loss and B1 launches; the profiler
+    # over steps 3 and 4
+    steps = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), loss.item(), flash_attention.launches))
+        if i + 1 == TRAIN_PROFILED[0]:
+            prof.start()
+        elif i + 1 == TRAIN_PROFILED[1]:
+            prof.stop()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = T.train_qa_lm(cfg, init_params=base, device=dev, on_step=on_step)
+    served.append(served_launches("train", ("flash_attention",)))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = np.diff([0] + [n for _, _, n in steps]).tolist()
+    walls = np.diff([t0] + [t for t, _, _ in steps]) * 1e3
+    losses = [loss for _, loss, _ in steps]
+    step_ms = float(np.median(walls[1:]))
+    kernels = _device_us(prof)
+    window_ms = (steps[TRAIN_PROFILED[1] - 1][0] - steps[TRAIN_PROFILED[0] - 1][0]) * 1e3
+    device_ms = sum(kernels.values()) / 1e3
+    b1_ms = sum(v for k, v in kernels.items() if "flash_attention" in k) / 1e3
+    n_win = TRAIN_PROFILED[1] - TRAIN_PROFILED[0]
+    top = {k[:60]: round(v / 1e3 / n_win, 2)
+           for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}
+    n_params = sum(t.numel() for t in base.values())
+    log("train", f"train_qa_lm from {QA_CKPT.name} ({n_params / 1e6:.1f}M parameters, remat,"
+        f" bf16 loss path), batch {TRAIN_BATCH} x {TRAIN_LEN}: ms per step "
+        f"{', '.join(f'{w:.1f}' for w in walls)} (median of steps 1-{TRAIN_STEPS - 1} "
+        f"{step_ms:.1f}; step 0 holds the model's build and the batch's rendering), "
+        f"{TRAIN_BATCH * TRAIN_LEN / step_ms * 1e3:.0f} token positions/s; profiled steps "
+        f"{TRAIN_PROFILED[0]}-{TRAIN_PROFILED[1] - 1}: device ms per step "
+        f"{device_ms / n_win:.1f}, busy share {device_ms / window_ms:.3f}, B1 {b1_ms / n_win:.1f}"
+        f" ms per step ({b1_ms / device_ms:.3f} of device time); top "
+        f"{top};"
+        f" allocator peak {peak:.2f} GiB; B1 launches per step {per_step}; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; {nvidia_smi()}")
+    if any(n != B1_PER_LAYER["remat 4096"] * layers for n in per_step):
+        raise AssertionError(f"train: B1 launches per step {per_step}, want "
+                             f"{B1_PER_LAYER['remat 4096'] * layers}")
+    b1_per_step = per_step[0]      # measured: every step's count is this one
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses on the fixed batch {losses} do not fall")
+    if not all(torch.isfinite(t).all() for t in trained.values()):
+        raise AssertionError("train: a trained weight is not finite")
+
+    # forward, backward and the optimizer of one step, timed apart (events)
+    tokens, mask = (torch.from_numpy(a).to(dev) for a in T._render_batch(
+        np.random.default_rng(TRAIN_SEED), cfg, ByteTokenizer()))
+    with uncounted():
+        model = T.training_model(model_cfg, base, dev)
+        opt = T.qa_optimizer(cfg, model.parameters())
+        for _ in range(2):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            marks[0].record()
+            loss = T.qa_loss(model, tokens, mask, torch.bfloat16)
+            marks[1].record()
+            loss.backward()
+            marks[2].record()
+            opt.step()
+            marks[3].record()
+            torch.cuda.synchronize()
+        parts = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+        del model, opt
+    # the plain attention backward alone (B1's delta recompute included) at
+    # the step's shape, as each layer's backward calls it
+    from gvl_tpu_torch.ops.attention import attention_backward
+
+    q, g = (torch.randn(TRAIN_BATCH, base_cfg.num_heads, TRAIN_LEN, base_cfg.head_dim,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(TRAIN_BATCH, base_cfg.num_kv_heads, TRAIN_LEN, base_cfg.head_dim,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    with uncounted():
+        bwd_ms = time_ms(lambda: attention_backward(q, k, v, g, causal=True), 3)
+    del q, g, k, v
+    log("train", f"one step timed apart (CUDA events): forward {parts[0]:.1f} ms, backward "
+        f"(remat's recompute included) {parts[1]:.1f} ms, optimizer {parts[2]:.1f} ms; the "
+        f"plain attention backward {bwd_ms:.1f} ms a layer, {bwd_ms * layers:.1f} ms a step "
+        f"({bwd_ms * layers / sum(parts):.3f} of it)")
+
+    # 2. the kernel path's gradients against the plain path's and f32
+    log("train", f"{GRAD_ROWS} rows x {TRAIN_LEN}, {GRAD_STEPS} steps, gradients and loss "
+        f"kernel / plain / f32: "
+        + check_gradients(dev, base, model_cfg, replace(cfg, steps=GRAD_STEPS),
+                          tokens[:GRAD_ROWS], mask[:GRAD_ROWS]))
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        # 3. the trained weights saved and read back, then served
+        T.save_qa_lm(trained, root / "qa_lm", base_cfg)
+        cfg_back, back = T.load_qa_lm(root / "qa_lm", device=dev)
+        if cfg_back != base_cfg or back.keys() != trained.keys() or not all(
+                torch.equal(back[k], trained[k]) for k in trained):
+            raise AssertionError("train: save_qa_lm -> load_qa_lm is not bit-equal")
+        reset_launches()
+        heldout = T.evaluate_qa_lm(back, cfg_back, n_samples=TRAIN_EVAL_SAMPLES, seed=QA_SEED,
+                                   device=dev)
+        served.append(served_launches("train", ("flash_attention", "decode_attention",
+                                                "cache_append")))
+        log("train", f"saved and reloaded bit-equal; {TRAIN_EVAL_SAMPLES} held-out answers: "
+            f"accuracy {heldout['accuracy']:.3f}")
+        del trained, back
+
+        # 4. LoRA from outputs/qa_lm at LoraQAConfig's shapes
+        lora_steps = []
+
+        def on_lora(i, loss):
+            torch.cuda.synchronize()
+            lora_steps.append((time.perf_counter(), loss.item(), flash_attention.launches))
+
+        reset_launches()
+        t0 = time.perf_counter()
+        lora_cfg, lora_state = T.train_qa_lm_lora(
+            QA_CKPT, T.LoraQAConfig(steps=LORA_TRAIN_STEPS, seed=TRAIN_SEED, log_every=0),
+            device=dev, on_step=on_lora)
+        served.append(served_launches("train lora", ("flash_attention",)))
+        lora_per_step = np.diff([0] + [n for _, _, n in lora_steps]).tolist()
+        lora_walls = np.diff([t0] + [t for t, _, _ in lora_steps]) * 1e3
+        frozen = [n for n in base if not torch.equal(lora_state[n], base[n])]
+        still = [n for n in lora_state if n.endswith("lora_b") and not lora_state[n].any()]
+        log("train", f"train_qa_lm_lora rank {lora_cfg.lora_rank}, batch "
+            f"{T.LoraQAConfig.batch_size} x {T.LoraQAConfig.max_len}, f32: ms per step "
+            f"{', '.join(f'{w:.1f}' for w in lora_walls)}, losses "
+            f"{', '.join(f'{x:.4f}' for _, x, _ in lora_steps)}, B1 launches per step "
+            f"{lora_per_step}; frozen tensors moved: {len(frozen)}; lora_b still zero: "
+            f"{len(still)}")
+        if frozen or still or any(n != B1_PER_LAYER["lora 2560"] * layers
+                                  for n in lora_per_step):
+            raise AssertionError(f"train lora: frozen tensors moved {frozen[:3]}, lora_b zero"
+                                 f" {still[:3]}, B1 launches per step {lora_per_step}")
+        T.save_qa_lm_adapter(lora_state, root / "adapter", lora_cfg, base_dir=QA_CKPT)
+        del lora_state
+        core = create_reasoning_core(checkpoint_path=str(QA_CKPT),
+                                     lora_path=str(root / "adapter"), device=dev)
+        engine = core.backend.engine
+        timed = TimedEngine(engine)
+        reset_launches()
+        got = T.evaluate_qa_lm(n_samples=TRAIN_EVAL_SAMPLES, seed=QA_SEED, engine=timed)
+        torch.cuda.synchronize()
+        served.append(served_launches("train lora", ("flash_attention", "decode_attention",
+                                                     "cache_append")))
+        with uncounted():
+            plain = Qwen3Engine(engine.config.plain(), engine.model.state_dict(),
+                                eos_token_id=EOS_ID, device=dev)
+            ref = T.evaluate_qa_lm(n_samples=TRAIN_EVAL_SAMPLES, seed=QA_SEED, engine=plain)
+        agree = sum(a == b for a, b in zip(got["answers"], ref["answers"]))
+        log("train", f"the trained adapter merged through create_reasoning_core(lora_path=): "
+            f"{TRAIN_EVAL_SAMPLES} answers, accuracy {got['accuracy']:.3f}, {timed.summary()};"
+            f" plain path equal {agree}/{TRAIN_EVAL_SAMPLES}")
+        if agree != TRAIN_EVAL_SAMPLES:
+            raise AssertionError(f"train lora: kernel and plain path agree on {agree} of "
+                                 f"{TRAIN_EVAL_SAMPLES} answers")
+        del core, engine, timed, plain
+        torch.cuda.empty_cache()
+
+        # 5. the projector trainer, generative objective over the frozen QA model
+        rng = np.random.default_rng(TRAIN_SEED)
+        feats = root / "features"
+        feats.mkdir()
+        rc = ReasoningCoreConfig(llm_hidden_dim=base_cfg.hidden_size)
+        ts = np.arange(PROJ_ROWS) * 0.5
+        np.savez(feats / "clip_embeddings.npz",
+                 siglip=rng.standard_normal((PROJ_ROWS, rc.siglip_dim)).astype(np.float32),
+                 siglip_ts=ts,
+                 videomae=rng.standard_normal((PROJ_ROWS, rc.videomae_dim)).astype(np.float32),
+                 wav2vec2=rng.standard_normal((PROJ_ROWS, rc.audiomae_dim)).astype(np.float32),
+                 wav2vec2_ts=ts)
+        (feats / "clip_features.json").write_text(json.dumps({
+            "ocr": [{"timestamp": float(t), "texts": [f"SCORE {100 * i}"]}
+                    for i, t in enumerate(ts[::2])],
+            "transcription": [{"start": 2.0, "text": "enemy ahead take cover"}],
+            "entities": [{"concept": "boss"}]}))
+        pcfg = ProjectorTrainingConfig(epochs=1, batch_size=PROJ_BATCH,
+                                       llm_dim=base_cfg.hidden_size,
+                                       output_path=str(root / "projector_weights.pt"))
+        kept = {k: v.clone() for k, v in base.items()}
+        trainer = ProjectorTrainer(pcfg, reasoning_config=rc,
+                                   llm=(base_cfg, base, ByteTokenizer().encode), device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.train(MultimodalProjectorDataset(feats))
+        torch.cuda.synchronize()
+        proj_s = time.perf_counter() - t0
+        served.append(served_launches("train projector", ("flash_attention",)))
+        n_proj = sum(len(h) for h in result["history"].values())
+        proj_launches = served[-1]["flash_attention"]
+        moved = [k for k, v in trainer.llm_model.state_dict().items()
+                 if not torch.equal(v, kept[k])]
+        bank = ProjectorBank(rc, device=dev)
+        bank.load_weights(pcfg.output_path)
+        x = rng.standard_normal((4, rc.siglip_dim)).astype(np.float32)
+        f16_err = rel_l2(torch.from_numpy(bank.project_region(x)),
+                         torch.from_numpy(trainer.bank.project_region(x)))
+        log("train", f"ProjectorTrainer (generative, llm_dim {base_cfg.hidden_size}): {n_proj} "
+            f"steps in {proj_s:.2f} s, losses {result['history']}, B1 launches {proj_launches}; "
+            f"LLM tensors moved: {len(moved)}; projector_weights.pt through ProjectorBank: "
+            f"relative error {f16_err:.2e} (f16 on disk)")
+        if moved or proj_launches != B1_PER_LAYER["projector 33"] * layers * n_proj or \
+                n_proj != 3 * PROJ_ROWS // PROJ_BATCH or f16_err > PROJ_F16_REL or not all(
+                    math.isfinite(v) for h in result["history"].values() for v in h):
+            raise AssertionError("train projector: the LLM moved, the launches or steps are not"
+                                 " the implied ones, or the saved weights do not load")
+        del trainer, kept
+
+        # 6. the two scripts as processes
+        log("train", train_processes(dev, root))
+
+    elapsed = time.perf_counter() - start
+    log("train", f"phase 18 in {elapsed:.1f} s (budget {TRAIN_BUDGET_S} s)")
+    if elapsed > TRAIN_BUDGET_S:
+        raise AssertionError(f"train: phase 18 took {elapsed:.1f} s, over its {TRAIN_BUDGET_S} s")
+    total = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
+    return total, b1_per_step
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import tempfile
@@ -4219,13 +4659,19 @@ def main() -> int:
     seeded.cleanup()
     torch.cuda.empty_cache()
     served.append(run_hf(dev))
+    torch.cuda.empty_cache()
+    train_launches, b1_per_step = run_train(dev)
+    served.append(train_launches)
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-17): {launches}")
+    log("launches", f"served paths (phases 3-18): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")
     for row in rows:
         row["launches"] = launches[row["name"]]
+        for line in row.get("lines", []):
+            if line["shape"].startswith("QA training"):
+                line["launches_per_step"] = b1_per_step
 
     faulthandler.cancel_dump_traceback_later()
     print(nvidia_smi(), flush=True)

@@ -78,6 +78,48 @@ def params_from_jax(tree: dict, config: Qwen3Config) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
 
 
+def _linear_to_jax(state: dict, prefix: str, lora: bool) -> dict:
+    """The inverse of :func:`_linear` for a float projection: a
+    ``LoRADense`` node (``base`` always, the LoRA pair beside it) or, with
+    ``lora`` off, a bare Dense."""
+    kernel = {"kernel": np.swapaxes(state[f"{prefix}.weight"], -1, -2)}
+    if not lora:
+        return kernel
+    node = {"base": kernel}
+    for k in ("lora_a", "lora_b"):
+        if f"{prefix}.{k}" in state:
+            node[k] = state[f"{prefix}.{k}"]
+    return node
+
+
+def params_to_jax(state_dict: dict[str, torch.Tensor], config: Qwen3Config) -> dict:
+    """A float :class:`~gvl_tpu_torch.models.qwen3.Qwen3Model` state dict as
+    the JAX model's ``params`` tree of f32 numpy arrays (the inverse of
+    :func:`params_from_jax`; a ``scan_layers`` config gives the scan tree,
+    ``layers/layer/...``)."""
+    state = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    tree: dict = {"embed_tokens": {"embedding": state["embed_tokens.weight"]},
+                  "final_norm": {"scale": state["final_norm.weight"]}}
+    if not config.tie_word_embeddings:
+        tree["lm_head"] = _linear_to_jax(state, "lm_head", lora=False)
+
+    def layer(prefix: str) -> dict:
+        attn = {name: _linear_to_jax(state, f"{prefix}self_attn.{name}", True) for name in _ATTN}
+        attn["q_norm"] = {"scale": state[f"{prefix}self_attn.q_norm.weight"]}
+        attn["k_norm"] = {"scale": state[f"{prefix}self_attn.k_norm.weight"]}
+        return {"input_norm": {"scale": state[f"{prefix}input_norm.weight"]},
+                "self_attn": attn,
+                "post_attn_norm": {"scale": state[f"{prefix}post_attn_norm.weight"]},
+                "mlp": {name: _linear_to_jax(state, f"{prefix}mlp.{name}", True)
+                        for name in _MLP}}
+
+    if config.scan_layers:
+        tree["layers"] = {"layer": layer("layers.")}
+    else:
+        tree.update({f"layers_{i}": layer(f"layers.{i}.") for i in range(config.num_layers)})
+    return tree
+
+
 # --------------------------------------------------------------------------
 # SigLIP vision tower
 # --------------------------------------------------------------------------

@@ -6,7 +6,9 @@ with per-slot lengths, and :class:`Qwen3Engine` (bucketed prefill, then one
 token per step).  Attention goes through the port's kernels on CUDA tensors
 and through their plain versions on CPU tensors:
 
-- ``ops.attention.flash_attention``: prefill into an empty cache;
+- ``ops.attention.flash_attention``: prefill into an empty cache and the
+  teacher-forced forward, through ``ops.attention.dot_product_attention``
+  (differentiable: training backpropagates through the kernel's forward);
 - ``ops.decode_attention.chunk_attention``: every chunk of a
   ``chunk_verify`` model (speculative verify, session delta ingest, batch
   admission), whatever its length;
@@ -55,10 +57,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.nn.layers import RMSNorm
-from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+from gvl_tpu_torch.ops.attention import dot_product_attention
 from gvl_tpu_torch.ops.cache_update import (
     appends_in_kernel,
     cache_append_kv,
@@ -276,11 +279,11 @@ class Qwen3Attention(nn.Module):
         q = (q * cos + rotate_half(q) * sin).to(q.dtype).contiguous()
         k = (k * cos + rotate_half(k) * sin).to(k.dtype).contiguous()
         v = v.contiguous()
-        attend = flash_attention if cfg.use_flash_kernel else attention_reference
 
         if cache is None:
-            # teacher-forced path: causal over the sequence
-            out = attend(q, k, v, causal=True)
+            # teacher-forced path: causal over the sequence, differentiable
+            out = dot_product_attention(q, k, v, causal=True,
+                                        kernel=cfg.use_flash_kernel)
         elif stacked_decode:
             # scan-layers decode: this layer's K and V rows go into the
             # stacked caches in place (one launch) and are read back by the
@@ -329,7 +332,8 @@ class Qwen3Attention(nn.Module):
                 out = chunk(q, ck, cv, cache_len)
             elif seq > 1:
                 # prefill into an empty cache: causal over the prompt only
-                out = attend(q, k, v, causal=True)
+                out = dot_product_attention(q, k, v, causal=True,
+                                            kernel=cfg.use_flash_kernel)
             else:
                 decode = (decode_attention if cfg.use_decode_kernel
                           else decode_attention_reference)
@@ -403,12 +407,24 @@ class Qwen3Model(nn.Module):
         cache: Optional[KVCache] = None,
         rope_cos_sin: Optional[tuple[torch.Tensor, torch.Tensor]] = None,  # [B, S, D]
         deepstack_embeds: Optional[torch.Tensor] = None,  # [L_ds, B, S, D]
+        param_dtype: Optional[torch.dtype] = None,
     ) -> tuple[torch.Tensor, Optional[KVCache]]:
         """``rope_cos_sin`` replaces the angles of ``positions`` (Qwen3-VL's
         mRoPE); ``deepstack_embeds[i]`` is added to the hidden states after
-        layer ``i``.  Both need the unrolled stack."""
+        layer ``i``.  Both need the unrolled stack.  ``param_dtype`` casts
+        every weight to that type for this call, as the JAX trainer casts
+        its parameter tree inside the loss (no autocast): each module's
+        weights are cast where it runs, inside a rematerialised layer too,
+        and gradients reach the weights through the casts in their type."""
         cfg = self.config
-        x = inputs_embeds if inputs_embeds is not None else self.embed_tokens(tokens)
+
+        def weights(module):
+            if param_dtype is None:
+                return module
+            return lambda *args: torch.func.functional_call(
+                module, {n: p.to(param_dtype) for n, p in module.named_parameters()}, args)
+
+        x = inputs_embeds if inputs_embeds is not None else weights(self.embed_tokens)(tokens)
         seq = x.shape[1]
         if cfg.scan_layers and (rope_cos_sin is not None or deepstack_embeds is not None):
             raise ValueError(
@@ -434,18 +450,25 @@ class Qwen3Model(nn.Module):
         stacked_decode = (cfg.scan_layers and cache is not None and seq == 1
                           and cfg.use_cache_append_kernel
                           and cfg.head_dim % 128 == 0)
+        # remat: each layer's activations are dropped after its forward and
+        # recomputed in the backward (the JAX model's nn.remat)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i in range(cfg.num_layers):
-            if cfg.scan_layers:
-                x = self.layers(x, cos, sin, i, cache, cache_len, i, stacked_decode)
+            layer = weights(self.layers if cfg.scan_layers else self.layers[i])
+            args = ((x, cos, sin, i, cache, cache_len, i, stacked_decode) if cfg.scan_layers
+                    else (x, cos, sin, i, cache, cache_len))
+            if remat:
+                x = checkpoint(layer, *args, use_reentrant=False)
             else:
-                x = self.layers[i](x, cos, sin, i, cache, cache_len)
-                if deepstack_embeds is not None and i < deepstack_embeds.shape[0]:
-                    x = x + deepstack_embeds[i].to(x.dtype)
-        x = self.final_norm(x)
+                x = layer(*args)
+            if deepstack_embeds is not None and i < deepstack_embeds.shape[0]:
+                x = x + deepstack_embeds[i].to(x.dtype)
+        x = weights(self.final_norm)(x)
         if cfg.tie_word_embeddings:
-            logits = x @ self.embed_tokens.weight.T
+            embed = self.embed_tokens.weight
+            logits = x @ (embed if param_dtype is None else embed.to(param_dtype)).T
         else:
-            logits = self.lm_head(x)
+            logits = weights(self.lm_head)(x)
         if cache is not None:
             cache.lengths = [n + seq for n in cache.lengths]
         return logits, cache
@@ -502,6 +525,38 @@ def init_params(config: Qwen3Config, generator: torch.Generator,
         else:
             w = torch.empty(shape, dtype=dtype, device=device)
             params[name] = w.normal_(0.0, 0.02, generator=generator)
+    return params
+
+
+def init_jax_params(config: Qwen3Config, generator: torch.Generator,
+                    device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """f32 weights for training from scratch, drawn from ``generator`` with
+    the JAX model's initialisers: a projection or the LM head (``[out,
+    in]``) from Flax's ``lecun_normal``, a normal truncated at two of its
+    standard deviations, scaled so that the weight's variance is 1 /
+    fan-in; the embedding N(0, 1 / hidden) (``nn.Embed``'s default, fan-in
+    the hidden width); LoRA's ``lora_a`` N(0, 0.02^2) and ``lora_b`` zero;
+    unit norms.  The numbers differ from ``model.init``'s, their law does
+    not."""
+    device = resolve_device(device)
+    with torch.device("meta"):
+        shapes = {name: p.shape for name, p in Qwen3Model(config).state_dict().items()}
+    params = {}
+    for name, shape in shapes.items():
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        if name.endswith("norm.weight"):
+            w.fill_(1.0)
+        elif name.endswith("lora_b"):
+            w.zero_()
+        elif name.endswith("lora_a"):
+            w.normal_(0.0, 0.02, generator=generator)
+        elif name == "embed_tokens.weight":
+            w.normal_(0.0, 1.0 / np.sqrt(shape[-1]), generator=generator)
+        else:
+            # the unit normal truncated to [-2, 2] has std 0.8796...
+            std = 1.0 / np.sqrt(shape[-1]) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        params[name] = w
     return params
 
 

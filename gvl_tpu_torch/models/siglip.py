@@ -125,7 +125,7 @@ def map_head(p: dict[str, torch.Tensor], x: torch.Tensor, num_heads: int,
     promoted type of x and the weights (as Flax promotes); its attention
     through the flash kernel's wrapper, or its plain version without
     ``kernel``."""
-    from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+    from gvl_tpu_torch.ops.attention import dot_product_attention
 
     x = x.to(torch.promote_types(x.dtype, p["q_proj.weight"].dtype))
     batch, _, d = x.shape
@@ -138,9 +138,8 @@ def map_head(p: dict[str, torch.Tensor], x: torch.Tensor, num_heads: int,
         return t.view(batch, -1, num_heads, dh).transpose(1, 2).contiguous()
 
     probe = p["probe"].expand(batch, 1, d).to(x.dtype)
-    attend = flash_attention if kernel else attention_reference
-    attn = attend(heads(dense("q_proj", probe)), heads(dense("k_proj", x)),
-                  heads(dense("v_proj", x)))
+    attn = dot_product_attention(heads(dense("q_proj", probe)), heads(dense("k_proj", x)),
+                                 heads(dense("v_proj", x)), kernel=kernel)
     hidden = dense("o_proj", attn.transpose(1, 2).reshape(batch, 1, d))
     normed = F.layer_norm(hidden.float(), (d,), p["norm.weight"].float(),
                           p["norm.bias"].float(), eps).to(hidden.dtype)

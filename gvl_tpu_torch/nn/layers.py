@@ -84,11 +84,11 @@ def attend(module: nn.Module, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
     or straight through the plain version when ``module.use_flash_kernel``
     is off or inside :func:`plain_attention`, which is how a model's kernel
-    path is held to its plain path on the card (:func:`set_flash_kernel`)."""
-    from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+    path is held to its plain path on the card (:func:`set_flash_kernel`).
+    Differentiable (``ops.attention.dot_product_attention``)."""
+    from gvl_tpu_torch.ops.attention import dot_product_attention
 
-    fn = flash_attention if flash_kernel_on(module) else attention_reference
-    return fn(q, k, v, **kw)
+    return dot_product_attention(q, k, v, kernel=flash_kernel_on(module), **kw)
 
 
 def set_flash_kernel(model: nn.Module, on: bool) -> nn.Module:

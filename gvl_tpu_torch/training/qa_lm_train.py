@@ -1,27 +1,43 @@
-"""Serving half of the QA language model's training module.
+"""The QA language model's training module, in PyTorch.
 
-Counterpart of the serving parts of :mod:`gvl_tpu.training.qa_lm_train`:
-the model's geometry, the procedural grounded-QA samples (the same bytes
-for the same seed as the JAX package), ChatML rendering and encoding,
-checkpoint loading, and :func:`evaluate_qa_lm`, the held-out accuracy
+Counterpart of :mod:`gvl_tpu.training.qa_lm_train`: the model's
+geometries, the procedural grounded-QA and lookup-pretraining samples
+(the same bytes for the same seed as the JAX package), ChatML rendering
+and encoding, the batch stream (a producer thread, or a fixed pool, with
+JAX's seeds: the same batches byte for byte), :func:`train_qa_lm` and its
+LoRA counterpart :func:`train_qa_lm_lora`, checkpoints in the JAX
+package's layout, and :func:`evaluate_qa_lm`, the held-out accuracy
 through the real engine, also over the pipeline-rendered family (prompts
 rendered by :class:`~gvl_tpu_torch.agent.core.ReasoningCore` over a real
-timeline and knowledge base).  The trainer and the lookup pretraining
-samples are not ported yet.
+timeline and knowledge base).
+
+Training runs under autograd on ``device`` (default ``"cuda"``; raises
+without a card unless ``"cpu"`` is asked for): f32 master weights, the
+loss computed with every weight cast to ``compute_dtype`` (no autocast)
+and the logits in f32, attention through the flash kernel's forward on
+the card (``ops.attention.dot_product_attention``), the optimizer the
+port's copy of the JAX trainer's (:mod:`gvl_tpu_torch.training.optim`).
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.agent.config import SYSTEM_PROMPT
 from gvl_tpu_torch.models.byte_tokenizer import BOS_ID, EOS_ID, PAD_ID, ByteTokenizer
 from gvl_tpu_torch.models.qwen3 import Qwen3Config
+from gvl_tpu_torch.training import optim
+from gvl_tpu_torch.training.optim import train_step
+
+logger = logging.getLogger(__name__)
 
 ENTITIES = ("player", "enemy", "boss", "item")
 DISTRACTOR_OPTIONS = ("wizard", "dragon", "chest", "portal", "turret",
@@ -50,6 +66,19 @@ def qa_lm_config(**kw) -> Qwen3Config:
         hidden_size=384, num_layers=6, num_heads=8, num_kv_heads=4,
         head_dim=64, intermediate_size=1536,
         vocab_size=ByteTokenizer.vocab_size, max_cache_length=4096,
+        rope_theta=100_000.0, tie_word_embeddings=False)
+    base.update(kw)
+    return Qwen3Config(**base)
+
+
+def qa_lm_v5_config(**kw) -> Qwen3Config:
+    """The scaled QA-LM rung (~62M params, byte vocab): the geometry of
+    ``outputs/qa_lm``.  ``max_cache_length`` covers the serving prompt
+    ceiling (~4.0 KB of ChatML bytes for phase-runner prompts)."""
+    base = dict(
+        hidden_size=640, num_layers=10, num_heads=10, num_kv_heads=5,
+        head_dim=64, intermediate_size=2560,
+        vocab_size=ByteTokenizer.vocab_size, max_cache_length=4608,
         rope_theta=100_000.0, tie_word_embeddings=False)
     base.update(kw)
     return Qwen3Config(**base)
@@ -227,6 +256,49 @@ def generate_qa_sample(rng: np.random.Generator,
         _add_serving_sections(sample, rng)
     return sample
 
+
+_LOOKUP_SYLLABLES = ("ba", "be", "bo", "da", "de", "do", "ka", "ke",
+                     "ko", "la", "le", "lo", "ma", "me", "mo", "na",
+                     "ne", "no", "ra", "re", "ro", "sa", "se", "so",
+                     "ta", "te", "to", "va", "ve", "vo", "za", "zo")
+
+
+def generate_lookup_sample(rng: np.random.Generator,
+                           serving_sections: bool = True,
+                           n_events_range: tuple[int, int] = (6, 14),
+                           short_system: bool = False,
+                           ) -> QASample:
+    """Lookup-pretraining sample: surface-identical to the audio/ocr
+    families, but every value is a never-repeating pseudo-word, so that a
+    timestamp-keyed lookup is the only way down the loss."""
+    n_events = int(rng.integers(*n_events_range))
+    n_events = max(n_events, 4)
+    times = np.sort(rng.choice(np.arange(1, 580), n_events,
+                               replace=False))
+    as_text = bool(rng.random() < 0.5)
+    lines, values = [], []
+    for t in times:
+        t = int(t)
+        word = "".join(str(rng.choice(_LOOKUP_SYLLABLES))
+                       for _ in range(int(rng.integers(2, 5))))
+        if as_text:
+            lines.append(f'[{_mmss(t)}] (Text: "{word}")')
+        else:
+            lines.append(f"[{_mmss(t)}] (Audio: {word})")
+        values.append((t, word))
+    t, word = values[int(rng.integers(0, len(values)))]
+    if as_text:
+        question = f"What does the on-screen text show at [{_mmss(t)}]?"
+        answer = f'**Answer:** "{word}"'
+    else:
+        question = f"What audio event occurs at [{_mmss(t)}]?"
+        answer = f"**Answer:** {word}"
+    system = (_default_system() if not short_system
+              and rng.random() < 0.7 else str(rng.choice(_SHORT_SYSTEMS)))
+    sample = QASample(system, lines, question, answer, word, "lookup")
+    if serving_sections:
+        _add_serving_sections(sample, rng)
+    return sample
 
 
 def _generate_base_sample(rng: np.random.Generator,
@@ -788,6 +860,195 @@ def generate_pipeline_sample(rng: np.random.Generator,
 
 
 # --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+FAMILIES = ("binary", "mcq", "timestamp", "ocr", "audio", "causal")
+# copy-from-context families (ocr, timestamp) carry the training weight;
+# "causal" is weight 0 in base training: the held-out capability the LoRA
+# adapter teaches
+FAMILY_WEIGHTS = (0.2, 0.2, 0.25, 0.25, 0.1, 0.0)
+# curriculum phase 2: the copy-from-context families dominate
+COPY_FAMILY_WEIGHTS = (0.1, 0.1, 0.35, 0.35, 0.1, 0.0)
+# LoRA curriculum: mostly the held-out causal family, base families as replay
+LORA_FAMILY_WEIGHTS = (0.08, 0.08, 0.1, 0.1, 0.04, 0.6)
+
+
+@dataclass
+class QATrainConfig:
+    """``gvl_tpu.training.qa_lm_train.QATrainConfig``: the same fields and
+    defaults.  ``pool_size > 0`` draws batches from a fixed pre-rendered
+    pool, 0 streams never-repeating samples from a producer thread;
+    ``compute_dtype`` is the type every weight is cast to inside the loss
+    (f32 master weights)."""
+
+    steps: int = 8000
+    batch_size: int = 16
+    max_len: int = 3072
+    learning_rate: float = 3e-4
+    warmup: int = 200
+    weight_decay: float = 0.01
+    seed: int = 0
+    pool_size: int = 0
+    log_every: int = 200
+    family_weights: tuple = FAMILY_WEIGHTS
+    serving_sections: bool = True
+    n_events_range: tuple = (6, 14)
+    short_system: bool = False
+    short_mix: float = 0.0
+    lookup_frac: float = 0.0
+    pipeline_frac: float = 0.0
+    compute_dtype: str = "float32"
+    model: Qwen3Config = field(default_factory=qa_lm_config)
+
+
+def short_curriculum_config(**kw) -> QATrainConfig:
+    """Phase-A curriculum: short contexts to form the copy skill."""
+    base = dict(max_len=640, serving_sections=False, short_system=True,
+                n_events_range=(2, 6), family_weights=COPY_FAMILY_WEIGHTS)
+    base.update(kw)
+    return QATrainConfig(**base)
+
+
+def _render_batch(rng: np.random.Generator, cfg: QATrainConfig,
+                  tokenizer: ByteTokenizer) -> tuple[np.ndarray, np.ndarray]:
+    tokens = np.zeros((cfg.batch_size, cfg.max_len), np.int32)
+    mask = np.zeros((cfg.batch_size, cfg.max_len), np.float32)
+    fams = rng.choice(len(FAMILIES), cfg.batch_size,
+                      p=np.asarray(cfg.family_weights))
+    for i in range(cfg.batch_size):
+        short = cfg.short_mix > 0 and rng.random() < cfg.short_mix
+        kwargs = dict(
+            serving_sections=not short and cfg.serving_sections,
+            n_events_range=(2, 6) if short else cfg.n_events_range,
+            short_system=short or cfg.short_system)
+        if cfg.pipeline_frac and rng.random() < cfg.pipeline_frac:
+            sample = generate_pipeline_sample(rng)
+        elif cfg.lookup_frac and rng.random() < cfg.lookup_frac:
+            sample = generate_lookup_sample(rng, **kwargs)
+        else:
+            sample = generate_qa_sample(
+                rng, family=FAMILIES[int(fams[i])], **kwargs)
+        tokens[i], mask[i], _ = encode_sample(sample, tokenizer, cfg.max_len)
+    return tokens, mask
+
+
+def _batch_stream(cfg: QATrainConfig, tokenizer: ByteTokenizer):
+    """Yield (tokens, mask) host batches: from a producer thread (rendering
+    overlaps the device's work; its generator is seeded ``seed + 1``) or
+    drawn from a fixed pool (generator seeded ``seed``)."""
+    rng = np.random.default_rng(cfg.seed)
+    if cfg.pool_size:
+        pools = [_render_batch(rng, cfg, tokenizer)
+                 for _ in range(max(cfg.pool_size // cfg.batch_size, 1))]
+        logger.info("rendered fixed pool: %d batches", len(pools))
+        while True:
+            yield pools[int(rng.integers(0, len(pools)))]
+    import queue
+    import threading
+
+    q: queue.Queue = queue.Queue(maxsize=8)
+    stop = threading.Event()
+
+    def producer():
+        prng = np.random.default_rng(cfg.seed + 1)
+        while not stop.is_set():
+            batch = _render_batch(prng, cfg, tokenizer)
+            while not stop.is_set():
+                try:
+                    q.put(batch, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            yield q.get()
+    finally:
+        stop.set()
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` [B, T, V] against integer
+    ``targets`` [B, T] over the positions where ``mask`` is 1."""
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         targets.reshape(-1).long(), reduction="none")
+    ce = ce.view(targets.shape)
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def qa_loss(model, tokens: torch.Tensor, mask: torch.Tensor,
+            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The trainer's loss: next-byte cross entropy over the answer span,
+    on f32 logits, with every weight cast to ``compute_dtype`` (the JAX
+    trainer's ``loss_fn``)."""
+    cast = None if compute_dtype == torch.float32 else compute_dtype
+    logits, _ = model(tokens, param_dtype=cast)
+    return masked_ce(logits[:, :-1].float(), tokens[:, 1:], mask[:, 1:])
+
+
+def training_model(config: Qwen3Config, state: dict, device) -> "Qwen3Model":
+    """A :class:`Qwen3Model` on ``device`` holding f32 copies of ``state``
+    (JAX-layout trees are converted first), every parameter trainable."""
+    from gvl_tpu_torch.models.convert import params_from_jax
+    from gvl_tpu_torch.models.qwen3 import load_model
+
+    if "embed_tokens.weight" not in state:
+        state = params_from_jax(state, config)
+    return load_model(config, {k: torch.as_tensor(v).to(device, torch.float32, copy=True)
+                               for k, v in state.items()}, device)
+
+
+def qa_optimizer(cfg: QATrainConfig, params) -> optim.AdamW:
+    """The trainer's optimizer over ``params``: clip at global norm 1, then
+    AdamW with ``weight_decay`` over a warmup cosine schedule from 0
+    (``warmup`` capped at a tenth of the steps)."""
+    warmup = min(cfg.warmup, max(cfg.steps // 10, 1))
+    schedule = optim.warmup_cosine_decay_schedule(0.0, cfg.learning_rate, warmup, cfg.steps)
+    return optim.AdamW(params, schedule, weight_decay=cfg.weight_decay, clip=1.0)
+
+
+def train_qa_lm(cfg: Optional[QATrainConfig] = None,
+                init_params: Optional[dict] = None,
+                device="cuda", on_step=None) -> dict[str, torch.Tensor]:
+    """Train ``Qwen3Model(cfg.model)`` and return its f32 state dict.
+
+    ``init_params`` warm-starts from a checkpoint: the port's state dict
+    (``load_qa_lm``'s) or the JAX layout's nested tree (``load_flat_npz``
+    of ``params.npz``); without it the weights are drawn with the JAX
+    model's initialisers (:func:`~gvl_tpu_torch.models.qwen3.
+    init_jax_params`, seeded ``cfg.seed``).  The optimizer is JAX's
+    (:func:`qa_optimizer`).  ``on_step(i, loss)``, if given, is called after each step with the
+    step's loss on the device."""
+    from gvl_tpu_torch.models.qwen3 import init_jax_params
+
+    cfg = cfg or QATrainConfig()
+    dev = resolve_device(device)
+    if init_params is None:
+        init_params = init_jax_params(
+            cfg.model, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+    model = training_model(cfg.model, init_params, dev)
+    logger.info("model params: %.2fM",
+                sum(p.numel() for p in model.parameters()) / 1e6)
+    opt = qa_optimizer(cfg, model.parameters())
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+
+    stream = _batch_stream(cfg, ByteTokenizer())
+    for i in range(cfg.steps):
+        tokens, mask = (torch.from_numpy(a).to(dev) for a in next(stream))
+        loss = train_step(model, opt, lambda m: qa_loss(m, tokens, mask, compute_dtype))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("qa-lm step %d loss %.4f", i, float(loss))
+    stream.close()
+    return {name: t.detach() for name, t in model.state_dict().items()}
+
+
+# --------------------------------------------------------------------------
 # Checkpoint and held-out evaluation
 # --------------------------------------------------------------------------
 
@@ -811,10 +1072,32 @@ def load_qa_lm(ckpt_dir, device="cuda") -> tuple[Qwen3Config, dict]:
 
 
 
+def save_qa_lm(state_dict: dict, out_dir, config: Optional[Qwen3Config] = None) -> None:
+    """A checkpoint the JAX package's ``load_qa_lm`` reads too:
+    ``qa_lm_config.json`` (the JAX config's fields, without
+    ``lora_targets`` and ``remat``) and ``params.npz`` (the JAX layout's
+    flat npz of f32 arrays)."""
+    import json
+    from dataclasses import asdict
+    from pathlib import Path
+
+    from gvl_tpu_torch.models.convert import params_to_jax
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = config or qa_lm_config()
+    (out / "qa_lm_config.json").write_text(json.dumps({
+        k: v for k, v in asdict(cfg).items()
+        if k not in ("lora_targets", "remat", "use_flash_kernel")}, indent=2))
+    save_flat_npz(params_to_jax(state_dict, cfg), out / "params.npz")
+
+
 def is_qa_lm_checkpoint(path) -> bool:
     from pathlib import Path
 
     return bool(path) and (Path(path) / "qa_lm_config.json").exists()
+
 
 def evaluate_qa_lm(
     state_dict: Optional[dict] = None,
@@ -880,3 +1163,94 @@ def _answer_correct(text: str, sample: QASample) -> bool:
         lm = re.search(r"\b([A-H])\)", got)
         return bool(lm) and lm.group(1) == truth
     return truth.lower() in got.lower()
+
+
+# --------------------------------------------------------------------------
+# LoRA SFT on the held-out causal family
+# --------------------------------------------------------------------------
+
+@dataclass
+class LoraQAConfig:
+    steps: int = 1500
+    batch_size: int = 16
+    max_len: int = 2560
+    learning_rate: float = 2e-4
+    warmup: int = 100
+    grad_clip: float = 1.0
+    seed: int = 0
+    lora_rank: int = 32
+    lora_alpha: float = 64.0
+    log_every: int = 100
+
+
+def train_qa_lm_lora(base_dir, cfg: Optional[LoraQAConfig] = None, device="cuda",
+                     on_step=None) -> tuple[Qwen3Config, dict[str, torch.Tensor]]:
+    """LoRA-tune the trained QA LM (``base_dir``) on the causal family
+    (``LORA_FAMILY_WEIGHTS``), in f32 as the JAX package does.
+
+    Only the ``lora_a``/``lora_b`` pairs of all seven projections take
+    gradients and move (clip at ``grad_clip`` over the pairs alone, then
+    AdamW with the default decay over a warmup cosine schedule from 0);
+    every other tensor keeps its bits.  The pairs start as the JAX model
+    draws them (``lora_a`` N(0, 0.02^2) from a generator seeded
+    ``cfg.seed``, ``lora_b`` zero); ``on_step`` as :func:`train_qa_lm`'s.
+    Returns
+    ``(lora_config, state_dict)``."""
+    from dataclasses import replace
+
+    from gvl_tpu_torch.models.qwen3 import init_jax_params
+    from gvl_tpu_torch.training.lora_train import lora_mask
+
+    cfg = cfg or LoraQAConfig()
+    dev = resolve_device(device)
+    base_cfg, base_state = load_qa_lm(base_dir, device=dev)
+    lora_cfg = replace(base_cfg, lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+    drawn = init_jax_params(lora_cfg, torch.Generator(device=dev).manual_seed(cfg.seed), dev)
+    pairs = {k: v for k, v in drawn.items() if k.endswith(("lora_a", "lora_b"))}
+    model = training_model(lora_cfg, {**base_state, **pairs}, dev)
+    mask = lora_mask(dict(model.named_parameters()))
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+
+    schedule = optim.warmup_cosine_decay_schedule(
+        0.0, cfg.learning_rate, min(cfg.warmup, max(cfg.steps // 10, 1)), cfg.steps)
+    opt = optim.AdamW([p for p in model.parameters() if p.requires_grad], schedule,
+                      clip=cfg.grad_clip)
+
+    stream_cfg = QATrainConfig(
+        steps=cfg.steps, batch_size=cfg.batch_size, max_len=cfg.max_len,
+        seed=cfg.seed, family_weights=LORA_FAMILY_WEIGHTS, model=lora_cfg)
+    stream = _batch_stream(stream_cfg, ByteTokenizer())
+    for i in range(cfg.steps):
+        tokens, mask_ = (torch.from_numpy(a).to(dev) for a in next(stream))
+        loss = train_step(model, opt, lambda m: qa_loss(m, tokens, mask_))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("qa-lm lora step %d loss %.4f", i, float(loss))
+    stream.close()
+    return lora_cfg, {name: t.detach() for name, t in model.state_dict().items()}
+
+
+def save_qa_lm_adapter(state_dict: dict, out_dir, lora_cfg: Qwen3Config,
+                       base_dir=None, metrics: Optional[dict] = None) -> None:
+    """The LoRA pairs as a ``LoraTrainer``-layout adapter directory
+    (``adapter_final.npz`` under the JAX parameter paths, and
+    ``adapter_config.json``), which ``load_adapter_and_merge`` (either
+    package) reads."""
+    import json
+    from pathlib import Path
+
+    from gvl_tpu_torch.training.lora_train import adapter_arrays
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out / "adapter_final.npz", **adapter_arrays(state_dict, lora_cfg))
+    (out / "adapter_config.json").write_text(json.dumps({
+        "lora_rank": lora_cfg.lora_rank,
+        "lora_alpha": lora_cfg.lora_alpha,
+        "targets": list(lora_cfg.lora_targets),
+        "base_checkpoint": str(base_dir) if base_dir else None,
+        "train_family": "causal",
+        "metrics": metrics or {},
+    }, indent=2))

@@ -1439,3 +1439,93 @@ def test_qwen3vl_generate_refuses_an_f32_cache_on_the_card(dev):
         vl.generate(np.array([[11, 12, 13]]), cache_dtype=torch.float32)
     assert decode_attention.launches == before
     assert len(vl.generate(np.array([[11, 12, 13]]), max_new_tokens=2, eos_token_id=-1)) == 2
+
+
+# --------------------------------------------------------------------------
+# Training: B1 under autograd (ops.attention.dot_product_attention)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,seq,causal,kv_len,launches", [
+    (10, 5, 300, True, None, 1),       # dense backward: the forward alone
+    (4, 2, 1100, True, None, 2),       # blockwise: the forward and delta's recompute
+    (4, 4, 1040, False, 1001, 2),
+])
+def test_attention_function_under_autograd_matches_plain(dev, dtype, hq, hkv, seq, causal,
+                                                          kv_len, launches):
+    """The kernel path's output and q/k/v gradients against the same
+    Function on the plain forward (the backward is the same plain code: the
+    gradients differ only where the blockwise backward's delta reads the
+    kernel's output); the plain path launches nothing."""
+    from gvl_tpu_torch.ops.attention import dot_product_attention
+
+    q = _randn(dev, 1, hq, seq, 64, dtype=dtype, seed=1)
+    k, v = _randn(dev, 1, hkv, seq, 64, dtype=dtype, seed=2), _randn(dev, 1, hkv, seq, 64,
+                                                                     dtype=dtype, seed=3)
+    g = _randn(dev, 1, hq, seq, 64, seed=4)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    results = []
+    for kernel in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = flash_attention.launches
+        out = dot_product_attention(*leaves, causal=causal, kv_len=kv_len, kernel=kernel)
+        (out.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        results.append((out, [t.grad for t in leaves], flash_attention.launches - before))
+    (out_k, grads_k, n_k), (out_p, grads_p, n_p) = results
+    assert (n_k, n_p) == (launches, 0)
+    torch.testing.assert_close(out_k, out_p, **tol)
+    for a, b in zip(grads_k, grads_p):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, **tol)
+
+
+def _train_launches(dev, cfg, seq, dtype=torch.bfloat16):
+    """B1 launches of one loss and backward of a tiny model (and its
+    parameters' gradients)."""
+    from gvl_tpu_torch.models.qwen3 import init_jax_params, load_model
+    from gvl_tpu_torch.training.qa_lm_train import qa_loss
+
+    state = init_jax_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    model = load_model(cfg, state, dev)
+    tokens = torch.randint(1, cfg.vocab_size, (2, seq), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    mask = torch.ones(2, seq, device=dev)
+    before = flash_attention.launches
+    qa_loss(model, tokens, mask, dtype).backward()
+    torch.cuda.synchronize()
+    return (flash_attention.launches - before,
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+@pytest.mark.parametrize("remat,seq,per_layer", [(True, 1100, 3), (False, 1100, 2),
+                                                 (False, 512, 1), (True, 512, 2)])
+def test_training_step_launches_the_implied_b1_count(dev, remat, seq, per_layer):
+    """Per layer: the forward, remat's recompute, and the blockwise backward's
+    delta recompute past 1024^2 scores (chip_smoke phase 18's 30 per step at
+    the QA model's 10 layers); the plain path none; serving one."""
+    from gvl_tpu_torch.models.qwen3 import Qwen3Config, init_jax_params, load_model
+
+    cfg = Qwen3Config.tiny(head_dim=64, remat=remat)
+    n, _ = _train_launches(dev, cfg, seq)
+    assert n == per_layer * cfg.num_layers
+    assert _train_launches(dev, cfg.plain(), seq)[0] == 0
+    model = load_model(cfg, init_jax_params(cfg, torch.Generator(device=dev), dev), dev)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        model(torch.ones(1, seq, dtype=torch.long, device=dev))
+    assert flash_attention.launches - before == cfg.num_layers
+
+
+def test_checkpointed_layers_give_the_same_gradients(dev):
+    """remat recomputes each layer (its bf16 cast included) on the kernel
+    path: the same gradients as the stored activations give."""
+    from gvl_tpu_torch.models.qwen3 import Qwen3Config
+
+    cfg = Qwen3Config.tiny(head_dim=64)
+    _, plain = _train_launches(dev, cfg, 1100)
+    from dataclasses import replace
+
+    _, remat = _train_launches(dev, replace(cfg, remat=True), 1100)
+    for name, g in plain.items():
+        torch.testing.assert_close(remat[name], g, atol=1e-6, rtol=1e-5, msg=name)

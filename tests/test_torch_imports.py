@@ -80,7 +80,14 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.scripts.run_phase_evidence",
              "gvl_tpu_torch.scripts.summarize_phase_results",
              "gvl_tpu_torch.models.minilm", "gvl_tpu_torch.models.wav2vec2",
-             "gvl_tpu_torch.models.sam_vit", "gvl_tpu_torch.models.hf_layouts"):
+             "gvl_tpu_torch.models.sam_vit", "gvl_tpu_torch.models.hf_layouts",
+             "gvl_tpu_torch.training.optim", "gvl_tpu_torch.training.lora_train",
+             "gvl_tpu_torch.training.projector_train", "gvl_tpu_torch.utils.checkpoint",
+             "gvl_tpu_torch.scripts.train_qa_lm", "gvl_tpu_torch.scripts.finetune_lora",
+             "gvl_tpu_torch.scripts.generate_training_data",
+             "gvl_tpu_torch.scripts.train_projectors",
+             "gvl_tpu_torch.scripts.eval_qa_lm_ckpt",
+             "gvl_tpu_torch.scripts.harvest_pipeline_prompts"):
     assert name in names, name
 import chip_smoke
 import launch_costs
@@ -173,6 +180,17 @@ def test_entry_points_raise_without_a_card(no_card):
     from gvl_tpu_torch.models.qwen3vl import Qwen3VL, Qwen3VLVisionConfig, init_vl_params
     from gvl_tpu_torch.models import hf_layouts, minilm, sam_vit, videomae, wav2vec2
     from gvl_tpu_torch.models.siglip import SigLIPTextConfig, load_text_tower
+    from gvl_tpu_torch.models.qwen3 import init_jax_params
+    from gvl_tpu_torch.scripts import (
+        eval_qa_lm_ckpt,
+        finetune_lora,
+        harvest_pipeline_prompts,
+        train_projectors,
+        train_qa_lm,
+    )
+    from gvl_tpu_torch.training import LoraTrainer, ProjectorTrainer
+    from gvl_tpu_torch.training.qa_lm_train import QATrainConfig, train_qa_lm_lora
+    from gvl_tpu_torch.training.qa_lm_train import train_qa_lm as train_loop
 
     cfg = Qwen3Config.tiny()
     state = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -200,6 +218,16 @@ def test_entry_points_raise_without_a_card(no_card):
         lambda: videomae.load_videomae(videomae.VideoMAEConfig.tiny(), {}),
         lambda: hf_layouts.random_state({}, torch.Generator()),
         lambda: SigLIPSemanticEncoder.from_tower_state(SigLIPVisionConfig.tiny(), {}),
+        lambda: init_jax_params(cfg, torch.Generator()),
+        lambda: train_loop(QATrainConfig(model=cfg, steps=1)),
+        lambda: train_qa_lm_lora(QA_CKPT),
+        lambda: LoraTrainer(Qwen3Config.tiny(lora_rank=4), state, list),
+        lambda: ProjectorTrainer(),
+        lambda: train_qa_lm.main(["--steps", "1"]),
+        lambda: finetune_lora.main(["--data", "pairs.json", "--dry-run"]),
+        lambda: train_projectors.main([]),
+        lambda: eval_qa_lm_ckpt.main([str(QA_CKPT), "--no-write"]),
+        lambda: harvest_pipeline_prompts.main(["--per-loader", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
