@@ -183,10 +183,31 @@ Run from the root of the repository, on a machine with one CUDA card and
     ``ProjectorBank``); ``python -m gvl_tpu_torch.scripts.train_qa_lm
     --geometry v5`` and ``finetune_lora --data`` as two processes run
     together (exit 0, their files); within ``TRAIN_BUDGET_S``.  Phase 2
-    also times B1 at the training shape (row 1r).
+    also times B1 at the training shape (row 1r);
+19. the perception trainers (``run_perception_train``), each at its default
+    config and batch with weights drawn by Flax's laws (seed ``PT_SEED``):
+    the segmenter (``SamConfig()``), the OCR recognizer and detector
+    (``OCRModelConfig(rec_arch="v2")``, their steps on seeded arrays: the
+    card's machine has no Pillow to render text), the audio-event net, the
+    byte ASR (``asr_config()``, rendered in its spawned pool), the SigLIP
+    text tower's corpus pretraining (``PT_PRETRAIN_STEPS``) and the
+    mini-SigLIP pair, the retriever's tower, the VideoMAE clip classifier and
+    HiCo's pool (1408 wide): at the start, the kernel path's loss and every
+    gradient within ``PT_GRAD_REL`` of the plain path's (f32, TF32 off) with
+    B1 launched as implied on the kernel path and never on the plain;
+    ``PT_FIXED_STEPS`` steps of Adam on the first batch, the loss falling;
+    ``PT_STEPS`` trainer steps with B1's launches per step as implied, wall
+    ms per step, device ms, busy share and B1's share (profiler, every step
+    but the first), the plain attention backward's share (events), allocator
+    peak, finite losses; the trained weights saved, reloaded
+    bit-equal through the serving classes and served once on the kernel
+    path; the scripts (``--steps 2``, all but ``train_ocr``) as processes,
+    at most ``PT_SCRIPTS_AT_ONCE`` at a time, each exiting 0 with its file;
+    within ``PT_BUDGET_S``.  Phase 2 also times B1 at the two largest of
+    those trainers' shapes (rows 1s, 1t).
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 18) and read just after it; each run must have launched
+path of phases 3 to 19) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -385,6 +406,22 @@ PROJ_ROWS, PROJ_BATCH = 16, 8   # seeded embeddings per modality, batch
 PROJ_F16_REL = 5e-3         # projections after the f16 round trip of projector_weights.pt
 TRAIN_PROCESS_S = 150       # each of the phase's two processes (run together)
 TRAIN_BUDGET_S = 180
+# phase 19: each perception trainer at its default config for PT_STEPS steps
+# (the profiler over every step but the first), the SigLIP text tower's pretraining for
+# PT_PRETRAIN_STEPS; the kernel path's loss and gradients against the plain
+# path's at the start (relative L2, each gradient's norm floored at
+# PT_GRAD_FLOOR of the whole gradient's: an attention's key bias has a
+# gradient that is zero but for rounding); the scripts as processes
+PT_SEED = 19
+PT_STEPS, PT_PRETRAIN_STEPS = 3, 2
+# steps of Adam on one fixed batch over which the loss must fall: from the
+# drawn start the clip classifier's loss rises for its first 3-5 steps at
+# lr 3e-4 (its unnormalised clip embedding, norm ~45), then falls
+PT_FIXED_STEPS = 8
+PT_GRAD_REL, PT_GRAD_FLOOR = 1e-4, 1e-3
+PT_SCRIPT_S = 150
+PT_SCRIPTS_AT_ONCE = 4
+PT_BUDGET_S = 180
 
 _T0 = time.perf_counter()
 
@@ -762,6 +799,27 @@ def check_kernels(dev) -> list[dict]:
         library_ms=time_ms(lambda: library_flash(qt, kt, vt, True), 10)))
     del qt, kt, vt
     torch.cuda.empty_cache()
+
+    # the two largest attention shapes of the perception trainers (phase 19,
+    # PERF.md rows 1s and 1t), f32 as they train: VideoMAE's at its batch of
+    # 16 clips and the byte ASR's encoder at its batch of 24 windows
+    for shape, b, h, s_len, d in (
+            ("VideoMAE training (phase 19): q/k/v [16,4,392,64] f32", 16, 4, 392, 64),
+            ("byte ASR training (phase 19), encoder: q/k/v [24,4,300,64] f32", 24, 4, 300, 64)):
+        qt, kt, vt = (randn(b, h, s_len, d) for _ in range(3))
+        err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt),
+                           attention_reference(qt, kt, vt), F32_TOL)
+        line_bound = bound_ms(4 * qt.nbytes, 4.0 * b * h * d * s_len * s_len, torch.bfloat16)
+        flash["lines"].append(dict(
+            name="flash_attention", shape=shape, max_abs_err=err,
+            ms=time_ms(lambda: flash_attention(qt, kt, vt), 50),
+            device_ms=kernel_device_ms(lambda: flash_attention(qt, kt, vt),
+                                       ("flash_attention",)),
+            plain_ms=time_ms(lambda: attention_reference(qt, kt, vt), 10),
+            bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+            library="SDPA, f32",
+            library_ms=time_ms(lambda: library_flash(qt, kt, vt, False), 50)))
+    del qt, kt, vt
 
     live = 3072   # a usual QA prompt: the decode reads ~3K of the 4608 rows
     q = randn(1, 10, 64)
@@ -4598,6 +4656,595 @@ def run_train(dev):
     return total, b1_per_step
 
 
+# --------------------------------------------------------------------------
+# Phase 19: the perception trainers
+# --------------------------------------------------------------------------
+
+class TrainerCase:
+    """One perception trainer at its default config: how to draw its start,
+    build a trainable model, draw a batch of its shapes, take its loss, run
+    it for ``PT_STEPS`` steps, and save, reload and serve what it trained."""
+
+    def __init__(self, name, geometry, b1_per_step, init, model, batch, loss, train, reload,
+                 lr, steps=None):
+        self.name, self.geometry, self.b1_per_step = name, geometry, b1_per_step
+        self.init, self.model, self.batch, self.loss = init, model, batch, loss
+        self.train, self.reload, self.lr = train, reload, lr
+        self.steps = steps or PT_STEPS
+
+
+def _trainable(case, state, dev):
+    import torch
+
+    from gvl_tpu_torch.training.init_laws import trainable
+
+    with torch.device("meta"):
+        model = case.model()
+    return trainable(model, state, dev)
+
+
+def _bit_equal(what: str, got: dict, want: dict) -> None:
+    import torch
+
+    if got.keys() != want.keys() or not all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+        raise AssertionError(f"{what}: the reloaded weights are not bit-equal to the trained")
+
+
+def _ocr_arrays(rng, config, batch: int, kind: str):
+    """Seeded arrays of an OCR trainer's batch shapes (the card's machine has
+    no Pillow to render text): crops and CTC labels of up to 16 ids, or
+    canvases and their target maps."""
+    import numpy as np
+
+    if kind == "recognizer":
+        images = rng.random((batch, config.rec_height, config.rec_width, 1)).astype(np.float32)
+        lengths = rng.integers(0, 17, batch)
+        labels = rng.integers(1, config.num_classes, (batch, 16)).astype(np.int32)
+        pad = (np.arange(16)[None] >= lengths[:, None]).astype(np.float32)
+        labels[pad > 0] = 0
+        return images, labels, pad
+    images = rng.random((batch, config.det_height, config.det_width, 1)).astype(np.float32)
+    targets = (rng.random((batch, config.det_height // config.det_stride,
+                           config.det_width // config.det_stride)) < 0.1).astype(np.float32)
+    return images, targets
+
+
+def _ocr_loop(net_fn, loss_fn, config, state, batches, dev, on_step):
+    """The OCR trainers' step (``recognizer_loss`` / ``detector_loss`` under
+    Optax's ``adam``, as ``train_recognizer`` and ``train_detector`` take
+    it) over seeded arrays."""
+    import torch
+
+    from gvl_tpu_torch.training import init_laws, optim
+
+    with torch.device("meta"):
+        net = net_fn(config)
+    net = init_laws.trainable(net, state, dev)
+    opt = optim.AdamW(net.parameters(), 1e-3, clip=None, weight_decay=0.0)
+    for i, batch in enumerate(batches):
+        loss = optim.train_step(net, opt, lambda m: loss_fn(m, *batch))
+        on_step(i, loss)
+    return init_laws.state_of(net)
+
+
+def perception_trainer_cases(dev) -> list:
+    """The eight trainers (OCR's two nets apart, the SigLIP text tower's
+    pretraining apart) at their default configs, seeded ``PT_SEED``."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.audio import event_model as E
+    from gvl_tpu_torch.models import sam as SAM
+    from gvl_tpu_torch.models.convert import hico_params_from_jax, sam_params_from_jax
+    from gvl_tpu_torch.models.whisper import WhisperModel
+    from gvl_tpu_torch.models.siglip import SigLIPTextTower
+    from gvl_tpu_torch.nn.layers import load_module
+    from gvl_tpu_torch.perception import ocr_model as O
+    from gvl_tpu_torch.temporal import hico as H
+    from gvl_tpu_torch.training import asr_train as A
+    from gvl_tpu_torch.training import retriever_train as R
+    from gvl_tpu_torch.training import segmenter_train as S
+    from gvl_tpu_torch.training import siglip_train as G
+    from gvl_tpu_torch.training import videomae_train as V
+
+    def rng():
+        return np.random.default_rng(PT_SEED)
+
+    def on(arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    cases = []
+
+    # the segmenter (SamConfig(): 256 px, encoder 384 x 6 x 6 heads)
+    sam = SAM.SamConfig()
+    scfg = S.SegTrainConfig(image_size=sam.image_size, steps=PT_STEPS, seed=PT_SEED, log_every=0)
+    tokens = S.concept_tokens(sam, dev)
+
+    def seg_reload(state, root):
+        SAM.save_segmenter_npz(state, root / "sam_params.npz", sam)
+        back = sam_params_from_jax(SAM.load_segmenter_npz(root / "sam_params.npz"), sam)
+        with torch.device("meta"):
+            net = SAM.PromptableSegmenter(sam)
+        net = load_module(net, back, dev)
+        frames = torch.from_numpy(S.make_batch(rng(), scfg, sam)[0][:2]).to(dev).float() / 255
+        with torch.inference_mode():
+            out = net(frames, tokens)
+        return back, f"mask logits {list(out['mask_logits'].shape)}"
+
+    cases.append(TrainerCase(
+        "segmenter", f"SamConfig(): {sam.image_size} px, encoder {sam.encoder_dim} x "
+        f"{sam.encoder_layers} x {sam.encoder_heads} heads, batch {scfg.batch_size}",
+        sam.encoder_layers + sam.text_layers + 2 * sam.decoder_layers,
+        lambda: S.segmenter_state(None, sam, PT_SEED), lambda: SAM.PromptableSegmenter(sam),
+        lambda: on(S.make_batch(rng(), scfg, sam)), lambda m, b: S.segmenter_loss(m, tokens, *b),
+        lambda init, on_step: S.train_segmenter(sam, scfg, init_params=init, device=dev,
+                                                on_step=on_step),
+        seg_reload, scfg.learning_rate))
+
+    # the OCR nets (OCRModelConfig(rec_arch="v2")) on seeded arrays
+    ocr = O.OCRModelConfig(rec_arch="v2")
+    for kind, net_fn, loss_fn, batch in (
+            ("recognizer", O.make_recognizer, O.recognizer_loss, 32),
+            ("detector", O.TextDetectorNet, O.detector_loss, 8)):
+        def ocr_reload(state, root, kind=kind):
+            nets = O.init_ocr_params(ocr, PT_SEED)
+            nets[kind] = state
+            O.save_ocr_params(nets, str(root / "ocr_params.npz"), ocr)
+            engine = O.TorchOCREngine(ocr, checkpoint=str(root / "ocr_params.npz"), device=dev)
+            frame = (np.random.default_rng(PT_SEED).random((360, 640)) * 255).astype(np.uint8)
+            found = engine(frame)
+            return getattr(engine, kind).state_dict(), f"TorchOCREngine: {len(found)} lines"
+
+        cases.append(TrainerCase(
+            f"ocr {kind}", f"OCRModelConfig(rec_arch='v2'), batch {batch}, seeded arrays", 0,
+            lambda net_fn=net_fn: O.ocr_net_state(None, net_fn, ocr, PT_SEED),
+            lambda net_fn=net_fn: net_fn(ocr),
+            lambda kind=kind, batch=batch: on(_ocr_arrays(rng(), ocr, batch, kind)),
+            lambda m, b, loss_fn=loss_fn: loss_fn(m, *b),
+            lambda init, on_step, kind=kind, batch=batch, net_fn=net_fn, loss_fn=loss_fn:
+                _ocr_loop(net_fn, loss_fn, ocr, init, [on(_ocr_arrays(
+                    np.random.default_rng(PT_SEED + i), ocr, batch, kind))
+                    for i in range(PT_STEPS)], dev, on_step),
+            ocr_reload, 1e-3))
+
+    # the audio-event net
+    ev = E.EventModelConfig()
+
+    def ev_reload(state, root):
+        E.save_event_params(state, root / "audio_event_params.npz")
+        params = E.load_event_params(root / "audio_event_params.npz")
+        detector = E.TorchAudioEventDetector(params, device=dev)
+        audio = E.synth_event(rng(), "impact", E.EventModelConfig(window_seconds=2.0))
+        events = detector(audio, ev.sample_rate)
+        E.TrainedAudioEmbedder(params, device=dev)(audio, ev.sample_rate)
+        return detector.net.state_dict(), f"TorchAudioEventDetector: {events}"
+
+    cases.append(TrainerCase(
+        "audio events", "EventModelConfig(), batch 64", 0,
+        lambda: E.event_state(None, ev, PT_SEED), lambda: E.AudioEventNet(ev),
+        lambda: on(E.make_event_batch(rng(), ev, 64)), lambda m, b: E.event_loss(m, *b),
+        lambda init, on_step: E.train_event_model(
+            ev, steps=PT_STEPS, seed=PT_SEED, pool_size=64 * PT_STEPS, init_params=init,
+            device=dev, on_step=on_step),
+        ev_reload, 1e-3))
+
+    # the byte ASR (asr_config(): d 256, 4 + 4 layers, 300 source positions)
+    acfg = A.ASRTrainConfig(steps=PT_STEPS, seed=PT_SEED, log_every=0)
+
+    def asr_reload(state, root):
+        A.save_asr(state, root / "asr", acfg.model)
+        asr = A.TrainedByteASR.from_dir(root / "asr", device=dev)
+        text, _ = asr(A.synth_speech(rng(), "boss incoming"), A.SAMPLE_RATE)
+        return asr.model.state_dict(), f"TrainedByteASR: {text[:30]!r}"
+
+    cases.append(TrainerCase(
+        "byte ASR", f"asr_config(): d {acfg.model.d_model}, {acfg.model.encoder_layers} + "
+        f"{acfg.model.decoder_layers} layers, {acfg.model.max_source_positions} source "
+        f"positions, batch {acfg.batch_size}",
+        acfg.model.encoder_layers + 2 * acfg.model.decoder_layers,
+        lambda: A.asr_state(None, acfg.model, PT_SEED), lambda: WhisperModel(acfg.model),
+        lambda: on(A._render_batch_seeded(acfg, PT_SEED + 1)),
+        lambda m, b: A.asr_loss(m, *b),
+        lambda init, on_step: A.train_asr(acfg, init_params=init, device=dev, on_step=on_step),
+        asr_reload, acfg.learning_rate))
+
+    # the mini-SigLIP pair (vision 384 x 6 at 128 px, text 384 x 4): the text
+    # tower's corpus pretraining, then the VL steps from its tower
+    gcfg = G.SigLIPTrainConfig(steps=PT_STEPS, seed=PT_SEED, log_every=0,
+                               text_pretrain_steps=PT_PRETRAIN_STEPS)
+    mp = gcfg.text.max_position
+
+    def sig_batch():
+        imgs, caps, cls = G.make_pairs(rng(), gcfg.batch_size, gcfg.canvas)
+        return on((imgs, G.byte_tokenize(caps, mp), cls))
+
+    def sig_train(init, on_step):
+        from dataclasses import replace
+
+        return G.train_minisiglip(replace(gcfg, text_pretrain_steps=0), init_params=init,
+                                  device=dev, on_step=on_step)
+
+    def sig_reload(state, root):
+        G.save_minisiglip(state, root / "minisiglip", gcfg.vision, gcfg.text)
+        model, _, _ = G.load_minisiglip(root / "minisiglip", device=dev)
+        with torch.inference_mode():
+            z = model.encode_text(torch.from_numpy(G.byte_tokenize(["the boss"], mp)).to(dev))
+        return model.state_dict(), f"load_minisiglip: text embedding {list(z.shape)}"
+
+    def corpus_batch():
+        from gvl_tpu_torch.training.text_corpus import word_context_batch
+
+        return on(word_context_batch(np.random.default_rng(PT_SEED + 7),
+                                     gcfg.text_corpus_batch, mp))
+
+    def pretrain_model():
+        return G._TextPretrainer(gcfg.text)
+
+    def pretrain_init():
+        state = {f"text.{k}": v for k, v in G.text_tower_state(None, gcfg.text,
+                                                                PT_SEED + 7).items()}
+        state.update(logit_scale=torch.tensor(np.float32(np.log(10.0))),
+                     logit_bias=torch.tensor(np.float32(-10.0)))
+        return state
+
+    def pretrain(init, on_step):
+        text = {k[len("text."):]: v for k, v in init.items() if k.startswith("text.")}
+        tower = G.pretrain_text_tower(gcfg, init_params=text, device=dev, on_step=on_step)
+        return {**{f"text.{k}": v for k, v in tower.items()},
+                "logit_scale": init["logit_scale"], "logit_bias": init["logit_bias"]}
+
+    def pretrain_reload(state, root):
+        text = {k[len("text."):]: v for k, v in state.items() if k.startswith("text.")}
+        R.save_retriever(text, root / "text_tower", gcfg.text)
+        embedder = R.TrainedTextEmbedder.from_dir(root / "text_tower", device=dev)
+        z = embedder.encode(["the villain attacks"])
+        return {f"text.{k}": v for k, v in embedder.tower.state_dict().items()} | {
+            "logit_scale": state["logit_scale"], "logit_bias": state["logit_bias"]}, \
+            f"the pretrained tower through TrainedTextEmbedder: {list(z.shape)}"
+
+    cases.append(TrainerCase(
+        "SigLIP text pretraining", f"text {gcfg.text.hidden_size} x {gcfg.text.num_layers}, "
+        f"corpus batch {gcfg.text_corpus_batch}, {PT_PRETRAIN_STEPS} steps",
+        2 * gcfg.text.num_layers, pretrain_init, pretrain_model, corpus_batch,
+        lambda m, b: G.corpus_loss(m.encode, m.logit_scale, m.logit_bias, *b),
+        pretrain, pretrain_reload, gcfg.learning_rate, steps=PT_PRETRAIN_STEPS))
+    cases.append(TrainerCase(
+        "mini-SigLIP", f"vision {gcfg.vision.hidden_size} x {gcfg.vision.num_layers} at "
+        f"{gcfg.vision.image_size} px, text {gcfg.text.hidden_size} x {gcfg.text.num_layers}, "
+        f"batch {gcfg.batch_size}",
+        gcfg.vision.num_layers + 1 + gcfg.text.num_layers,
+        lambda: G.minisiglip_state(None, gcfg), lambda: G.MiniSigLIP(gcfg.vision, gcfg.text),
+        sig_batch, lambda m, b: G.minisiglip_loss(m, *b), sig_train, sig_reload,
+        gcfg.learning_rate))
+
+    # the retriever's text tower
+    rcfg = R.RetrieverTrainConfig(steps=PT_STEPS, seed=PT_SEED, log_every=0)
+
+    def ret_batch():
+        q, d = R.make_batch(rng(), rcfg.batch_size)
+        return on((R.tokenize(q, rcfg.model.max_position), R.tokenize(d, rcfg.model.max_position)))
+
+    def ret_reload(state, root):
+        R.save_retriever(state, root / "retriever", rcfg.model)
+        embedder = R.TrainedTextEmbedder.from_dir(root / "retriever", device=dev)
+        z = embedder.encode(["when does the boss appear"])
+        return embedder.tower.state_dict(), f"TrainedTextEmbedder: {list(z.shape)}"
+
+    cases.append(TrainerCase(
+        "retriever", f"retriever_text_config(): {rcfg.model.hidden_size} x "
+        f"{rcfg.model.num_layers}, {rcfg.model.max_position} positions, batch {rcfg.batch_size}",
+        2 * rcfg.model.num_layers,
+        lambda: R.retriever_state(None, rcfg.model, PT_SEED), lambda: SigLIPTextTower(rcfg.model),
+        ret_batch, lambda m, b: R.retriever_loss(m, *b, rcfg.temperature),
+        lambda init, on_step: R.train_retriever(rcfg, init_params=init, device=dev,
+                                                on_step=on_step),
+        ret_reload, rcfg.learning_rate))
+
+    # the VideoMAE clip classifier (256 x 6, 16 frames at 112 px)
+    vcfg = V.ClipTrainConfig(steps=PT_STEPS, seed=PT_SEED, log_every=0)
+    vm = vcfg.model
+
+    def vm_batch():
+        return on(V.make_batch(rng(), vcfg.batch_size, vm.image_size, vm.num_frames, vcfg.styles))
+
+    def vm_reload(state, root):
+        V.save_clip_encoder(state, root / "videomae", vm)
+        enc = V.TrainedClipEncoder.from_dir(root / "videomae", device=dev)
+        clip = V.make_batch(rng(), 1, vm.image_size, vm.num_frames, ("base",))[0][0]
+        return enc.model.state_dict(), f"TrainedClipEncoder: {enc.classify_clips([clip])[0]}"
+
+    cases.append(TrainerCase(
+        "VideoMAE", f"mini_videomae_config(): {vm.hidden_size} x {vm.num_layers}, "
+        f"{vm.num_frames} frames at {vm.image_size} px, batch {vcfg.batch_size}",
+        vm.num_layers, lambda: V.clip_state(None, vm, PT_SEED), lambda: V.ClipClassifier(vm),
+        vm_batch, lambda m, b: V.clip_loss(m, *b),
+        lambda init, on_step: V.train_clip_encoder(vcfg, init_params=init, device=dev,
+                                                   on_step=on_step),
+        vm_reload, vcfg.learning_rate))
+
+    # HiCo's FRAME -> CLIP pool (1408 wide) with its throwaway decoder
+    hico = H.HiCoConfig()
+    hcfg = H.HicoTrainConfig(steps=PT_STEPS, seed=PT_SEED, log_every=0)
+
+    def hico_batch():
+        return on((H.make_sequences(rng(), hcfg.batch_size, hcfg.frames_per_clip,
+                                    hico.hidden_dim).astype(np.float32),))
+
+    def hico_train(init, on_step):
+        comp = H.train_hico(hico, hcfg, init_params=init, device=dev, on_step=on_step)
+        decoder = {k: v for k, v in init.items() if k.startswith("decoder.")}
+        return {**{f"compressor.{k}": v for k, v in comp.items()}, **decoder}
+
+    def hico_reload(state, root):
+        comp = {k[len("compressor."):]: v for k, v in state.items()
+                if k.startswith("compressor.")}
+        H.save_hico_npz(comp, root / "hico_params.npz")
+        back = hico_params_from_jax(H.load_hico_npz(root / "hico_params.npz"))
+        with torch.device("meta"):
+            net = H.HierarchicalCompressor(hico, pools=("frame_to_clip",))
+        net = load_module(net, back, dev)
+        with torch.inference_mode():
+            out = net.compress_frames_to_clip(hico_batch()[0], hcfg.clip_tokens)
+        return ({f"compressor.{k}": v for k, v in back.items()}
+                | {k: v for k, v in state.items() if k.startswith("decoder.")},
+                f"load_hico_npz: clip tokens {list(out.shape)} (the decoder is not saved)")
+
+    cases.append(TrainerCase(
+        "HiCo", f"HiCoConfig(): {hico.hidden_dim} wide, {hico.num_heads} heads, batch "
+        f"{hcfg.batch_size} x {hcfg.frames_per_clip} frames", 1,
+        lambda: H.hico_train_state(None, hico, hcfg),
+        lambda: H.HicoTrainWrapper(hico, hcfg.frames_per_clip, hcfg.clip_tokens),
+        hico_batch, lambda m, b: H.hico_loss(m, *b, hcfg.temperature), hico_train, hico_reload,
+        hcfg.learning_rate))
+    return cases
+
+
+def _grads(model, case, batch) -> tuple[float, dict]:
+    """The loss and every parameter's gradient (zeros where the loss does
+    not reach it) of one backward; the model's gradients are cleared."""
+    import torch
+
+    loss = case.loss(model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def kernel_against_plain(case, state, batch, dev) -> str:
+    """At ``state`` on ``batch``: the loss and every gradient of the kernel
+    path within ``PT_GRAD_REL`` of the plain path's (relative L2, each
+    gradient's norm floored at ``PT_GRAD_FLOOR`` of the whole gradient's);
+    the kernel path launches B1 as implied, the plain path not at all."""
+    from gvl_tpu_torch.nn.layers import set_flash_kernel
+    from gvl_tpu_torch.ops.attention import flash_attention
+
+    model = _trainable(case, state, dev)
+    with uncounted():
+        before = flash_attention.launches
+        lk, gk = _grads(model, case, batch)
+        mid = flash_attention.launches
+        set_flash_kernel(model, False)
+        lp, gp = _grads(model, case, batch)
+        after = flash_attention.launches
+    if (mid - before, after - mid) != (case.b1_per_step, 0):
+        raise AssertionError(f"perception train {case.name}: B1 launches kernel / plain path "
+                             f"{mid - before} / {after - mid}, want {case.b1_per_step} / 0")
+    total = math.sqrt(sum(float(g.float().norm()) ** 2 for g in gp.values()))
+    worst = (abs(lk - lp) / abs(lp), "loss")
+    for name, g in gp.items():
+        err = float((gk[name].float() - g.float()).norm()) / max(float(g.float().norm()),
+                                                                 PT_GRAD_FLOOR * total)
+        worst = max(worst, (err, name))
+    if not worst[0] <= PT_GRAD_REL or not math.isfinite(lk):
+        raise AssertionError(f"perception train {case.name}: kernel path against plain path: "
+                             f"{worst[1]} off by {worst[0]:.3g} (limit {PT_GRAD_REL})")
+    del model
+    return f"loss {lk:.6f} / {lp:.6f}, worst {worst[1]} {worst[0]:.2e}"
+
+
+def timed_attention_backward():
+    """A context in which each plain attention backward is timed with CUDA
+    events; yields the list of (ms) it fills."""
+    import torch
+
+    from gvl_tpu_torch.ops import attention
+
+    times = []
+    plain = attention.attention_backward
+
+    def timed(*args, **kw):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        out = plain(*args, **kw)
+        marks[1].record()
+        times.append(marks)
+        return out
+
+    @contextlib.contextmanager
+    def scope():
+        attention.attention_backward = timed
+        try:
+            yield times
+        finally:
+            attention.attention_backward = plain
+
+    return scope()
+
+
+def run_trainer_case(case, dev) -> dict:
+    """One trainer: the kernel path against the plain path at its start; the
+    loss falling over ``PT_FIXED_STEPS`` steps of Adam on its first batch;
+    the trainer's own steps (wall and device ms, busy and B1 shares, B1
+    launches per step, allocator peak, finite losses); the trained weights
+    saved, reloaded bit-equal and served."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvl_tpu_torch.device_times import _device_us
+    from gvl_tpu_torch.ops.attention import flash_attention
+
+    from gvl_tpu_torch.training import optim
+
+    init = case.init()
+    batch = case.batch()
+    check = kernel_against_plain(case, init, batch, dev)
+    with uncounted():
+        model = _trainable(case, init, dev)
+        # the plain attention backward of one step, timed apart
+        with timed_attention_backward() as marks:
+            case.loss(model, batch).backward()
+        torch.cuda.synchronize()
+        bwd_ms = sum(a.elapsed_time(b) for a, b in marks)
+        # progress: PT_FIXED_STEPS steps of Adam at the trainer's learning
+        # rate on the fixed first batch
+        opt = optim.AdamW(model.parameters(), case.lr, clip=None, weight_decay=0.0)
+        fixed = [optim.train_step(model, opt, lambda m: case.loss(m, batch)).item()
+                 for _ in range(PT_FIXED_STEPS)]
+        with torch.no_grad():
+            fixed.append(case.loss(model, batch).item())
+        del model, opt
+
+    steps = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    window = (1, case.steps)      # the profiler's steps: all but the first
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), loss.item(), flash_attention.launches))
+        if i + 1 == window[0]:
+            prof.start()
+        elif i + 1 == window[1]:
+            prof.stop()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = case.train(init, on_step)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = np.diff([0] + [n for _, _, n in steps]).tolist()
+    walls = np.diff([t0] + [t for t, _, _ in steps]) * 1e3
+    n_win = window[1] - window[0]
+    window_ms = (steps[window[1] - 1][0] - steps[window[0] - 1][0]) * 1e3
+    kernels = _device_us(prof)
+    device_ms = sum(kernels.values()) / 1e3 / n_win
+    b1_ms = sum(v for k, v in kernels.items() if "flash_attention" in k) / 1e3 / n_win
+    if any(n != case.b1_per_step for n in per_step) or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"perception train {case.name}: B1 launches per step {per_step}, "
+                             f"want {case.b1_per_step}; launches {launches}")
+    losses = [loss for _, loss, _ in steps]
+    if not all(map(math.isfinite, fixed + losses)) or not fixed[-1] < fixed[0] or not all(
+            torch.isfinite(t).all() for t in trained.values()):
+        raise AssertionError(f"perception train {case.name}: the loss on the fixed batch went "
+                             f"{fixed}, the trainer's {losses}, or a trained weight is not "
+                             f"finite")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ptrain_") as tmp:
+        reset_launches()
+        back, note = case.reload(trained, Path(tmp))
+        torch.cuda.synchronize()
+        served_b1 = flash_attention.launches
+    _bit_equal(f"perception train {case.name}", dict(back), trained)
+    if case.b1_per_step and not served_b1:
+        raise AssertionError(f"perception train {case.name}: the reloaded model served "
+                             f"without B1")
+    step_ms = float(np.median(walls[1:]))
+    row = dict(name=case.name, geometry=case.geometry, step_ms=step_ms,
+               device_ms=device_ms, busy=device_ms * n_win / window_ms,
+               b1_share=b1_ms / device_ms if device_ms else 0.0,
+               bwd_share=bwd_ms / device_ms if device_ms else 0.0,
+               peak_gib=peak, b1_per_step=per_step[0], b1_launches=sum(per_step) + served_b1)
+    log("perception train", f"{case.name} ({case.geometry}): kernel vs plain {check}; ms per "
+        f"step {', '.join(f'{w:.1f}' for w in walls)} (median of steps 1-{PT_STEPS - 1} "
+        f"{step_ms:.1f}); device ms per step {device_ms:.2f}, busy share {row['busy']:.3f}, B1 "
+        f"{b1_ms:.3f} ms ({row['b1_share']:.3f} of device time), plain attention backward "
+        f"{bwd_ms:.3f} ms ({row['bwd_share']:.3f}); allocator peak {peak:.2f} GiB; B1 launches"
+        f" per step {per_step}; the trainer's losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"on the fixed batch {' -> '.join(f'{x:.5f}' for x in fixed)}; saved, "
+        f"reloaded bit-equal, served ({note}; B1 launches {served_b1})")
+    return row
+
+
+PT_SCRIPTS = (
+    ("train_segmenter", ["--eval-scenes", "2"], "sam_params.npz"),
+    ("train_audio_events", ["--pool-size", "128", "--eval-samples", "12"],
+     "audio_event_params.npz"),
+    ("train_asr", ["--eval-samples", "2"], "asr"),
+    ("train_siglip", ["--text-pretrain-steps", "2", "--eval-crops", "8"], "minisiglip"),
+    ("train_retriever", ["--eval-timelines", "4"], "retriever"),
+    ("train_videomae", ["--eval-clips", "4", "--pool-batches", "2"], "videomae"),
+    ("train_hico", [], "hico_params.npz"),
+)
+
+
+def perception_train_processes(root: Path) -> str:
+    """The trainers' scripts (``--steps 2``) as processes, at most
+    ``PT_SCRIPTS_AT_ONCE`` at a time, each within ``PT_SCRIPT_S``: each must
+    exit 0 and write its file.  ``train_ocr`` renders its text with Pillow,
+    which the card's machine lacks: its trainers are held to JAX on the
+    CPU."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    pending, running, notes = list(PT_SCRIPTS), {}, []
+    try:
+        while pending or running:
+            while pending and len(running) < PT_SCRIPTS_AT_ONCE:
+                name, extra, out = pending.pop(0)
+                argv = [sys.executable, "-m", f"gvl_tpu_torch.scripts.{name}", "--steps", "2",
+                        "--out", str(root / out), *extra]
+                running[name] = (subprocess.Popen(argv, cwd=REPO, env=env, text=True,
+                                                  stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT),
+                                 time.perf_counter(), out)
+            name = next(iter(running))
+            proc, t0, out = running.pop(name)
+            text, _ = proc.communicate(timeout=max(1.0, PT_SCRIPT_S - (time.perf_counter() - t0)))
+            if proc.returncode != 0 or not (root / out).exists():
+                raise AssertionError(f"perception train: {name} exited {proc.returncode}, "
+                                     f"{out} written: {(root / out).exists()}; its output "
+                                     f"ends:\n{text[-3000:]}")
+            notes.append(f"{name} exit 0 in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for proc, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "; ".join(notes)
+
+
+def run_perception_train(dev):
+    """Phase 19 (the module docstring): the eight perception trainers at
+    their default configs on the card, and their scripts."""
+    import tempfile
+
+    import torch
+
+    start = time.perf_counter()
+    rows = []
+    for case in perception_trainer_cases(dev):
+        rows.append(run_trainer_case(case, dev))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pscripts_") as tmp:
+        log("perception train", perception_train_processes(Path(tmp)))
+    elapsed = time.perf_counter() - start
+    log("perception train", f"phase 19 in {elapsed:.1f} s (budget {PT_BUDGET_S} s)")
+    if elapsed > PT_BUDGET_S:
+        raise AssertionError(f"perception train: phase 19 took {elapsed:.1f} s, over its "
+                             f"{PT_BUDGET_S} s")
+    launched = sum(row["b1_launches"] for row in rows)
+    return {"flash_attention": launched}, rows
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import tempfile
@@ -4662,8 +5309,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, b1_per_step = run_train(dev)
     served.append(train_launches)
+    torch.cuda.empty_cache()
+    perception_launches, trainer_rows = run_perception_train(dev)
+    served.append(perception_launches)
+    trainer_b1 = {row["name"]: row["b1_per_step"] for row in trainer_rows}
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-18): {launches}")
+    log("launches", f"served paths (phases 3-19): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")
@@ -4672,6 +5323,9 @@ def main() -> int:
         for line in row.get("lines", []):
             if line["shape"].startswith("QA training"):
                 line["launches_per_step"] = b1_per_step
+            for trainer in ("VideoMAE", "byte ASR"):
+                if line["shape"].startswith(f"{trainer} training"):
+                    line["launches_per_step"] = trainer_b1[trainer]
 
     faulthandler.cancel_dump_traceback_later()
     print(nvidia_smi(), flush=True)

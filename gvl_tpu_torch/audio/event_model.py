@@ -1,13 +1,15 @@
-"""The trained audio-event classifier, inference only (the port's copy of
-the inference half of :mod:`gvl_tpu.audio.event_model`).
+"""The audio-event classifier and its trainer (counterpart of
+:mod:`gvl_tpu.audio.event_model`).
 
 A small CNN over 1 s log-mel windows (:mod:`gvl_tpu_torch.audio.mel`) plus
 the window's log-RMS as a side input classifies each second into
 :data:`EVENT_CLASSES`; every window of a clip goes through one forward on
 the card.  The convolutions pad as Flax's "SAME" does
 (:class:`~gvl_tpu_torch.perception.ocr_model.SameConv`).  The procedural
-event audio (:func:`synth_event`, for the synthetic clips' soundtrack) is
-copied; the trainer stays in the JAX package.
+event audio (:func:`synth_event`) draws the synthetic clips' soundtrack
+and the trainer's pool: :func:`train_event_model` trains the net with
+Optax's ``adam`` on batches drawn from a pre-synthesized pool with a gain
+jitter per sample, as the JAX package does, from the same seed.
 """
 
 from __future__ import annotations
@@ -304,3 +306,109 @@ class TorchAudioEventDetector:
         conf, cls = self.probabilities(wavs.to(self.device)).max(dim=-1)
         return [(EVENT_CLASSES[int(c)], float(p))
                 for c, p in zip(cls.cpu().numpy(), conf.float().cpu().numpy())]
+
+
+# --------------------------------------------------------------------------
+# Training and evaluation
+# --------------------------------------------------------------------------
+
+def make_event_batch(rng: np.random.Generator, config: EventModelConfig,
+                     batch_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """(waveforms [B, n], labels [B]) with balanced class sampling."""
+    wavs = np.zeros((batch_size, config.window_samples), np.float32)
+    labels = np.zeros(batch_size, np.int32)
+    for i in range(batch_size):
+        ci = int(rng.integers(0, len(EVENT_CLASSES)))
+        wavs[i] = synth_event(rng, EVENT_CLASSES[ci], config)
+        labels[i] = ci
+    return wavs, labels
+
+
+def event_state(params: Optional[dict], config: EventModelConfig, seed: int) -> dict:
+    """The weights a run starts from: ``params`` (a state dict or the JAX
+    tree) or, without it, drawn from ``seed`` by Flax's laws."""
+    from gvl_tpu_torch.models.convert import event_params_from_jax
+    from gvl_tpu_torch.training import init_laws
+
+    if params is not None:
+        return init_laws.as_state(params, event_params_from_jax)
+    with torch.device("meta"):
+        layout = init_laws.named_net_layout(AudioEventNet(config))
+    return init_laws.init_params(event_params_from_jax, layout, seed)
+
+
+def event_loss(net: AudioEventNet, wavs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The trainer's cross-entropy on one batch of waveforms."""
+    mel, log_rms = _features(wavs)
+    return torch.nn.functional.cross_entropy(net(mel, log_rms), labels.long())
+
+
+def train_event_model(config: Optional[EventModelConfig] = None, steps: int = 1200,
+                      batch_size: int = 64, learning_rate: float = 1e-3, seed: int = 0,
+                      pool_size: int = 2048, log_every: int = 0,
+                      init_params: Optional[dict] = None, device="cuda",
+                      on_step=None) -> dict[str, torch.Tensor]:
+    """Train :class:`AudioEventNet` on procedural audio and return its f32
+    state dict (JAX's ``train_event_model``; ``init_params`` warm-starts
+    it, ``on_step(i, loss)`` sees each step's loss on the device).  The
+    pool is synthesized once and each batch draws from it with a gain
+    jitter per sample."""
+    from gvl_tpu_torch.training import init_laws, optim
+
+    config = config or EventModelConfig()
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    pool_w = np.zeros((pool_size, config.window_samples), np.float32)
+    pool_y = np.zeros(pool_size, np.int32)
+    for i in range(pool_size):
+        ci = i % len(EVENT_CLASSES)
+        pool_w[i] = synth_event(rng, EVENT_CLASSES[ci], config)
+        pool_y[i] = ci
+    with torch.device("meta"):
+        net = AudioEventNet(config)
+    net = init_laws.trainable(net, event_state(init_params, config, seed), dev)
+    opt = optim.AdamW(net.parameters(), learning_rate, clip=None, weight_decay=0.0)
+    for i in range(steps):
+        idx = rng.integers(0, pool_size, batch_size)
+        gain = rng.uniform(0.5, 1.5, (batch_size, 1)).astype(np.float32)
+        wavs = torch.from_numpy(pool_w[idx] * gain).to(dev)
+        labels = torch.from_numpy(pool_y[idx]).to(dev)
+        loss = optim.train_step(net, opt, lambda m: event_loss(m, wavs, labels))
+        if on_step is not None:
+            on_step(i, loss)
+        if log_every and (i + 1) % log_every == 0:
+            logger.info("event step %d loss %.4f", i + 1, float(loss))
+    return init_laws.state_of(net)
+
+
+@torch.inference_mode()
+def evaluate_event_model(params: dict, config: Optional[EventModelConfig] = None,
+                         n_samples: int = 600, seed: int = 1234, device="cuda") -> dict:
+    """Held-out accuracy + per-class recall on fresh synthetic windows
+    (``params``: a state dict or the JAX tree)."""
+    config = config or EventModelConfig()
+    dev = resolve_device(device)
+    net = load_event_net(event_state(params, config, 0), config, dev)
+    wavs, labels = make_event_batch(np.random.default_rng(seed), config, n_samples)
+    mel, log_rms = _features(torch.from_numpy(wavs).to(dev))
+    pred = net(mel, log_rms).argmax(-1).cpu().numpy()
+    per_class = {}
+    for ci, name in enumerate(EVENT_CLASSES):
+        m = labels == ci
+        per_class[name] = float((pred[m] == ci).mean()) if m.any() else 0.0
+    return {"accuracy": float((pred == labels).mean()),
+            "per_class_recall": per_class, "n": n_samples}
+
+
+def save_event_params(state: dict, path) -> None:
+    """The JAX package's flat npz (``params/conv32/kernel``, ...) of the
+    net's state dict."""
+    from gvl_tpu_torch.models.convert import event_params_from_jax, tree_from_state
+    from gvl_tpu_torch.training import init_laws
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    with torch.device("meta"):
+        net = AudioEventNet(EventModelConfig(hidden=state["head1.weight"].shape[0],
+                                             n_classes=state["head2.weight"].shape[0]))
+    layout = init_laws.shapes(init_laws.named_net_layout(net))
+    save_flat_npz(tree_from_state(event_params_from_jax, layout, state), path)

@@ -235,3 +235,16 @@ def load_segmenter_npz(path) -> dict:
     from gvl_tpu_torch.utils.checkpoints import load_flat_npz
 
     return load_flat_npz(path)
+
+
+def save_segmenter_npz(state: dict, path, config: SamConfig = None) -> None:
+    """The JAX package's flat-npz variables (``params/...``) of a segmenter's
+    state dict (``config``: its geometry, ``SamConfig()`` by default)."""
+    from gvl_tpu_torch.models.convert import sam_params_from_jax, tree_from_state
+    from gvl_tpu_torch.training.init_laws import sam_layout, shapes
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    config = config or SamConfig()
+    layout = shapes(sam_layout(config, state["text_tower.pos"].shape[0]))
+    save_flat_npz(tree_from_state(lambda t: sam_params_from_jax(t, config), layout, state),
+                  path)

@@ -104,11 +104,15 @@ def init_state(model: nn.Module, generator: torch.Generator,
                device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """Random f32 weights for ``model`` (built on any device, the meta
     device included) as a state dict on ``device``, drawn from
-    ``generator`` in the order of ``model.state_dict()`` with the JAX
-    package's initialisers: matrices and convolutions ``N(0, 1/fan_in)``
-    (Flax's lecun normal, untruncated), zero biases, unit norms, and
-    ``N(0, 0.02²)`` for every other parameter (embeddings, positions,
-    queries)."""
+    ``generator`` in the order of ``model.state_dict()``: matrices and
+    convolutions ``N(0, 1/fan_in)`` (the variance of Flax's lecun normal,
+    but untruncated), zero biases, unit norms, and ``N(0, 0.02²)`` for
+    every other parameter (embeddings, positions, queries).  These are not
+    the JAX package's initialisers (Flax truncates lecun normal at two
+    standard deviations and draws embeddings from N(0, 1/width)): they are
+    the seeded stand-ins the card's phases serve, and their draws stay as
+    they are.  The perception trainers draw by Flax's laws
+    (:mod:`gvl_tpu_torch.training.init_laws`)."""
     from gvl_tpu_torch import resolve_device
 
     device = resolve_device(device)

@@ -1,5 +1,5 @@
-"""Text detection and recognition: the OCR engine on the card (the port's
-copy of the inference half of :mod:`gvl_tpu.perception.ocr_model`).
+"""Text detection and recognition: the OCR engine on the card and its
+trainers (counterpart of :mod:`gvl_tpu.perception.ocr_model`).
 
 - **Detector** (DB-style): a conv net over a fixed gray canvas gives a
   1/4-resolution text-probability map; thresholded 4-connected components
@@ -12,7 +12,16 @@ Flax's ``nn.Conv`` pads "SAME": with a stride, more on the end than the
 start, which torch's symmetric ``padding=`` cannot say, so every conv pads
 with ``F.pad`` by Flax's rule (:func:`same_pads`).  The recognizer's
 self-attention is plain PyTorch (in JAX it is Flax's, not the Pallas
-kernel).  Training stays in the JAX package.
+kernel).
+
+The trainers are the JAX module's on synthetic HUD text:
+:func:`train_recognizer` (CTC, blank 0, the mean over the batch of each
+crop's loss, Optax's ``adam``) on detector-style crops, and
+:func:`train_detector` (class-balanced BCE) on pasted-text canvases; each
+step is a function of its own (:func:`recognizer_loss`,
+:func:`detector_loss`).  Rendering text needs Pillow, imported only inside
+:func:`render_line` and :func:`discover_fonts` (the card's machine has
+none: there the steps run on arrays of the trainers' shapes).
 """
 
 from __future__ import annotations
@@ -538,3 +547,427 @@ def crop_to_input(crop: np.ndarray, config: OCRModelConfig) -> np.ndarray:
     padded = np.zeros((config.rec_height, config.rec_width), np.float32)
     padded[:, :cw] = resized
     return padded
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+def _net_layout(net_fn, config: OCRModelConfig) -> dict:
+    from gvl_tpu_torch.training.init_laws import named_net_layout
+
+    with torch.device("meta"):
+        return named_net_layout(net_fn(config), config.v2_heads)
+
+
+def ocr_net_state(params: Optional[dict], net_fn, config: OCRModelConfig,
+                  seed) -> dict[str, torch.Tensor]:
+    """A net's weights: ``params`` (a state dict or the JAX variables) or,
+    without it, drawn from ``seed`` (an int or a CPU generator) by Flax's
+    laws."""
+    from gvl_tpu_torch.models.convert import ocr_net_params_from_jax
+    from gvl_tpu_torch.training import init_laws
+
+    if params is not None:
+        return init_laws.as_state(params, ocr_net_params_from_jax)
+    return init_laws.init_params(ocr_net_params_from_jax, _net_layout(net_fn, config), seed)
+
+
+def init_ocr_params(config: OCRModelConfig, seed: int = 0) -> dict:
+    """Both nets drawn from one generator seeded ``seed``: ``{"detector":
+    state, "recognizer": state}``."""
+    generator = torch.Generator().manual_seed(seed)
+    return {"detector": ocr_net_state(None, TextDetectorNet, config, generator),
+            "recognizer": ocr_net_state(None, make_recognizer, config, generator)}
+
+
+def save_ocr_params(states: dict, path: str, config: Optional[OCRModelConfig] = None) -> None:
+    """The JAX package's OCR file (``detector/params/...``,
+    ``recognizer/params/...``) of ``{"detector": state, "recognizer":
+    state}``, nets of ``config``'s geometry (by default ``OCRModelConfig``
+    with the recognizer's architecture)."""
+    from gvl_tpu_torch.models.convert import ocr_net_params_from_jax, tree_from_state
+    from gvl_tpu_torch.training.init_laws import shapes
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    if config is None:
+        arch = "v2" if any(k.startswith("attn_") for k in states["recognizer"]) else "crnn"
+        config = OCRModelConfig(rec_arch=arch)
+    save_flat_npz({name: tree_from_state(ocr_net_params_from_jax,
+                                         shapes(_net_layout(net_fn, config)), states[name])
+                   for name, net_fn in (("detector", TextDetectorNet),
+                                        ("recognizer", make_recognizer))}, path)
+
+
+# --------------------------------------------------------------------------
+# Synthetic training data (Pillow-rendered HUD text)
+# --------------------------------------------------------------------------
+
+_HUD_TEMPLATES = (
+    "HP {a}/{b}", "MP {a}/{b}", "LV {c}", "{a}", "{c}:{d}",
+    "{a} gold", "+{c}", "-{c} HP",
+    # rare glyphs get extra weight ('%' is otherwise under-learned)
+    "{c}%", "{c}%", "{a}%",
+)
+
+_HUD_WORDS = (
+    "SCORE", "AMMO", "GOLD", "LEVEL", "WAVE", "COMBO", "XP", "KILLS",
+    "PING", "FPS", "TIME", "BONUS", "ARMOR", "ENERGY", "SHIELD", "COINS",
+    "STAGE", "LIVES", "MANA", "RAGE", "EXP", "DMG", "CRIT", "SPD",
+)
+
+
+def synth_text(rng: np.random.Generator, charset: str, open_vocab: bool = True) -> str:
+    """HUD-style strings with open vocabulary: numeric templates,
+    word+number labels and random charset strings (``open_vocab=False``:
+    the numeric templates only)."""
+    r = rng.random() if open_vocab else 0.0
+    if r < 0.35:
+        tpl = _HUD_TEMPLATES[rng.integers(0, len(_HUD_TEMPLATES))]
+        text = tpl.format(a=rng.integers(1, 999), b=rng.integers(1, 999),
+                          c=rng.integers(0, 99), d=f"{rng.integers(0, 59):02d}")
+    elif r < 0.70:
+        word = _HUD_WORDS[rng.integers(0, len(_HUD_WORDS))]
+        if rng.random() < 0.3:
+            word = word.capitalize() if rng.random() < 0.5 else word.lower()
+        form = rng.random()
+        if form < 0.4:
+            text = f"{word} {rng.integers(0, 9999)}"
+        elif form < 0.6:
+            text = f"{word} {rng.integers(1, 999)}/{rng.integers(1, 999)}"
+        elif form < 0.8:
+            text = f"{word} x{rng.integers(2, 99)}"
+        else:
+            text = word
+    else:
+        # open-vocabulary: random charset strings (no leading/trailing
+        # spaces, at most one space run)
+        glyphs = charset.replace(" ", "")
+        n = int(rng.integers(3, 13))
+        chars = [glyphs[int(rng.integers(0, len(glyphs)))] for _ in range(n)]
+        if n >= 5 and rng.random() < 0.5:
+            chars[int(rng.integers(1, n - 1))] = " "
+        text = "".join(chars).strip()
+    return "".join(c for c in text if c in charset) or "0"
+
+
+_FONT_POOL: Optional[list] = None
+
+
+def discover_fonts() -> list[str]:
+    """Usable TTF text fonts on this system (matplotlib ships DejaVu even
+    when no system fonts exist); symbol fonts are filtered by rendering
+    digits.  Needs Pillow."""
+    global _FONT_POOL
+    if _FONT_POOL is not None:
+        return _FONT_POOL
+    import glob
+
+    from PIL import Image, ImageDraw, ImageFont
+
+    candidates: list[str] = glob.glob("/usr/share/fonts/**/*.ttf", recursive=True)
+    try:
+        import matplotlib
+
+        candidates += glob.glob(matplotlib.get_data_path() + "/fonts/ttf/*.ttf")
+    except ImportError:
+        pass
+    pool = []
+    for path in sorted(set(candidates)):
+        try:
+            font = ImageFont.truetype(path, 16)
+            probe = Image.new("L", (64, 24), 0)
+            ImageDraw.Draw(probe).text((2, 2), "0A/:", fill=255, font=font)
+            if np.asarray(probe).max() > 128:   # renders real glyphs
+                pool.append(path)
+        except Exception:
+            continue
+    _FONT_POOL = pool
+    logger.info("OCR training font pool: %d TTF fonts", len(pool))
+    return pool
+
+
+def render_line(text: str, height: int, width: int, font_size: int = 16,
+                font_path: Optional[str] = None) -> np.ndarray:
+    """Rendered gray line in [0, 1], left-aligned, zero-padded (Pillow)."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    img = Image.new("L", (width, height), 0)
+    draw = ImageDraw.Draw(img)
+    if font_path:
+        font = ImageFont.truetype(font_path, font_size)
+    else:
+        try:
+            font = ImageFont.load_default(size=font_size)
+        except TypeError:      # older PIL: fixed-size bitmap font
+            font = ImageFont.load_default()
+    draw.text((2, max((height - font_size) // 2 - 2, 0)), text, fill=255, font=font)
+    return np.asarray(img, np.float32) / 255.0
+
+
+def _photometric(crop: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Ink gain, background lift, pixel noise."""
+    gain = float(rng.uniform(0.6, 1.0))
+    bg = float(rng.uniform(0.0, 0.2))
+    return np.clip(crop * gain + bg + rng.normal(0, 0.02, crop.shape), 0.0, 1.0)
+
+
+def _synth_crop(text: str, config: OCRModelConfig, rng: np.random.Generator,
+                use_fonts: bool = False, photometric: Optional[bool] = None) -> np.ndarray:
+    """A training sample that mimics a detector crop: rendered at a random
+    size (in a random font with ``use_fonts``), tight-cropped around the ink
+    with a random margin, jittered, then the shared resize path."""
+    font_size = int(rng.integers(12, 24))
+    font_path = None
+    if use_fonts:
+        pool = discover_fonts()
+        # keep a solid share of default-font samples
+        if pool and rng.random() < 0.6:
+            font_path = pool[int(rng.integers(0, len(pool)))]
+    line = render_line(text, font_size + 16, min(font_size * len(text) + 16, 512), font_size,
+                       font_path=font_path)
+    rows = np.nonzero(line.max(1) > 0.2)[0]
+    cols = np.nonzero(line.max(0) > 0.2)[0]
+    if len(rows) == 0 or len(cols) == 0:
+        return np.zeros((config.rec_height, config.rec_width), np.float32)
+    my1, my2 = int(rng.integers(0, 4)), int(rng.integers(0, 4))
+    mx1, mx2 = int(rng.integers(0, 4)), int(rng.integers(0, 4))
+    crop = line[max(rows.min() - my1, 0):rows.max() + 1 + my2,
+                max(cols.min() - mx1, 0):cols.max() + 1 + mx2]
+    if photometric is None:
+        photometric = use_fonts
+    if photometric:
+        crop = _photometric(crop, rng)
+    return crop_to_input(crop.astype(np.float32), config)
+
+
+def _synth_negative_crop(config: OCRModelConfig, rng: np.random.Generator) -> np.ndarray:
+    """A non-text crop (entity blob / edge / noise) whose CTC target is
+    empty."""
+    h = int(rng.integers(16, 40))
+    w = int(rng.integers(16, 140))
+    img = np.zeros((h, w), np.float32)
+    kind = rng.random()
+    if kind < 0.4:        # solid bright rectangle (HUD bar / entity)
+        img[:] = float(rng.uniform(0.3, 1.0))
+    elif kind < 0.7:      # ellipse on dark background
+        yy, xx = np.mgrid[0:h, 0:w]
+        cy, cx = h // 2, w // 2
+        hit = (((xx - cx) / max(w // 2, 1)) ** 2 + ((yy - cy) / max(h // 2, 1)) ** 2) <= 1.0
+        img[hit] = float(rng.uniform(0.4, 1.0))
+    else:                 # structured noise
+        img = rng.uniform(0, rng.uniform(0.3, 0.8), (h, w)).astype(np.float32)
+    return crop_to_input(img, config)
+
+
+def render_frame(texts: list[str], config: OCRModelConfig, rng: np.random.Generator,
+                 font_size: Optional[int] = None, distractors: bool = False,
+                 use_fonts: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """A canvas with text lines pasted at random spots + the 1/4-resolution
+    target mask; ``distractors`` adds a lifted noisy background and bright
+    entity-sized blobs the detector must ignore."""
+    h, w, s = config.det_height, config.det_width, config.det_stride
+    canvas = np.zeros((h, w), np.float32)
+    target = np.zeros((h // s, w // s), np.float32)
+    if distractors:
+        canvas += float(rng.uniform(0.0, 0.3))
+        canvas += rng.normal(0, rng.uniform(0.005, 0.04), canvas.shape)
+        yy, xx = np.mgrid[0:h, 0:w]
+        for _ in range(int(rng.integers(0, 5))):
+            bh = int(rng.integers(12, 90))
+            bw = int(rng.integers(12, 90))
+            cy = int(rng.integers(0, h))
+            cx = int(rng.integers(0, w))
+            val = float(rng.uniform(0.3, 0.95))
+            if rng.random() < 0.5:   # ellipse
+                hit = (((xx - cx) / max(bw, 1)) ** 2 + ((yy - cy) / max(bh, 1)) ** 2) <= 1.0
+            else:                    # rectangle
+                hit = (np.abs(xx - cx) <= bw // 2) & (np.abs(yy - cy) <= bh // 2)
+            canvas[hit] = val
+        canvas = np.clip(canvas, 0.0, 1.0)
+    font_pool = discover_fonts() if use_fonts else []
+    for text in texts:
+        fs = font_size or int(rng.integers(12, 24))
+        lh = fs + 16
+        lw = min(fs * len(text) + 8, w // 2)
+        font_path = None
+        if font_pool and rng.random() < 0.4:
+            font_path = font_pool[int(rng.integers(0, len(font_pool)))]
+        line = render_line(text, lh, lw, fs, font_path=font_path)
+        y = int(rng.integers(0, h - lh))
+        x = int(rng.integers(0, w - lw))
+        canvas[y:y + lh, x:x + lw] = np.maximum(canvas[y:y + lh, x:x + lw], line)
+        cols = line.max(0) > 0.2
+        if cols.any():
+            tx2 = x + int(np.nonzero(cols)[0].max()) + 1
+            rows = line.max(1) > 0.2
+            ty1 = y + int(np.nonzero(rows)[0].min())
+            ty2 = y + int(np.nonzero(rows)[0].max()) + 1
+            target[ty1 // s:max(ty2 // s, ty1 // s + 1),
+                   x // s:max(tx2 // s, x // s + 1)] = 1.0
+    # dilate 1 px so the trained map covers full glyph extents
+    th, tw = target.shape
+    padded = np.pad(target, 1)
+    target = np.max(np.stack([padded[1 + dy:1 + dy + th, 1 + dx:1 + dx + tw]
+                              for dy in (-1, 0, 1) for dx in (-1, 0, 1)]), axis=0)
+    return canvas, target
+
+
+# --------------------------------------------------------------------------
+# Training steps and trainers
+# --------------------------------------------------------------------------
+
+def recognizer_loss(net: nn.Module, images: torch.Tensor, labels: torch.Tensor,
+                    label_pad: torch.Tensor) -> torch.Tensor:
+    """CTC (blank 0) of each crop over every time step, averaged over the
+    batch (as the JAX trainer takes the mean of Optax's CTC): ``label_pad`` is 1 past each
+    label's end."""
+    logits = net(images)                                  # [B, T, C]
+    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
+    batch, steps = logits.shape[:2]
+    target_lengths = (1.0 - label_pad).sum(-1).round().long()
+    input_lengths = torch.full((batch,), steps, dtype=torch.long, device=logits.device)
+    return F.ctc_loss(log_probs, labels.long(), input_lengths, target_lengths,
+                      blank=BLANK_ID, reduction="none").mean()
+
+
+def detector_loss(net: nn.Module, images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Class-balanced BCE (text pixels weigh 5) of the probability map."""
+    logits = net(images)
+    bce = -targets * F.logsigmoid(logits) - (1.0 - targets) * F.logsigmoid(-logits)
+    return (bce * torch.where(targets > 0.5, 5.0, 1.0)).mean()
+
+
+def train_recognizer(config: OCRModelConfig, steps: int = 600, batch_size: int = 32,
+                     learning_rate: float = 1e-3, seed: int = 0,
+                     params: Optional[dict] = None, max_label_len: int = 16,
+                     log_every: int = 0, use_fonts: bool = False, pool_size: int = 0,
+                     open_vocab: bool = True, negative_frac: float = 0.07,
+                     device="cuda", on_step=None) -> dict[str, torch.Tensor]:
+    """CTC-train the recognizer on synthetic detector-style crops and return
+    its f32 state dict (JAX's ``train_recognizer``: ``params`` warm-starts
+    it; ``pool_size`` pre-renders that many crops and draws each batch from
+    them with fresh photometric jitter; ``on_step(i, loss)`` sees each
+    step's loss on the device)."""
+    from gvl_tpu_torch.training import init_laws, optim
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        net = make_recognizer(config)
+    net = init_laws.trainable(net, ocr_net_state(params, make_recognizer, config, seed), dev)
+    opt = optim.AdamW(net.parameters(), learning_rate, clip=None, weight_decay=0.0)
+    pool = None
+    if pool_size:
+        pool_images = np.zeros((pool_size, config.rec_height, config.rec_width), np.float32)
+        pool_labels = np.zeros((pool_size, max_label_len), np.int32)
+        pool_pad = np.ones((pool_size, max_label_len), np.float32)
+        for i in range(pool_size):
+            if rng.random() < negative_frac:  # non-text → empty target
+                pool_images[i] = _synth_negative_crop(config, rng)
+                continue
+            text = synth_text(rng, config.charset, open_vocab=open_vocab)[:max_label_len] or "0"
+            # geometry only: photometrics are re-rolled per step
+            pool_images[i] = _synth_crop(text, config, rng, use_fonts=use_fonts,
+                                         photometric=False)
+            ids = config.encode(text)
+            pool_labels[i, :len(ids)] = ids
+            pool_pad[i, :len(ids)] = 0.0
+        pool = (pool_images, pool_labels, pool_pad)
+        logger.info("rec sample pool: %d crops rendered", pool_size)
+    for i in range(steps):
+        if pool is not None:
+            idx = rng.integers(0, pool_size, batch_size)
+            raw = pool[0][idx]
+            if use_fonts:   # per-step photometric jitter
+                gain = rng.uniform(0.6, 1.0, (batch_size, 1, 1))
+                bg = rng.uniform(0.0, 0.2, (batch_size, 1, 1))
+                raw = np.clip(raw * gain + bg + rng.normal(0, 0.02, raw.shape), 0.0, 1.0)
+            images = raw[..., None].astype(np.float32)
+            labels, label_pad = pool[1][idx], pool[2][idx]
+        else:
+            images = np.zeros((batch_size, config.rec_height, config.rec_width, 1), np.float32)
+            labels = np.zeros((batch_size, max_label_len), np.int32)
+            label_pad = np.ones((batch_size, max_label_len), np.float32)
+            for b in range(batch_size):
+                if rng.random() < negative_frac:
+                    images[b, :, :, 0] = _synth_negative_crop(config, rng)
+                    continue
+                text = synth_text(rng, config.charset, open_vocab=open_vocab)[:max_label_len] \
+                    or "0"
+                images[b, :, :, 0] = _synth_crop(text, config, rng, use_fonts=use_fonts)
+                ids = config.encode(text)
+                labels[b, :len(ids)] = ids
+                label_pad[b, :len(ids)] = 0.0
+        batch = [torch.from_numpy(a).to(dev) for a in (images, labels, label_pad)]
+        loss = optim.train_step(net, opt, lambda m: recognizer_loss(m, *batch))
+        if on_step is not None:
+            on_step(i, loss)
+        if log_every and (i + 1) % log_every == 0:
+            logger.info("rec step %d loss %.4f", i + 1, float(loss))
+    return init_laws.state_of(net)
+
+
+def train_detector(config: OCRModelConfig, steps: int = 300, batch_size: int = 8,
+                   learning_rate: float = 1e-3, seed: int = 0, params: Optional[dict] = None,
+                   log_every: int = 0, distractors: bool = False, use_fonts: bool = False,
+                   device="cuda", on_step=None) -> dict[str, torch.Tensor]:
+    """BCE-train the detector on synthetic pasted-text canvases and return
+    its f32 state dict (JAX's ``train_detector``)."""
+    from gvl_tpu_torch.training import init_laws, optim
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        net = TextDetectorNet(config)
+    net = init_laws.trainable(net, ocr_net_state(params, TextDetectorNet, config, seed), dev)
+    opt = optim.AdamW(net.parameters(), learning_rate, clip=None, weight_decay=0.0)
+    for i in range(steps):
+        images = np.zeros((batch_size, config.det_height, config.det_width, 1), np.float32)
+        targets = np.zeros((batch_size, config.det_height // config.det_stride,
+                            config.det_width // config.det_stride), np.float32)
+        for b in range(batch_size):
+            texts = [synth_text(rng, config.charset) for _ in range(int(rng.integers(1, 4)))]
+            images[b, :, :, 0], targets[b] = render_frame(
+                texts, config, rng, distractors=distractors and bool(rng.random() < 0.8),
+                use_fonts=use_fonts)
+        batch = [torch.from_numpy(a).to(dev) for a in (images, targets)]
+        loss = optim.train_step(net, opt, lambda m: detector_loss(m, *batch))
+        if on_step is not None:
+            on_step(i, loss)
+        if log_every and (i + 1) % log_every == 0:
+            logger.info("det step %d loss %.4f", i + 1, float(loss))
+    return init_laws.state_of(net)
+
+
+@torch.inference_mode()
+def evaluate_recognizer(params: dict, config: Optional[OCRModelConfig] = None, n: int = 200,
+                        seed: int = 4321, use_fonts: bool = True, device="cuda") -> dict:
+    """Held-out exact-match accuracy on synthetic detector-style crops
+    (multi-font when ``use_fonts``; ``params``: a state dict or the JAX
+    variables)."""
+    from gvl_tpu_torch.nn.layers import load_module
+
+    config = config or OCRModelConfig()
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        net = make_recognizer(config)
+    net = load_module(net, ocr_net_state(params, make_recognizer, config, 0), dev)
+    rng = np.random.default_rng(seed)
+    correct = total = 0
+    batch = 32
+    while total < n:
+        m = min(batch, n - total)
+        images = np.zeros((batch, config.rec_height, config.rec_width, 1), np.float32)
+        texts = []
+        for b in range(m):
+            text = synth_text(rng, config.charset)[:16] or "0"
+            texts.append(text)
+            images[b, :, :, 0] = _synth_crop(text, config, rng, use_fonts=use_fonts)
+        logits = net(torch.from_numpy(images).to(dev)).float().cpu().numpy()
+        for b in range(m):
+            pred, _ = ctc_decode(logits[b], config)
+            correct += int(pred == texts[b])
+        total += m
+    return {"exact_match": correct / total, "n": total,
+            "fonts": len(discover_fonts()) if use_fonts else 0}

@@ -18,6 +18,13 @@ initialisation.  The port's random draw is its own (a ``torch.Generator``
 seeded with 0); only loaded weights give JAX's results.  The trained file
 holds the FRAME → CLIP pool only, so the VIDEO level raises on it, as it
 fails in JAX.
+
+The compressor's trainer (counterpart of :mod:`gvl_tpu.training.
+hico_train`) is here too: :func:`train_hico` trains the FRAME → CLIP pool
+self-supervised on procedural feature sequences (:func:`make_sequences`),
+through a throwaway linear decoder that must rebuild the frame tokens from
+the clip tokens (MSE) and an in-batch InfoNCE between the pooled clip
+token and the mean frame token; the decoder is dropped when it saves.
 """
 
 from __future__ import annotations
@@ -356,8 +363,19 @@ def _resolve_checkpoint(path) -> Optional[str]:
 
 
 def save_hico_npz(variables: dict, path) -> None:
+    """The JAX package's flat npz (``params/frame_to_clip/...``): a
+    compressor's state dict taken back to the JAX tree, or JAX variables as
+    they are."""
+    from gvl_tpu_torch.models.convert import hico_params_from_jax, tree_from_state
+    from gvl_tpu_torch.training.init_laws import hico_layout, shapes
     from gvl_tpu_torch.utils.checkpoints import save_flat_npz
 
+    if all(torch.is_tensor(v) for v in variables.values()):
+        cfg = HiCoConfig(hidden_dim=variables["temporal_pe"].shape[1],
+                         max_positions=variables["temporal_pe"].shape[0])
+        pools = tuple(p for p in POOLS if f"{p}.query" in variables)
+        variables = {"params": tree_from_state(
+            hico_params_from_jax, shapes(hico_layout(cfg, pools)), variables)}
     save_flat_npz(variables, path)
 
 
@@ -365,3 +383,159 @@ def load_hico_npz(path) -> dict:
     from gvl_tpu_torch.utils.checkpoints import load_flat_npz
 
     return load_flat_npz(path)
+
+
+# --------------------------------------------------------------------------
+# Training (self-supervised, offline)
+# --------------------------------------------------------------------------
+
+@dataclass
+class HicoTrainConfig:
+    steps: int = 800
+    batch_size: int = 32
+    frames_per_clip: int = 16
+    clip_tokens: int = 4          # compressed tokens per clip
+    learning_rate: float = 2e-4
+    seed: int = 0
+    log_every: int = 100
+    temperature: float = 0.1      # InfoNCE
+
+
+def make_sequences(rng: np.random.Generator, batch: int, frames: int,
+                   dim: int) -> np.ndarray:
+    """[B, T, D] smooth random walks + event jumps, unit-ish scale."""
+    base = rng.standard_normal((batch, 1, dim)).astype(np.float32)
+    drift = rng.standard_normal((batch, frames, dim)).astype(np.float32)
+    drift = np.cumsum(drift, axis=1) * 0.15
+    seqs = base + drift
+    # events: a burst added to a random suffix of some sequences
+    for b in range(batch):
+        if rng.random() < 0.5:
+            t0 = rng.integers(1, frames)
+            seqs[b, t0:] += rng.standard_normal(dim).astype(np.float32) * 1.5
+    return seqs / np.sqrt(dim)
+
+
+class HicoTrainWrapper(nn.Module):
+    """The compressor (FRAME → CLIP pool) + a throwaway reconstruction
+    decoder (``gvl_tpu.training.hico_train._TrainWrapper``)."""
+
+    def __init__(self, config: HiCoConfig, frames: int, clip_tokens: int):
+        super().__init__()
+        self.clip_tokens = clip_tokens
+        self.compressor = HierarchicalCompressor(config, pools=("frame_to_clip",))
+        self.decoder = nn.Linear(clip_tokens * config.hidden_dim, frames * config.hidden_dim)
+
+    def forward(self, seqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        clip = self.compressor.compress_frames_to_clip(seqs, self.clip_tokens)
+        return clip, self.decoder(clip.reshape(clip.shape[0], -1)).reshape(seqs.shape)
+
+
+def _unit(z: torch.Tensor) -> torch.Tensor:
+    return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+
+
+def hico_loss(wrapper: HicoTrainWrapper, seqs: torch.Tensor, temperature: float) -> torch.Tensor:
+    """MSE of the reconstruction + 0.1 x InfoNCE of the pooled clip token
+    against the mean frame token, in batch."""
+    clip, recon = wrapper(seqs)
+    mse = torch.mean((recon - seqs) ** 2)
+    logits = (_unit(clip.mean(1)) @ _unit(seqs.mean(1)).T) / temperature
+    nce = nn.functional.cross_entropy(logits, torch.arange(len(logits), device=seqs.device))
+    return mse + 0.1 * nce
+
+
+def _wrapper_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    from gvl_tpu_torch.models.convert import _dense, hico_params_from_jax
+
+    params = tree["params"] if "params" in tree else tree
+    out = {f"compressor.{k}": v for k, v in hico_params_from_jax(params["compressor"]).items()}
+    out.update(_dense(params["decoder"], "decoder"))
+    return out
+
+
+def hico_train_state(params: Optional[dict], model_cfg: HiCoConfig,
+                     cfg: HicoTrainConfig) -> dict:
+    """The wrapper's weights a run starts from: ``params`` (its state dict
+    or the JAX wrapper's variables) or, without it, drawn from ``cfg.seed``
+    by Flax's laws."""
+    from gvl_tpu_torch.training import init_laws
+
+    if params is not None:
+        return init_laws.as_state(params, _wrapper_from_jax)
+    d = model_cfg.hidden_dim
+    layout = {"compressor": init_laws.hico_layout(model_cfg),
+              "decoder": init_laws.dense(cfg.clip_tokens * d, cfg.frames_per_clip * d)}
+    return init_laws.init_params(_wrapper_from_jax, layout, cfg.seed)
+
+
+def train_hico(model_cfg: Optional[HiCoConfig] = None, cfg: Optional[HicoTrainConfig] = None,
+               init_params: Optional[dict] = None, device="cuda",
+               on_step=None) -> dict[str, torch.Tensor]:
+    """Train the compressor and return its f32 state dict, the decoder
+    stripped (JAX's ``train_hico``; ``init_params`` warm-starts the
+    wrapper, ``on_step(i, loss)`` sees each step's loss on the device).
+    AdamW with Optax's default decay (1e-4) over a cosine schedule, on a
+    pool of up to 64 batches."""
+    from gvl_tpu_torch.training import init_laws, optim
+
+    model_cfg = model_cfg or HiCoConfig()
+    cfg = cfg or HicoTrainConfig()
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    with torch.device("meta"):
+        wrapper = HicoTrainWrapper(model_cfg, cfg.frames_per_clip, cfg.clip_tokens)
+    wrapper = init_laws.trainable(wrapper, hico_train_state(init_params, model_cfg, cfg), dev)
+    opt = optim.AdamW(wrapper.parameters(), optim.cosine_decay_schedule(
+        cfg.learning_rate, cfg.steps), clip=None)
+    n_unique = min(cfg.steps, 64)
+    # the sequences come out in f64 (divided by a numpy square root); the
+    # device takes them in f32, as JAX does
+    pool = [torch.from_numpy(make_sequences(rng, cfg.batch_size, cfg.frames_per_clip,
+                                            model_cfg.hidden_dim)).float().to(dev)
+            for _ in range(n_unique)]
+    for i in range(cfg.steps):
+        seqs = pool[i % n_unique]
+        loss = optim.train_step(wrapper, opt, lambda m: hico_loss(m, seqs, cfg.temperature))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("step %d loss %.4f", i, float(loss))
+    return {k[len("compressor."):]: v for k, v in init_laws.state_of(wrapper).items()
+            if k.startswith("compressor.")}
+
+
+@torch.inference_mode()
+def evaluate_hico(variables: dict, model_cfg: Optional[HiCoConfig] = None,
+                  cfg: Optional[HicoTrainConfig] = None, n_batches: int = 8,
+                  seed: int = 999, device="cuda") -> dict:
+    """Held-out: in-batch retrieval accuracy of clip tokens (does the
+    compressed token identify its own sequence?) + baseline 1/B
+    (``variables``: the compressor's state dict or the JAX variables)."""
+    from gvl_tpu_torch.models.convert import hico_params_from_jax
+    from gvl_tpu_torch.nn.layers import load_module
+    from gvl_tpu_torch.training.init_laws import as_state
+
+    model_cfg = model_cfg or HiCoConfig()
+    cfg = cfg or HicoTrainConfig()
+    dev = resolve_device(device)
+    state = as_state(variables, hico_params_from_jax)
+    with torch.device("meta"):
+        comp = HierarchicalCompressor(model_cfg, pools=tuple(
+            p for p in POOLS if f"{p}.query" in state))
+    comp = load_module(comp, state, dev)
+    rng = np.random.default_rng(seed)
+    correct = total = 0
+    for _ in range(n_batches):
+        seqs = make_sequences(rng, cfg.batch_size, cfg.frames_per_clip, model_cfg.hidden_dim)
+        clip = comp.compress_frames_to_clip(torch.from_numpy(seqs).float().to(dev),
+                                            cfg.clip_tokens).float().cpu().numpy()
+        a = clip.mean(axis=1)
+        b = seqs.mean(axis=1)
+        a = a / np.linalg.norm(a, axis=-1, keepdims=True)
+        b = b / np.linalg.norm(b, axis=-1, keepdims=True)
+        pred = np.argmax(a @ b.T, axis=-1)
+        correct += int((pred == np.arange(len(pred))).sum())
+        total += len(pred)
+    return {"retrieval_acc": correct / total,
+            "chance": 1.0 / cfg.batch_size, "n": total}

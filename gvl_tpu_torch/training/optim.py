@@ -30,7 +30,7 @@ in float32, as in JAX.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -95,15 +95,16 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 class AdamW:
-    """``clip_by_global_norm(clip)``, then Optax's ``adamw`` (b1 0.9, b2
-    0.999, eps 1e-8) with ``learning_rate`` (a number or a schedule of the
-    update count) over ``params``, one update every ``every_k`` calls of
-    :meth:`step`."""
+    """``clip_by_global_norm(clip)`` (none when ``clip`` is None), then
+    Optax's ``adamw`` (b1 0.9, b2 0.999, eps 1e-8) with ``learning_rate``
+    (a number or a schedule of the update count) over ``params``, one
+    update every ``every_k`` calls of :meth:`step`.  ``weight_decay=0`` is
+    Optax's ``adam``."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 learning_rate: Union[float, Schedule], clip: float,
+                 learning_rate: Union[float, Schedule], clip: Optional[float],
                  weight_decay: float = 1e-4, every_k: int = 1):
         self.params = list(params)
         self.schedule = (learning_rate if callable(learning_rate)
@@ -126,7 +127,8 @@ class AdamW:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         if self.every_k > 1:
             torch._foreach_div_(grads, float(self.every_k))
-        clip_by_global_norm_(grads, self.clip)
+        if self.clip is not None:
+            clip_by_global_norm_(grads, self.clip)
         b1, b2 = self.B1, self.B2
         # mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(self.mu, b1)

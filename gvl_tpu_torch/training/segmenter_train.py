@@ -1,16 +1,31 @@
-"""The segmenter's concept signatures and synthetic scenes (the port's copy
-of ``CONCEPT_SPECS``, ``make_scene`` and what it draws with from
-``gvl_tpu.training.segmenter_train``): the shape and colour each concept is
-drawn with in the synthetic ``concept_demo`` clips, the ones the shipped
-segmenter checkpoint was trained on, and the procedural scenes with
-ground-truth masks that the open-vocabulary figures
-(:func:`gvl_tpu_torch.training.siglip_train.evaluate_open_vocab`) score.
-The same seed draws the same scene as the JAX package.  The trainer stays
-in the JAX package."""
+"""Train the promptable segmenter on synthetic gameplay scenes (counterpart
+of :mod:`gvl_tpu.training.segmenter_train`).
+
+The concept signatures (the shape and colour each concept is drawn with in
+the synthetic ``concept_demo`` clips), the procedural scenes with
+ground-truth masks (:func:`make_scene`, which the open-vocabulary figures
+of :func:`gvl_tpu_torch.training.siglip_train.evaluate_open_vocab` score
+too), and the trainer of :class:`~gvl_tpu_torch.models.sam.
+PromptableSegmenter`: a set-prediction loss whose queries are matched to
+the ground-truth instances greedily by soft-dice cost (matched queries pay
+dice + BCE on the mask and a score target of 1, the rest a score target
+of 0), AdamW over a cosine schedule, and a pool of ``pool_batches``
+batches indexed ``step % pool`` as in JAX.  The same seed draws the same
+scenes and batches as the JAX package; the weights are drawn by Flax's
+laws (:mod:`~gvl_tpu_torch.training.init_laws`).  Every attention of the
+model goes through the flash kernel's differentiable wrapper.
+"""
 
 from __future__ import annotations
 
+import logging
+from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
 
 # concept → drawing signature (shape kind, RGB base). Distinctive per
 # concept so open-vocab selection is learnable from scratch.
@@ -22,6 +37,42 @@ CONCEPT_SPECS: dict[str, tuple[str, tuple[int, int, int]]] = {
 }
 CONCEPTS = tuple(CONCEPT_SPECS)
 MAX_INST = 3  # static per-(frame, concept) instance slots
+
+
+@dataclass
+class SegTrainConfig:
+    image_size: int = 256
+    steps: int = 1500
+    batch_size: int = 8
+    learning_rate: float = 3e-4
+    weight_decay: float = 1e-4
+    seed: int = 0
+    log_every: int = 100
+    # max instances drawn per concept per frame (boss capped at 1)
+    max_draw: int = 2
+    # style families sampled during training — "holdout" must never
+    # appear here (it is the out-of-distribution eval family)
+    styles: tuple[str, ...] = ("base", "aug")
+    # distinct batches of the pool (held on the device)
+    pool_batches: int = 192
+
+
+def _draw(kind: str, canvas: np.ndarray, mask: np.ndarray,
+          cx: int, cy: int, r: int, color: np.ndarray) -> None:
+    h, w = mask.shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "square":
+        hit = (np.abs(xx - cx) <= r) & (np.abs(yy - cy) <= r)
+    elif kind == "triangle":
+        hit = ((yy >= cy - r) & (yy <= cy + r)
+               & (np.abs(xx - cx) <= (yy - (cy - r)) / 2))
+    elif kind == "ellipse":
+        hit = (((xx - cx) / max(r, 1)) ** 2
+               + ((yy - cy) / max(r * 0.7, 1)) ** 2) <= 1.0
+    else:  # diamond
+        hit = (np.abs(xx - cx) + np.abs(yy - cy)) <= r
+    canvas[hit] = color
+    mask |= hit
 
 
 STYLES = ("base", "aug", "holdout")
@@ -245,3 +296,202 @@ def make_scene(
         noise = rng.normal(0, sigma, frame.shape)
         frame = np.clip(out * gain + noise, 0, 255).astype(np.uint8)
     return frame, gt_masks, gt_valid
+
+
+def make_batch(rng: np.random.Generator, cfg: SegTrainConfig, model_cfg
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(frames uint8 [B,S,S,3], gt bool [B,C,I,ms,ms], valid [B,C,I])."""
+    ms = model_cfg.image_size // model_cfg.mask_downscale
+    stride = model_cfg.mask_downscale
+    frames, gts, valids = [], [], []
+    for _ in range(cfg.batch_size):
+        style = cfg.styles[int(rng.integers(0, len(cfg.styles)))]
+        frame, gt, valid = make_scene(rng, cfg.image_size, cfg.max_draw, style=style)
+        frames.append(frame)
+        gts.append(gt[:, :, ::stride, ::stride][:, :, :ms, :ms])
+        valids.append(valid)
+    return np.stack(frames), np.stack(gts), np.stack(valids)
+
+
+# --------------------------------------------------------------------------
+# Set-prediction loss (greedy dice matching over static instance slots)
+# --------------------------------------------------------------------------
+
+def _dice(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Soft dice ∈ [0,1] between sigmoid-probs and {0,1} targets over the
+    last two axes (broadcast over leading)."""
+    inter = (pred * gt).sum((-2, -1))
+    union = pred.sum((-2, -1)) + gt.sum((-2, -1))
+    return 1.0 - (2.0 * inter + 1.0) / (union + 1.0)
+
+
+def match_queries(logits: torch.Tensor, gt_masks: torch.Tensor,
+                  gt_valid: torch.Tensor) -> torch.Tensor:
+    """The query matched to each instance slot, ``[B, C, MAX_INST]``: in slot
+    order, the untaken query of least dice cost (``argmin``, the first on
+    ties and on rows that are all ``inf``, as ``jnp.argmin``); a slot
+    without an instance takes nothing.  No gradient flows through it."""
+    with torch.no_grad():
+        probs = torch.sigmoid(logits.detach())
+        cost = _dice(probs[:, :, :, None], gt_masks[:, :, None])
+        cost = torch.where(gt_valid[:, :, None, :], cost, torch.inf)
+        taken = torch.zeros(probs.shape[:3], dtype=torch.bool, device=logits.device)
+        picks = []
+        for i in range(MAX_INST):
+            qi = torch.where(taken, torch.inf, cost[..., i]).argmin(-1)
+            pick = torch.nn.functional.one_hot(qi, taken.shape[-1]).bool()
+            taken |= pick & gt_valid[..., i, None]
+            picks.append(qi)
+        return torch.stack(picks, -1)
+
+
+def segmentation_loss(out: dict, gt_masks: torch.Tensor,
+                      gt_valid: torch.Tensor) -> torch.Tensor:
+    """out: mask_logits [B,C,Q,h,w], scores [B,C,Q] (already sigmoid);
+    gt_masks [B,C,I,h,w] (f32); gt_valid [B,C,I]."""
+    logits = out["mask_logits"]
+    scores = out["scores"].clamp(1e-6, 1.0 - 1e-6)
+    q = scores.shape[-1]
+    matches = match_queries(logits, gt_masks, gt_valid)
+    matched_q = torch.zeros(scores.shape, dtype=torch.bool, device=logits.device)
+    total_mask_loss = logits.new_zeros(())
+    n_matched = logits.new_zeros(())
+    for i in range(MAX_INST):
+        valid_i = gt_valid[..., i]
+        pick = torch.nn.functional.one_hot(matches[..., i], q).bool() & valid_i[..., None]
+        matched_q |= pick
+        sel = torch.einsum("bcqhw,bcq->bchw", logits, pick.to(logits.dtype))
+        gt_i = gt_masks[:, :, i]
+        bce = (sel.clamp(min=0) - sel * gt_i + torch.log1p(torch.exp(-sel.abs()))).mean((-2, -1))
+        dice_i = _dice(torch.sigmoid(sel), gt_i)
+        total_mask_loss = total_mask_loss + torch.where(valid_i, bce + dice_i, 0.0).sum()
+        n_matched = n_matched + valid_i.sum()
+    # balanced score BCE: positives and negatives averaged separately
+    pos = matched_q
+    bce_all = -torch.where(pos, torch.log(scores), torch.log1p(-scores))
+    n_pos = pos.sum().clamp(min=1.0)
+    n_neg = (~pos).sum().clamp(min=1.0)
+    score_loss = (torch.where(pos, bce_all, 0.0).sum() / n_pos
+                  + torch.where(pos, 0.0, bce_all).sum() / n_neg)
+    return total_mask_loss / n_matched.clamp(min=1.0) + score_loss
+
+
+# --------------------------------------------------------------------------
+# Training / evaluation
+# --------------------------------------------------------------------------
+
+def concept_tokens(model_cfg, device) -> torch.Tensor:
+    """The four concepts' hashed prompts ``[C, 16]`` on ``device``."""
+    from gvl_tpu_torch.models.sam import hash_tokenize
+
+    return torch.from_numpy(np.stack([hash_tokenize(c, model_cfg.text_vocab)
+                                      for c in CONCEPTS])).to(device)
+
+
+def segmenter_loss(model, tokens: torch.Tensor, frames_u8: torch.Tensor,
+                   gt_bool: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The trainer's loss on one batch (uint8 frames, bool masks), on the
+    model's device."""
+    from gvl_tpu_torch.ops.quant_matmul import true_div
+
+    frames = true_div(frames_u8.float(), 255.0)
+    return segmentation_loss(model(frames, tokens), gt_bool.float(), valid)
+
+
+def segmenter_state(params: Optional[dict], model_cfg, seed: int) -> dict:
+    """The weights a run starts from: ``params`` (the port's state dict or
+    the JAX package's variables) or, without it, drawn from ``seed`` by
+    Flax's laws."""
+    from gvl_tpu_torch.models.convert import sam_params_from_jax
+    from gvl_tpu_torch.training import init_laws
+
+    convert = lambda tree: sam_params_from_jax(tree, model_cfg)
+    if params is not None:
+        return init_laws.as_state(params, convert)
+    return init_laws.init_params(convert, init_laws.sam_layout(model_cfg), seed)
+
+
+def train_segmenter(model_cfg=None, cfg: Optional[SegTrainConfig] = None,
+                    init_params: Optional[dict] = None, device="cuda",
+                    on_step=None) -> dict[str, torch.Tensor]:
+    """Train ``PromptableSegmenter(model_cfg)`` and return its f32 state dict
+    (JAX's ``train_segmenter``; ``init_params`` warm-starts it,
+    ``on_step(i, loss)`` sees each step's loss on the device)."""
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig
+    from gvl_tpu_torch.training import init_laws, optim
+
+    model_cfg = model_cfg or SamConfig()
+    cfg = cfg or SegTrainConfig(image_size=model_cfg.image_size)
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    with torch.device("meta"):
+        model = PromptableSegmenter(model_cfg)
+    model = init_laws.trainable(model, segmenter_state(init_params, model_cfg, cfg.seed), dev)
+    opt = optim.AdamW(model.parameters(), optim.cosine_decay_schedule(
+        cfg.learning_rate, cfg.steps), clip=None, weight_decay=cfg.weight_decay)
+    tokens = concept_tokens(model_cfg, dev)
+
+    n_unique = min(cfg.steps, cfg.pool_batches)
+    pool = [tuple(torch.from_numpy(a).to(dev) for a in make_batch(rng, cfg, model_cfg))
+            for _ in range(n_unique)]
+    for i in range(cfg.steps):
+        batch = pool[i % n_unique]
+        loss = optim.train_step(model, opt, lambda m: segmenter_loss(m, tokens, *batch))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("step %d loss %.4f", i, float(loss))
+    return init_laws.state_of(model)
+
+
+@torch.inference_mode()
+def evaluate_segmenter(params: dict, model_cfg=None, n_scenes: int = 32, seed: int = 1234,
+                       score_threshold: float = 0.5, style: str = "base",
+                       device="cuda") -> dict:
+    """Held-out synthetic eval: per-GT-instance best IoU over predictions
+    that clear the score threshold (``params``: a state dict or the JAX
+    package's variables).  ``style="holdout"`` evaluates the never-trained
+    rendering family."""
+    from gvl_tpu_torch import resolve_device
+    from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig
+    from gvl_tpu_torch.nn.layers import load_module
+
+    model_cfg = model_cfg or SamConfig()
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = PromptableSegmenter(model_cfg)
+    model = load_module(model, segmenter_state(params, model_cfg, 0), dev)
+    rng = np.random.default_rng(seed)
+    tokens = concept_tokens(model_cfg, dev)
+    ms = model_cfg.image_size // model_cfg.mask_downscale
+    stride = model_cfg.mask_downscale
+    ious, detected, total = [], 0, 0
+    for _ in range(n_scenes):
+        frame, gt_masks, gt_valid = make_scene(rng, model_cfg.image_size, style=style)
+        out = model(torch.from_numpy(frame[None].astype(np.float32) / 255.0).to(dev), tokens)
+        probs = (torch.sigmoid(out["mask_logits"]) > 0.5).cpu().numpy()[0]
+        scores = out["scores"].float().cpu().numpy()[0]
+        gt_small = gt_masks[:, :, ::stride, ::stride][:, :, :ms, :ms]
+        for ci in range(len(CONCEPTS)):
+            live = scores[ci] >= score_threshold
+            for i in range(MAX_INST):
+                if not gt_valid[ci, i]:
+                    continue
+                total += 1
+                gt = gt_small[ci, i]
+                best = 0.0
+                for qi in range(probs.shape[1]):
+                    if not live[qi]:
+                        continue
+                    inter = (probs[ci, qi] & gt).sum()
+                    union = (probs[ci, qi] | gt).sum()
+                    best = max(best, inter / union if union else 0.0)
+                ious.append(best)
+                if best >= 0.5:
+                    detected += 1
+    return {
+        "mean_iou": float(np.mean(ious)) if ious else 0.0,
+        "detection_rate_at_50": detected / total if total else 0.0,
+        "instances": total,
+    }

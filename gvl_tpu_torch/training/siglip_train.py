@@ -1,5 +1,5 @@
-"""The self-trained mini-SigLIP, inference only (counterpart of the inference
-half of :mod:`gvl_tpu.training.siglip_train`).
+"""The self-trained mini-SigLIP and its trainer (counterpart of
+:mod:`gvl_tpu.training.siglip_train`).
 
 Both towers of ``outputs/minisiglip`` (vision 384 wide x 6 layers x 6 heads
 at 128 px, text 384 x 4 layers over 32 byte positions) under one
@@ -8,8 +8,14 @@ contrastive space the trainer aligned, whose image side is the MAP-pooled
 output.  Their attention goes through the flash kernel (head 64).  The
 caption pools, the byte tokenizer, the zero-shot crop evaluation
 (:func:`evaluate_minisiglip`) and the open-vocabulary segmentation metrics
-(:func:`evaluate_open_vocab`) are the JAX module's; training stays in the
-JAX package.
+(:func:`evaluate_open_vocab`) are the JAX module's.  :func:`train_minisiglip`
+trains both towers with the SigLIP sigmoid loss over multi-positive labels
+(same-class pairs in a batch are positives) on a pool of crop/caption
+batches indexed ``step % pool``, optionally after
+:func:`pretrain_text_tower` (word↔context contrastive pretraining of the
+text tower on :mod:`~gvl_tpu_torch.training.text_corpus`, which optimises
+the tower and its own temperature and bias together); AdamW over a warmup
+cosine schedule, every parameter decayed as Optax does.
 
 The JAX package hands the towers bf16 pixels with f32 parameters, so Flax
 promotes and the towers compute in f32: :meth:`MiniSigLIP.encode_image`
@@ -19,6 +25,8 @@ takes pixels of any type and computes in the parameters' type.
 from __future__ import annotations
 
 import json
+import logging
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -56,6 +64,52 @@ CAPTIONS: dict[str, tuple[str, ...]] = {
 }
 CLASSES = tuple(CAPTIONS)
 ENTITY_CLASSES = CONCEPTS  # the 4 promptable concepts
+
+logger = logging.getLogger(__name__)
+
+# compositional caption space: head-noun synonyms x surface templates x
+# occasional class adjectives; the UNSEEN_PROMPTS probe words are excluded
+HEAD_NOUNS: dict[str, tuple[str, ...]] = {
+    "player": ("player", "hero", "main character", "player character",
+               "avatar", "adventurer", "character you control"),
+    "enemy": ("enemy", "monster", "opponent", "adversary", "attacker",
+              "hostile creature", "baddie", "enemy unit"),
+    "boss": ("boss", "boss enemy", "boss monster", "huge monster",
+             "big bad", "elite enemy", "end-of-level enemy"),
+    "item": ("item", "pickup", "collectible", "loot", "treasure",
+             "bonus", "reward", "thing you can collect"),
+    "background": ("background", "terrain", "scenery", "ground tiles",
+                   "empty area", "level background", "floor"),
+    "ui": ("ui element", "status bar", "hud element", "health bar",
+           "interface overlay", "on-screen text", "menu bar"),
+}
+ADJECTIVES: dict[str, tuple[str, ...]] = {
+    "player": ("blue", "small", "square"),
+    "enemy": ("red", "hostile", "dangerous"),
+    "boss": ("purple", "large", "big"),
+    "item": ("yellow", "shiny", "small"),
+    "background": (), "ui": (),
+}
+TEMPLATES: tuple[str, ...] = (
+    "{}", "a {}", "the {}", "sprite of {}", "a {} sprite",
+    "{} in the game", "{} on screen", "pixel art of {}",
+    "a {} in a video game", "one {}",
+)
+
+
+def compose_caption(concept: str, rng: np.random.Generator, max_bytes: int = 32) -> str:
+    """One caption from the compositional space, ≤ ``max_bytes`` UTF-8."""
+    for _ in range(8):
+        noun = str(rng.choice(HEAD_NOUNS[concept]))
+        adjs = ADJECTIVES[concept]
+        if adjs and rng.random() < 0.25:
+            noun = f"{rng.choice(adjs)} {noun}"
+        cap = str(rng.choice(TEMPLATES)).format(noun)
+        if cap.startswith("a ") and noun[0] in "aeiou":
+            cap = "an " + cap[2:]
+        if len(cap.encode("utf-8")) <= max_bytes:
+            return cap
+    return str(rng.choice(CAPTIONS[concept]))
 
 # prompts NEVER sampled in training (not in any CAPTIONS pool): the
 # zero-shot generalization probe for open-vocab naming
@@ -109,6 +163,241 @@ class MiniSigLIP(nn.Module):
     def forward(self, pixels: torch.Tensor, ids: torch.Tensor):
         zi, zt = self.encode_image(pixels), self.encode_text(ids)
         return zi, zt, zi @ zt.T * self.logit_scale.exp() + self.logit_bias
+
+
+# --------------------------------------------------------------------------
+# Loss and training
+# --------------------------------------------------------------------------
+
+def sigmoid_contrastive_loss(logits: torch.Tensor, class_ids: torch.Tensor) -> torch.Tensor:
+    """SigLIP pairwise sigmoid loss with multi-positive labels: a pair (i, j)
+    is positive iff the crops share a class."""
+    same = class_ids[:, None] == class_ids[None, :]
+    z = -torch.where(same, 1.0, -1.0) * logits
+    # softplus(z) = -log sigmoid(-z), as jax.nn.softplus (logaddexp(z, 0))
+    return torch.logaddexp(z, torch.zeros_like(z)).mean()
+
+
+@dataclass
+class SigLIPTrainConfig:
+    steps: int = 4000
+    batch_size: int = 64
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup: int = 200
+    seed: int = 0
+    canvas: int = 128          # == NaFlexConfig.region_resolution
+    styles: tuple[str, ...] = ("base", "aug")
+    composed_frac: float = 0.0  # fraction of compositional captions
+    pool_batches: int = 160    # distinct batches of the pool
+    log_every: int = 200
+    # corpus-backed text space: pretrain the text tower on the procedural
+    # gameplay corpus before VL alignment, and keep the corpus objective as
+    # an auxiliary loss
+    text_pretrain_steps: int = 0
+    text_corpus_weight: float = 0.0
+    text_corpus_batch: int = 64
+    vision: SigLIPVisionConfig = field(default_factory=minisiglip_vision_config)
+    text: SigLIPTextConfig = field(default_factory=minisiglip_text_config)
+
+
+def _text_from_jax(text_cfg: SigLIPTextConfig):
+    from gvl_tpu_torch.models.convert import siglip_text_params_from_jax
+
+    return lambda tree: siglip_text_params_from_jax(tree, text_cfg.num_layers)
+
+
+def _minisiglip_from_jax(vision_cfg: SigLIPVisionConfig, text_cfg: SigLIPTextConfig):
+    from gvl_tpu_torch.models.convert import minisiglip_params_from_jax
+
+    return lambda tree: minisiglip_params_from_jax(tree, vision_cfg, text_cfg)
+
+
+def text_tower_state(params: Optional[dict], text_cfg: SigLIPTextConfig, seed: int) -> dict:
+    """The text tower's weights pretraining starts from: ``params`` (a state
+    dict or the JAX tree) or, without it, drawn from ``seed`` by Flax's
+    laws."""
+    from gvl_tpu_torch.training import init_laws
+
+    if params is not None:
+        return init_laws.as_state(params, _text_from_jax(text_cfg))
+    return init_laws.init_params(_text_from_jax(text_cfg),
+                                 init_laws.siglip_text_layout(text_cfg), seed)
+
+
+def minisiglip_state(params: Optional[dict], cfg: SigLIPTrainConfig) -> dict:
+    """Both towers' weights a run starts from: ``params`` (a state dict or
+    the JAX variables) or, without it, drawn from ``cfg.seed`` by Flax's
+    laws (``logit_scale`` log 10, ``logit_bias`` -10)."""
+    from gvl_tpu_torch.training import init_laws
+
+    convert = _minisiglip_from_jax(cfg.vision, cfg.text)
+    if params is not None:
+        return init_laws.as_state(params, convert)
+    return init_laws.init_params(convert, init_laws.minisiglip_layout(cfg.vision, cfg.text),
+                                 cfg.seed)
+
+
+def corpus_loss(encode, logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                word_ids: torch.Tensor, ctx_ids: torch.Tensor,
+                keys: torch.Tensor) -> torch.Tensor:
+    """The word↔context sigmoid loss of one corpus batch (``encode``: ids →
+    unit embeddings)."""
+    logits = encode(word_ids) @ encode(ctx_ids).T * logit_scale.exp() + logit_bias
+    return sigmoid_contrastive_loss(logits, keys)
+
+
+class _TextPretrainer(nn.Module):
+    """The text tower and the pretraining's own temperature and bias (the
+    JAX trainer's ``(params, aux)``)."""
+
+    def __init__(self, text_cfg: SigLIPTextConfig):
+        super().__init__()
+        self.text = SigLIPTextTower(text_cfg)
+        self.logit_scale = nn.Parameter(torch.tensor(float(np.log(10.0))))
+        self.logit_bias = nn.Parameter(torch.tensor(-10.0))
+
+    def encode(self, ids: torch.Tensor) -> torch.Tensor:
+        return _unit(self.text(ids)["pooled"])
+
+
+def pretrain_text_tower(cfg: SigLIPTrainConfig, init_params: Optional[dict] = None,
+                        device="cuda", on_step=None) -> dict[str, torch.Tensor]:
+    """Word↔context contrastive pretraining of the byte text tower on the
+    procedural gameplay corpus; returns the tower's state dict (JAX's
+    ``pretrain_text_tower``: its own generator seeded ``seed + 7``, a pool
+    of up to 120 corpus batches, AdamW over a warmup cosine schedule on the
+    tower and its temperature and bias)."""
+    from gvl_tpu_torch.training import init_laws, optim
+    from gvl_tpu_torch.training.text_corpus import word_context_batch
+
+    dev = resolve_device(device)
+    mp = cfg.text.max_position
+    rng = np.random.default_rng(cfg.seed + 7)
+    state = {f"text.{k}": v for k, v in
+             text_tower_state(init_params, cfg.text, cfg.seed + 7).items()}
+    state.update(logit_scale=torch.tensor(np.float32(np.log(10.0))),
+                 logit_bias=torch.tensor(np.float32(-10.0)))
+    with torch.device("meta"):
+        model = _TextPretrainer(cfg.text)
+    model = init_laws.trainable(model, state, dev)
+    steps = cfg.text_pretrain_steps
+    opt = optim.AdamW(model.parameters(), optim.warmup_cosine_decay_schedule(
+        0.0, cfg.learning_rate, min(cfg.warmup, max(steps // 10, 1)), steps),
+        clip=None, weight_decay=cfg.weight_decay)
+    n_unique = min(steps, 120)
+    pool = [tuple(torch.from_numpy(a).to(dev) for a in word_context_batch(
+        rng, cfg.text_corpus_batch, mp)) for _ in range(n_unique)]
+    for i in range(steps):
+        w, c, k = pool[i % n_unique]
+        loss = optim.train_step(model, opt, lambda m: corpus_loss(
+            m.encode, m.logit_scale, m.logit_bias, w, c, k))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == steps - 1):
+            logger.info("text-pretrain step %d loss %.4f", i, float(loss))
+    return {k[len("text."):]: v for k, v in init_laws.state_of(model).items()
+            if k.startswith("text.")}
+
+
+def minisiglip_loss(model: MiniSigLIP, pixels_u8: torch.Tensor, ids: torch.Tensor,
+                    class_ids: torch.Tensor, corpus=None, corpus_weight: float = 0.0
+                    ) -> torch.Tensor:
+    """The VL sigmoid loss of one batch (uint8 crops mapped to [-1, 1]),
+    plus ``corpus_weight`` x the corpus loss of ``corpus`` (word ids,
+    context ids, keys) if given."""
+    from gvl_tpu_torch.ops.quant_matmul import true_div
+
+    pixels = true_div(pixels_u8.float(), 255.0) * 2.0 - 1.0
+    _, _, logits = model(pixels, ids)
+    loss = sigmoid_contrastive_loss(logits, class_ids)
+    if corpus is not None:
+        loss = loss + corpus_weight * corpus_loss(model.encode_text, model.logit_scale,
+                                                  model.logit_bias, *corpus)
+    return loss
+
+
+def train_minisiglip(cfg: Optional[SigLIPTrainConfig] = None,
+                     init_params: Optional[dict] = None,
+                     text_init_params: Optional[dict] = None, device="cuda",
+                     on_step=None) -> dict[str, torch.Tensor]:
+    """Train :class:`MiniSigLIP` and return its f32 state dict (JAX's
+    ``train_minisiglip``).  ``init_params`` warm-starts both towers and
+    ``text_init_params`` the text pretraining (``text_pretrain_steps`` >
+    0), whose tower replaces the drawn one; ``on_step(i, loss)`` sees each
+    VL step's loss on the device.  Below 2 steps the schedule is
+    constant."""
+    from gvl_tpu_torch.training import init_laws, optim
+    from gvl_tpu_torch.training.text_corpus import word_context_batch
+
+    cfg = cfg or SigLIPTrainConfig()
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    mp = cfg.text.max_position
+    state = dict(minisiglip_state(init_params, cfg))
+    if cfg.text_pretrain_steps:
+        pretrained = pretrain_text_tower(cfg, text_init_params, dev)
+        state.update({f"text.{k}": v for k, v in pretrained.items()})
+    with torch.device("meta"):
+        model = MiniSigLIP(cfg.vision, cfg.text)
+    model = init_laws.trainable(model, state, dev)
+    logger.info("minisiglip params: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
+    warmup = min(cfg.warmup, max(cfg.steps // 10, 1), cfg.steps - 1)
+    schedule = (cfg.learning_rate if cfg.steps < 2 else
+                optim.warmup_cosine_decay_schedule(0.0, cfg.learning_rate, warmup, cfg.steps))
+    opt = optim.AdamW(model.parameters(), schedule, clip=None, weight_decay=cfg.weight_decay)
+    corpus_w = cfg.text_corpus_weight
+    n_unique = min(cfg.steps, cfg.pool_batches)
+    pool, corpus_pool = [], []
+    for _ in range(n_unique):
+        imgs, caps, cls = make_pairs(rng, cfg.batch_size, cfg.canvas, styles=cfg.styles,
+                                     composed_frac=cfg.composed_frac)
+        pool.append(tuple(torch.from_numpy(a).to(dev)
+                          for a in (imgs, byte_tokenize(caps, mp), cls)))
+        if corpus_w:
+            corpus_pool.append(tuple(torch.from_numpy(a).to(dev) for a in
+                                     word_context_batch(rng, cfg.text_corpus_batch, mp)))
+    for i in range(cfg.steps):
+        pixels, ids, cls = pool[i % n_unique]
+        corpus = corpus_pool[i % n_unique] if corpus_w else None
+        loss = optim.train_step(model, opt, lambda m: minisiglip_loss(
+            m, pixels, ids, cls, corpus, corpus_w))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("minisiglip step %d loss %.4f", i, float(loss))
+    return init_laws.state_of(model)
+
+
+def save_minisiglip(state: dict, out_dir, vision_cfg: SigLIPVisionConfig,
+                    text_cfg: SigLIPTextConfig, metrics: Optional[dict] = None) -> None:
+    """``minisiglip_config.json`` and ``params.npz`` (the JAX tree's flat
+    npz, without the ``params`` level) of the model's state dict, as JAX
+    writes them."""
+    from dataclasses import asdict
+
+    from gvl_tpu_torch.models.convert import tree_from_state
+    from gvl_tpu_torch.training.init_laws import minisiglip_layout, shapes
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "minisiglip_config.json").write_text(json.dumps({
+        "vision": asdict(vision_cfg), "text": asdict(text_cfg),
+        "metrics": metrics or {}}, indent=2))
+    save_flat_npz(tree_from_state(_minisiglip_from_jax(vision_cfg, text_cfg),
+                                  shapes(minisiglip_layout(vision_cfg, text_cfg)), state),
+                  out / "params.npz")
+
+
+def minisiglip_from_state(state: dict, vision_cfg: SigLIPVisionConfig,
+                          text_cfg: SigLIPTextConfig, device) -> MiniSigLIP:
+    """A :class:`MiniSigLIP` in eval mode on ``device`` holding ``state``."""
+    from gvl_tpu_torch.nn.layers import load_module
+
+    with torch.device("meta"):
+        model = MiniSigLIP(vision_cfg, text_cfg)
+    return load_module(model, state, resolve_device(device))
 
 
 def load_minisiglip(ckpt_dir, device: str | torch.device = "cuda"
@@ -202,19 +491,22 @@ def _ui_crop(rng: np.random.Generator, canvas: int) -> np.ndarray:
 
 def make_pairs(rng: np.random.Generator, n: int, canvas: int,
                styles: tuple[str, ...] = ("base", "aug"), scene_size: int = 256,
-               canonical_captions: bool = False
+               canonical_captions: bool = False, composed_frac: float = 0.0
                ) -> tuple[np.ndarray, list[str], np.ndarray]:
     """n (crop, caption, class_id) pairs: ~72% entity crops, ~18%
-    background, ~10% UI furniture; captions from the class pool, or the
-    canonical prompt for evaluation (the JAX trainer's compositional
-    captions are not ported)."""
+    background, ~10% UI furniture; captions from the class pool (with
+    probability ``composed_frac`` from the compositional space), or the
+    canonical prompt for evaluation."""
     images = np.zeros((n, canvas, canvas, 3), np.uint8)
     captions: list[str] = []
     class_ids = np.zeros(n, np.int32)
 
     def caption(concept: str) -> str:
-        return (CAPTIONS[concept][0] if canonical_captions
-                else str(rng.choice(CAPTIONS[concept])))
+        if canonical_captions:
+            return CAPTIONS[concept][0]
+        if composed_frac and rng.random() < composed_frac:
+            return compose_caption(concept, rng)
+        return str(rng.choice(CAPTIONS[concept]))
 
     i = 0
     while i < n:

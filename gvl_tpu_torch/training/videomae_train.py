@@ -1,5 +1,5 @@
-"""The self-trained temporal clip encoder, inference only (counterpart of
-the inference half of :mod:`gvl_tpu.training.videomae_train`).
+"""The self-trained temporal clip encoder and its trainer (counterpart of
+:mod:`gvl_tpu.training.videomae_train`).
 
 The mini VideoMAE tower of ``outputs/videomae`` (256 wide x 6 layers x 4
 heads, 16 frames at 112 px) with its three linear heads on the mean-pooled
@@ -10,14 +10,20 @@ confident directions into TEMPORAL timeline events
 in JAX the pixels are rounded to bf16 and the f32 tower computes in f32; its
 attention goes through the flash kernel (head 64 over 392 tokens).  The
 procedural clips (:func:`make_clip`, :func:`make_batch`) and
-:func:`evaluate_clip_encoder` reproduce the JAX module's figures; training
-stays in the JAX package.
+:func:`evaluate_clip_encoder` reproduce the JAX module's figures, and
+:func:`train_clip_encoder` trains the classifier on them (the sum of the
+three heads' cross-entropies, AdamW over a cosine schedule, a pool of
+``pool_batches`` uint8 batches indexed ``step % pool``), rounding the
+normalised pixels to bf16 into the f32 tower as JAX's step does.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,6 +34,8 @@ from gvl_tpu_torch.models.videomae import VideoMAEConfig, VideoMAEEncoder
 from gvl_tpu_torch.training.segmenter_train import CONCEPT_SPECS, _draw_styled
 
 CONCEPTS = tuple(CONCEPT_SPECS)
+
+logger = logging.getLogger(__name__)
 
 # 9-way motion label: index 0 is static, then 8 compass directions as
 # (dx, dy) unit steps (y grows downward, "N" = up).
@@ -244,6 +252,119 @@ def _normalize(pixels_u8: torch.Tensor) -> torch.Tensor:
     std = torch.tensor(_STD, device=pixels_u8.device)
     x = (true_div(pixels_u8.float(), 255.0) - mean) / std
     return x.to(torch.bfloat16).float()
+
+
+@dataclass
+class ClipTrainConfig:
+    steps: int = 4000
+    batch_size: int = 16
+    learning_rate: float = 3e-4
+    weight_decay: float = 1e-4
+    seed: int = 0
+    log_every: int = 200
+    # uint8 batch pool held on the device (~1.2 GB at the defaults)
+    pool_batches: int = 128
+    styles: tuple[str, ...] = ("base", "aug")
+    model: VideoMAEConfig = field(default_factory=mini_videomae_config)
+
+
+def _classifier_from_jax(model_cfg: VideoMAEConfig):
+    from gvl_tpu_torch.models.convert import clip_classifier_params_from_jax
+
+    return lambda tree: clip_classifier_params_from_jax(tree, model_cfg)
+
+
+def _classifier_layout(model_cfg: VideoMAEConfig) -> dict:
+    from gvl_tpu_torch.training import init_laws
+
+    return init_laws.clip_classifier_layout(
+        model_cfg, (len(DIRECTIONS), len(CONCEPTS), len(EVENTS)))
+
+
+def clip_state(params: Optional[dict], model_cfg: VideoMAEConfig, seed: int) -> dict:
+    """The classifier's weights a run starts from: ``params`` (a state dict
+    or the JAX tree) or, without it, drawn from ``seed`` by Flax's laws."""
+    from gvl_tpu_torch.training import init_laws
+
+    convert = _classifier_from_jax(model_cfg)
+    if params is not None:
+        return init_laws.as_state(params, convert)
+    return init_laws.init_params(convert, _classifier_layout(model_cfg), seed)
+
+
+def clip_loss(model: ClipClassifier, clips_u8: torch.Tensor, dirs: torch.Tensor,
+              kinds: torch.Tensor, events: torch.Tensor) -> torch.Tensor:
+    """The sum of the three heads' mean cross-entropies on one batch."""
+    ce = nn.functional.cross_entropy
+    _, d_log, k_log, e_log = model(_normalize(clips_u8))
+    return (ce(d_log.float(), dirs.long()) + ce(k_log.float(), kinds.long())
+            + ce(e_log.float(), events.long()))
+
+
+def train_clip_encoder(cfg: Optional[ClipTrainConfig] = None,
+                       init_params: Optional[dict] = None, device="cuda",
+                       on_step=None) -> dict[str, torch.Tensor]:
+    """Train the clip classifier and return its f32 state dict (JAX's
+    ``train_clip_encoder``; ``on_step(i, loss)`` sees each step's loss on
+    the device)."""
+    from gvl_tpu_torch.training import init_laws, optim
+
+    cfg = cfg or ClipTrainConfig()
+    model_cfg = cfg.model
+    dev = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    with torch.device("meta"):
+        model = ClipClassifier(model_cfg)
+    model = init_laws.trainable(model, clip_state(init_params, model_cfg, cfg.seed), dev)
+    logger.info("clip classifier params: %.2fM",
+                sum(p.numel() for p in model.parameters()) / 1e6)
+    opt = optim.AdamW(model.parameters(), optim.cosine_decay_schedule(
+        cfg.learning_rate, cfg.steps), clip=None, weight_decay=cfg.weight_decay)
+    n_unique = min(cfg.steps, cfg.pool_batches)
+    pool = [tuple(torch.from_numpy(a).to(dev) for a in make_batch(
+        rng, cfg.batch_size, model_cfg.image_size, model_cfg.num_frames, cfg.styles))
+        for _ in range(n_unique)]
+    for i in range(cfg.steps):
+        batch = pool[i % n_unique]
+        loss = optim.train_step(model, opt, lambda m: clip_loss(m, *batch))
+        if on_step is not None:
+            on_step(i, loss)
+        if cfg.log_every and (i % cfg.log_every == 0 or i == cfg.steps - 1):
+            logger.info("clip step %d loss %.4f", i, float(loss))
+    return init_laws.state_of(model)
+
+
+def save_clip_encoder(state: dict, out_dir, model_cfg: Optional[VideoMAEConfig] = None,
+                      metrics: Optional[dict] = None) -> None:
+    """``params.npz`` (the JAX tree's flat npz) of the classifier's state
+    dict and ``videomae_config.json``, as JAX writes them."""
+    from dataclasses import asdict
+
+    from gvl_tpu_torch.models.convert import tree_from_state
+    from gvl_tpu_torch.training.init_laws import shapes
+    from gvl_tpu_torch.utils.checkpoints import save_flat_npz
+
+    model_cfg = model_cfg or mini_videomae_config()
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    save_flat_npz(tree_from_state(_classifier_from_jax(model_cfg),
+                                  shapes(_classifier_layout(model_cfg)), state),
+                  out / "params.npz")
+    meta = {"model": asdict(model_cfg), "directions": list(DIRECTION_NAMES),
+            "concepts": list(CONCEPTS), "events": list(EVENTS)}
+    if metrics:
+        meta["metrics"] = metrics
+    (out / "videomae_config.json").write_text(json.dumps(meta, indent=2))
+
+
+def classifier_from_state(state: dict, model_cfg: VideoMAEConfig, device) -> ClipClassifier:
+    """A classifier in eval mode on ``device`` holding ``state`` (a state
+    dict or the JAX tree)."""
+    from gvl_tpu_torch.nn.layers import load_module
+
+    with torch.device("meta"):
+        model = ClipClassifier(model_cfg)
+    return load_module(model, clip_state(state, model_cfg, 0), resolve_device(device))
 
 
 def load_clip_encoder(ckpt_dir, device: str | torch.device = "cuda"

@@ -1529,3 +1529,25 @@ def test_checkpointed_layers_give_the_same_gradients(dev):
     _, remat = _train_launches(dev, replace(cfg, remat=True), 1100)
     for name, g in plain.items():
         torch.testing.assert_close(remat[name], g, atol=1e-6, rtol=1e-5, msg=name)
+
+
+# --------------------------------------------------------------------------
+# The perception trainers (chip_smoke phase 19)
+# --------------------------------------------------------------------------
+
+PERCEPTION_TRAINERS = ("segmenter", "ocr recognizer", "ocr detector", "audio events",
+                       "byte ASR", "SigLIP text pretraining", "mini-SigLIP", "retriever",
+                       "VideoMAE", "HiCo")
+
+
+@pytest.mark.parametrize("name", PERCEPTION_TRAINERS)
+def test_perception_trainer_kernel_path_matches_plain(dev, name):
+    """Each trainer at its default config: the kernel path's loss and every
+    gradient within chip_smoke's PT_GRAD_REL of the plain path's at the
+    drawn start, B1 launched as implied (none on the plain path)."""
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    case = next(c for c in chip_smoke.perception_trainer_cases(dev) if c.name == name)
+    chip_smoke.kernel_against_plain(case, case.init(), case.batch(), dev)

@@ -87,7 +87,12 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.scripts.generate_training_data",
              "gvl_tpu_torch.scripts.train_projectors",
              "gvl_tpu_torch.scripts.eval_qa_lm_ckpt",
-             "gvl_tpu_torch.scripts.harvest_pipeline_prompts"):
+             "gvl_tpu_torch.scripts.harvest_pipeline_prompts",
+             "gvl_tpu_torch.training.init_laws", "gvl_tpu_torch.training.text_corpus",
+             "gvl_tpu_torch.scripts.train_segmenter", "gvl_tpu_torch.scripts.train_ocr",
+             "gvl_tpu_torch.scripts.train_audio_events", "gvl_tpu_torch.scripts.train_asr",
+             "gvl_tpu_torch.scripts.train_siglip", "gvl_tpu_torch.scripts.train_retriever",
+             "gvl_tpu_torch.scripts.train_videomae", "gvl_tpu_torch.scripts.train_hico"):
     assert name in names, name
 import chip_smoke
 import launch_costs
@@ -116,22 +121,27 @@ def _source_files():
                                     "import gvl_tpu.", "_int_mm", "import PIL",
                                     "from PIL"])
 def test_forbidden_calls_absent_from_package(needle):
-    """No file holds a needle.  PIL's two exceptions, each imported inside
-    the function that needs it, as in the JAX package: the HUD text of
+    """No file holds a needle.  PIL's exceptions, each imported inside the
+    function that needs it, as in the JAX package: the HUD text of
     synthetic clips (``SyntheticVideo._with_hud_text``, for a clip with
-    ``text=``) and the still images of the single-frame runner
-    (``BenchmarkModelRunner._load_frame``, for a sample with an image):
+    ``text=``), the still images of the single-frame runner
+    (``BenchmarkModelRunner._load_frame``, for a sample with an image) and
+    the OCR trainers' text renderers (``render_line``, ``discover_fonts``):
     those functions' own source is left out of the scan for the PIL
     needles."""
-    lazy_pil = {PACKAGE / "io" / "video.py": "_with_hud_text",
-                PACKAGE / "eval" / "model_inference.py": "_load_frame"}
+    lazy_pil = {PACKAGE / "io" / "video.py": ("_with_hud_text",),
+                PACKAGE / "eval" / "model_inference.py": ("_load_frame",),
+                PACKAGE / "perception" / "ocr_model.py": ("render_line", "discover_fonts")}
 
     def text(path):
         source = path.read_text()
         if "PIL" in needle and path in lazy_pil:
-            fn = next(node for node in ast.walk(ast.parse(source))
-                      if isinstance(node, ast.FunctionDef) and node.name == lazy_pil[path])
-            source = source.replace(ast.get_source_segment(source, fn), "")
+            segments = [ast.get_source_segment(source, node)
+                        for node in ast.walk(ast.parse(source))
+                        if isinstance(node, ast.FunctionDef) and node.name in lazy_pil[path]]
+            assert len(segments) == len(lazy_pil[path])
+            for segment in segments:
+                source = source.replace(segment, "")
         return source
 
     hits = [str(p.relative_to(REPO)) for p in _source_files() if needle in text(p)]
@@ -233,6 +243,55 @@ def test_entry_points_raise_without_a_card(no_card):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert Qwen3Engine(cfg, state, device="cpu").device.type == "cpu"
+
+
+def test_perception_trainers_raise_without_a_card(no_card, tmp_path):
+    """The perception trainers, their evaluators and their scripts take
+    ``device="cuda"`` (``--device cuda``) by default and raise here."""
+    from gvl_tpu_torch.audio import event_model
+    from gvl_tpu_torch.perception import ocr_model
+    from gvl_tpu_torch.scripts import (
+        train_asr,
+        train_audio_events,
+        train_hico,
+        train_ocr,
+        train_retriever,
+        train_segmenter,
+        train_siglip,
+        train_videomae,
+    )
+    from gvl_tpu_torch.temporal import hico
+    from gvl_tpu_torch.training import (
+        asr_train,
+        retriever_train,
+        segmenter_train,
+        siglip_train,
+        videomae_train,
+    )
+
+    calls = [
+        lambda: segmenter_train.train_segmenter(),
+        lambda: segmenter_train.evaluate_segmenter({}),
+        lambda: ocr_model.train_recognizer(ocr_model.OCRModelConfig()),
+        lambda: ocr_model.train_detector(ocr_model.OCRModelConfig()),
+        lambda: ocr_model.evaluate_recognizer({}),
+        lambda: event_model.train_event_model(),
+        lambda: event_model.evaluate_event_model({}),
+        lambda: asr_train.train_asr(),
+        lambda: asr_train.evaluate_asr({}),
+        lambda: siglip_train.train_minisiglip(),
+        lambda: siglip_train.pretrain_text_tower(siglip_train.SigLIPTrainConfig()),
+        lambda: retriever_train.train_retriever(),
+        lambda: videomae_train.train_clip_encoder(),
+        lambda: hico.train_hico(),
+        lambda: hico.evaluate_hico({}),
+    ] + [lambda main=main: main(["--out", str(tmp_path / "out")]) for main in (
+        train_segmenter.main, train_ocr.main, train_audio_events.main, train_asr.main,
+        train_siglip.main, train_retriever.main, train_videomae.main, train_hico.main)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())
 
 
 def test_arm_entry_points_raise_without_a_card(no_card, tmp_path):
