@@ -204,10 +204,33 @@ Run from the root of the repository, on a machine with one CUDA card and
     path; the scripts (``--steps 2``, all but ``train_ocr``) as processes,
     at most ``PT_SCRIPTS_AT_ONCE`` at a time, each exiting 0 with its file;
     within ``PT_BUDGET_S``.  Phase 2 also times B1 at the two largest of
-    those trainers' shapes (rows 1s, 1t).
+    those trainers' shapes (rows 1s, 1t);
+20. multi-device on one card (``gvl_tpu_torch.parallel``): (a) an NCCL world
+    of one rank (a ``file://`` store), the 8B geometry at depth 4 in bf16
+    through ``Qwen3Engine(mesh=)`` at a 1 x 1 mesh, prefill 128 and 16
+    greedy steps, logits and tokens bit-equal to the unsharded engine's;
+    (b) a gloo world of two processes sharing ``cuda:0`` (``mesh_process``;
+    every tensor on the card, the backend chosen by the layout): TP 2 at
+    the 8B geometry in f32 (tokens equal to the unsharded engine's), bf16
+    (logits within the unsharded bf16 run's own distance from f32), int8
+    and ``scan_layers`` (tokens equal), B1 4 per prefill and B2 = B3 (B4 =
+    B5) 4 per step on each rank at 16 query and 4 KV heads; the trained QA
+    model through ``ContinuousBatchingEngine(mesh=)`` at 2 x 1 and 1 x 2 on
+    8 of phase 5's prompts and 4 slots, answers equal to the unsharded
+    engine's; ring attention at [1, 8, 8192, 128] bf16, causal and not,
+    output and gradients against f32 full attention beside the plain bf16
+    path and B1; the segmenter (phase 11's weights) and the fused W8A8 so400m
+    tower, padded and packed heads (phase 9's), on 8 frames over data 2
+    against one rank; and ``torchrun --nproc-per-node 2 -m
+    gvl_tpu_torch.scripts.deploy_api --tp 2`` on the QA model answering 4
+    concurrent ``POST /generate`` as the unsharded ``generate_many``, then
+    stopped by SIGTERM to its serving rank (both exit 0); per rank decode ms
+    per step against the unsharded step, collective ms, allocator peak;
+    within ``MESH_BUDGET_S``.  Phase 0 also notes which gloo collectives
+    take CUDA tensors in this PyTorch.
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 19) and read just after it; each run must have launched
+path of phases 3 to 20) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -5245,6 +5268,708 @@ def run_perception_train(dev):
     return {"flash_attention": launched}, rows
 
 
+# --------------------------------------------------------------------------
+# phase 20: multi-device on one card
+# --------------------------------------------------------------------------
+
+MESH_SEED = 20
+MESH_BUDGET_S = 180
+MESH_RANK_S = 170            # each process of the gloo world
+MESH_PROMPT, MESH_STEPS = 128, 16
+MESH_QA_PROMPTS = 8          # phase 5's first prompts, on QA_SLOTS slots
+MESH_RING_SHAPE = (1, 8, 8192, 128)   # [B, H, S, D] bf16, S split over 2 ranks
+MESH_FRAMES = 8
+MESH_DEPLOY_S = 120          # torchrun's two processes serving
+# TP 2 at bf16: the all-reduce sums two bf16 partial products in another
+# order and rounds each once more, a change of the size of bf16's own
+# rounding; so the sharded bf16 logits may stray from the unsharded bf16
+# run's by no more than that run strays from the f32 one (relative L2)
+MESH_BF16_RATIO = 1.0
+# ring attention in bf16 against f32 full attention: at most twice the
+# plain bf16 path's error (relative L2), or 2**-8 where that is smaller
+MESH_RING_RATIO, MESH_RING_FLOOR = 2.0, 2 ** -8
+COS_DP = 0.99999             # data-parallel pooled embeddings against one rank
+
+
+def implied_tp(cfg, steps: int) -> dict[str, int]:
+    """A TP rank's launches for one prefill and ``steps`` decode steps of a
+    ``cfg`` decoder: B1 once a layer, B2 and B3 (B4 and B5 with
+    ``scan_layers``) once a layer and step."""
+    decode = ("decode_attention_stacked", "cache_append_stacked") if cfg.scan_layers \
+        else ("decode_attention", "cache_append")
+    return {"flash_attention": cfg.num_layers,
+            **{name: cfg.num_layers * steps for name in decode}}
+
+
+def check_implied(phase: str, launches: dict, want: dict) -> None:
+    wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"{phase}: launches (got, implied) {wrong}")
+
+
+def mesh_prompt(cfg):
+    import torch
+
+    return torch.randint(0, cfg.vocab_size, (MESH_PROMPT,),
+                         generator=torch.Generator().manual_seed(MESH_SEED))
+
+
+def greedy_trace(engine, prompt, steps: int, feed=None) -> dict:
+    """Prefill ``prompt`` and ``steps`` decode steps through the engine's
+    model (greedy, or the tokens of ``feed``): tokens, last-position logits,
+    decode seconds and the collectives' seconds over the decode steps."""
+    import torch
+
+    from gvl_tpu_torch.models.qwen3 import KVCache
+    from gvl_tpu_torch.parallel import collectives
+
+    dev, cfg = engine.device, engine.config
+    with torch.inference_mode():
+        cache = KVCache.zeros(cfg, 1, dtype=engine.dtype, device=dev, mesh=engine.mesh)
+        logits, cache = engine.model(prompt[None].to(dev),
+                                     positions=torch.arange(len(prompt), device=dev),
+                                     cache=cache)
+        out = [logits[:, -1].float()]
+        tokens = [int(out[-1].argmax(-1))]
+        torch.cuda.synchronize()
+        collectives.reset_stats()
+        start = time.perf_counter()
+        for i in range(steps):
+            fed = tokens[-1] if feed is None else feed[i]
+            logits, cache = engine.model(torch.tensor([[fed]], device=dev),
+                                         positions=torch.tensor([cache.length], device=dev),
+                                         cache=cache)
+            out.append(logits[:, -1].float())
+            tokens.append(int(out[-1].argmax(-1)))
+        torch.cuda.synchronize()
+    return {"tokens": tokens, "logits": out, "decode_s": time.perf_counter() - start,
+            "collective_s": collectives.stats["seconds"],
+            "collective_calls": collectives.stats["calls"]}
+
+
+def rel_l2(x, ref) -> float:
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def on_card(engine) -> bool:
+    return all(t.is_cuda for t in engine.model.state_dict().values())
+
+
+def mesh_nccl(dev) -> dict:
+    """Phase 20 (a): an NCCL world of one rank, the 8B geometry at a 1 x 1
+    mesh against the unsharded engine, bit for bit."""
+    import tempfile
+
+    import torch
+
+    from gvl_tpu_torch.entry import flagship_config
+    from gvl_tpu_torch.models.qwen3 import Qwen3Engine, init_params
+    from gvl_tpu_torch.parallel.mesh import (
+        MeshManager,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        init_distributed(init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                         local_rank=0, local_world_size=1, device="cuda")
+        try:
+            mm = MeshManager(build_mesh(1, 1))
+            if mm.backend != "nccl":
+                raise AssertionError(f"mesh (a): {mm.describe()}, not NCCL")
+            cfg = flagship_config()
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+                                 dtype=torch.bfloat16, device=dev)
+            alone = Qwen3Engine(cfg, params, eos_token_id=-1, device=dev)
+            meshed = Qwen3Engine(cfg, params, eos_token_id=-1, device=dev, mesh=mm)
+            prompt = mesh_prompt(cfg)
+            with uncounted():
+                for engine in (alone, meshed):      # lazy kernel loads, allocator growth
+                    greedy_trace(engine, prompt, 2)
+                want = greedy_trace(alone, prompt, MESH_STEPS)
+                want_gen = alone.generate(prompt.tolist(), max_new_tokens=MESH_STEPS,
+                                          temperature=0.0)
+                got = greedy_trace(meshed, prompt, MESH_STEPS)
+            reset_launches()
+            got_gen = meshed.generate(prompt.tolist(), max_new_tokens=MESH_STEPS,
+                                      temperature=0.0)
+            launches = served_launches("mesh", ("flash_attention", "decode_attention",
+                                                "cache_append"))
+            check_implied("mesh (a)", launches, implied_tp(cfg, MESH_STEPS))
+            same = all(torch.equal(a, b) for a, b in zip(got["logits"], want["logits"]))
+            ok = same and got["tokens"] == want["tokens"] and got_gen == want_gen
+            log("mesh", f"(a) {mm.describe()}: 8B geometry depth {cfg.num_layers} bf16, "
+                f"prefill {MESH_PROMPT} + {MESH_STEPS} greedy steps: logits "
+                f"{'bit-equal' if same else 'DIFFER'} to the unsharded engine's, tokens "
+                f"{'equal' if ok else 'DIFFER'}; decode {1e3 * got['decode_s'] / MESH_STEPS:.3f}"
+                f" ms/step against {1e3 * want['decode_s'] / MESH_STEPS:.3f} unsharded, "
+                f"collectives {1e3 * got['collective_s'] / MESH_STEPS:.3f} ms/step "
+                f"({got['collective_calls'] // MESH_STEPS} calls, host clock); {nvidia_smi()}")
+            if not ok:
+                raise AssertionError("mesh (a): the 1 x 1 NCCL mesh differs from no mesh")
+            del alone, meshed, params
+            torch.cuda.empty_cache()
+            return launches
+        finally:
+            shutdown_distributed()
+
+
+def gloo_probe() -> str:
+    """Phase 0's note: which gloo collectives take CUDA tensors here, tried
+    in a world of one rank."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gvl_tpu_torch.parallel.collectives import gloo_cuda_support
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            support = gloo_cuda_support()
+        finally:
+            dist.destroy_process_group()
+    return ", ".join(f"{name} {said}" for name, said in support.items())
+
+
+# ---- the gloo world's ranks (each a process: python -c "...mesh_process(...)")
+
+def rank_log(rank: int, message: str) -> None:
+    log(f"mesh r{rank}", message)
+
+
+def mesh_tp(mm, rank: int) -> dict:
+    """TP 2 at the 8B geometry, depth 4: f32, bf16, int8 and scan_layers,
+    each served through Qwen3Engine(mesh=) with the launches implied, rank
+    0 holding each to the unsharded engine on the card."""
+    import dataclasses
+
+    import torch
+
+    from gvl_tpu_torch.entry import flagship_config
+    from gvl_tpu_torch.models.qwen3 import (
+        Qwen3Engine,
+        init_params,
+        quantize_int8,
+        stack_layers,
+    )
+
+    dev = mm.device
+    cfg = flagship_config()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+                       dtype=torch.float32, device=dev)
+    prompt = mesh_prompt(cfg)
+    variants = (("f32", cfg, lambda: full),
+                ("bf16", cfg, lambda: {k: v.bfloat16() for k, v in full.items()}),
+                ("int8", dataclasses.replace(cfg, quant_int8=True),
+                 lambda: quantize_int8(full, cfg)),
+                ("scan", dataclasses.replace(cfg, scan_layers=True),
+                 lambda: stack_layers(full, cfg)))
+    # every variant's logits are taken along the f32 TP run's greedy tokens
+    # (the same on both ranks), so that they compare step by step
+    rows, truth, launched, feed = {}, None, {}, None
+    for name, c, make in variants:
+        state = make()
+        engine = Qwen3Engine(c, state, eos_token_id=-1, device=dev, mesh=mm)
+        if not on_card(engine):
+            raise AssertionError(f"mesh tp {name}: a tensor is off the card")
+        reset_launches()
+        tokens = engine.generate(prompt.tolist(), max_new_tokens=MESH_STEPS, temperature=0.0)
+        launches = kernel_launches()
+        check_implied(f"mesh tp {name}", launches, implied_tp(c, MESH_STEPS))
+        for k, v in launches.items():
+            launched[k] = launched.get(k, 0) + v
+        with uncounted():
+            got = greedy_trace(engine, prompt, MESH_STEPS, feed)
+        feed = feed or got["tokens"][:MESH_STEPS]
+        row = {"tokens": tokens, "decode_ms": 1e3 * got["decode_s"] / MESH_STEPS,
+               "collective_ms": 1e3 * got["collective_s"] / MESH_STEPS,
+               "collective_calls": got["collective_calls"] // MESH_STEPS,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if rank == 0:
+            ref = Qwen3Engine(c, state, eos_token_id=-1, device=dev)
+            with uncounted():
+                want_tokens = ref.generate(prompt.tolist(), max_new_tokens=MESH_STEPS,
+                                           temperature=0.0)
+                want = greedy_trace(ref, prompt, MESH_STEPS, feed)
+            del ref
+            row.update(alone_ms=1e3 * want["decode_s"] / MESH_STEPS,
+                       alone_tokens=want_tokens, same_tokens=sum(
+                           a == b for a, b in zip(tokens, want_tokens)))
+            errs = [rel_l2(a, b) for a, b in zip(got["logits"], want["logits"])]
+            row["logit_rel_l2"] = max(errs)
+            if name == "f32":
+                truth = want
+            if name == "bf16":
+                own = max(rel_l2(a, b) for a, b in zip(want["logits"], truth["logits"]))
+                row["bound"] = MESH_BF16_RATIO * own
+                ok = row["logit_rel_l2"] <= row["bound"]
+            else:
+                ok = tokens == want_tokens
+            rank_log(rank, f"tp {name}: tokens {row['same_tokens']}/{len(tokens)} equal to "
+                     f"the unsharded engine's, logits relative L2 {row['logit_rel_l2']:.2e}"
+                     + (f" (bound {row['bound']:.2e}: the unsharded bf16 run's own "
+                        f"distance from f32)" if name == "bf16" else "")
+                     + f"; decode {row['decode_ms']:.3f} ms/step against "
+                     f"{row['alone_ms']:.3f} unsharded, collectives "
+                     f"{row['collective_ms']:.3f} ms/step ({row['collective_calls']} calls); "
+                     f"launches {row['launches']} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"mesh tp {name}: the TP 2 run strays from the "
+                                     "unsharded engine")
+        rows[name] = row
+        del engine, state
+        torch.cuda.empty_cache()
+    del full
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launched}
+
+
+def mesh_qa(meshes: dict, rank: int, prompts) -> dict:
+    """The trained QA model through ContinuousBatchingEngine(mesh=) at 2 x 1
+    and 1 x 2: every answer equal to the unsharded engine's."""
+    import torch
+
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.parallel import collectives
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+    from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
+
+    dev = meshes["2x1"].device
+    cfg, state = load_qa_lm(QA_CKPT, device=dev)
+    want = None
+    if rank == 0:
+        ref = ContinuousBatchingEngine(cfg, state, eos_token_id=EOS_ID, num_slots=QA_SLOTS,
+                                       device=dev)
+        with uncounted():
+            start = time.perf_counter()
+            want = ref.generate_many(prompts, QA_MAX_NEW)
+            torch.cuda.synchronize()
+            alone_s = time.perf_counter() - start
+        del ref
+    rows, launched = {}, {}
+    for name, mm in meshes.items():
+        engine = ContinuousBatchingEngine(cfg, state, eos_token_id=EOS_ID,
+                                          num_slots=QA_SLOTS, device=dev, mesh=mm)
+        reset_launches()
+        collectives.reset_stats()
+        start = time.perf_counter()
+        got = engine.generate_many(prompts, QA_MAX_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = kernel_launches()
+        missing = [k for k in ("chunk_attention", "decode_attention", "cache_append")
+                   if not launches[k]]
+        if missing or launches["cache_append"] != launches["decode_attention"]:
+            raise AssertionError(f"mesh qa {name}: launches {launches}")
+        for k, v in launches.items():
+            launched[k] = launched.get(k, 0) + v
+        rows[name] = {"seconds": seconds, "tokens": sum(len(g) for g in got),
+                      "collective_s": collectives.stats["seconds"],
+                      "collective_calls": collectives.stats["calls"],
+                      "launches": {k: v for k, v in launches.items() if v}}
+        if rank == 0:
+            same = sum(a == b for a, b in zip(got, want))
+            rows[name].update(same=same, alone_s=alone_s)
+            rank_log(rank, f"qa {name} ({mm.describe()}): {len(prompts)} prompts on "
+                     f"{QA_SLOTS} slots, answers equal to the unsharded engine's {same}/"
+                     f"{len(prompts)}; {rows[name]['tokens']} tokens in {seconds:.2f} s "
+                     f"(unsharded {alone_s:.2f} s), collectives "
+                     f"{rows[name]['collective_s']:.2f} s in {rows[name]['collective_calls']}"
+                     f" calls; launches {rows[name]['launches']}")
+            if same != len(prompts):
+                raise AssertionError(f"mesh qa {name}: answers differ from the unsharded "
+                                     "engine's")
+        del engine
+    del state
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launched}
+
+
+def mesh_ring(mm, rank: int) -> dict:
+    """Ring attention over the data group of two ranks at MESH_RING_SHAPE
+    bf16, causal and not: output and gradients against f32 full attention,
+    beside the plain bf16 path and B1; ms per call."""
+    import torch
+
+    from gvl_tpu_torch.ops.attention import attention_reference, flash_attention
+    from gvl_tpu_torch.ops.ring_attention import ring_attention
+    from gvl_tpu_torch.parallel.collectives import all_gather_cat
+
+    dev = mm.device
+    b, h, s, d = MESH_RING_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device=dev).bfloat16()
+                  for _ in range(4))
+    half = s // 2
+    mine = slice(rank * half, (rank + 1) * half)
+    rows = {}
+    for causal in (True, False):
+        parts = [x[:, :, mine].detach().clone().requires_grad_() for x in (q, k, v)]
+
+        def ring():
+            return ring_attention(*parts, mm, axis_name="data", causal=causal)
+
+        out = ring()
+        out.backward(g[:, :, mine])
+        whole = [all_gather_cat(t.detach(), 2, mm.data_group)
+                 for t in (out, *(p.grad for p in parts))]
+        fwd_ms = time_ms(ring, iters=3)
+
+        def ring_step():
+            for p in parts:
+                p.grad = None
+            ring().backward(g[:, :, mine])
+
+        step_ms = time_ms(ring_step, iters=3)
+        row = {"fwd_ms": fwd_ms, "fwd_bwd_ms": step_ms}
+        if rank == 0:
+            with uncounted():
+                def full(dtype):
+                    xs = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+                    o = attention_reference(*xs, causal=causal)
+                    o.backward(g.to(dtype))
+                    return [o.detach(), *(x.grad for x in xs)]
+
+                truth, plain = full(torch.float32), full(torch.bfloat16)
+                b1 = flash_attention(q, k, v, causal=causal)
+                row["plain_ms"] = time_ms(lambda: attention_reference(q, k, v, causal=causal),
+                                          iters=3)
+                row["b1_ms"] = time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                                       iters=3)
+            names = ("out", "dq", "dk", "dv")
+            row["ring_err"] = {n: rel_l2(a, t) for n, a, t in zip(names, whole, truth)}
+            row["plain_err"] = {n: rel_l2(a, t) for n, a, t in zip(names, plain, truth)}
+            row["b1_err"] = rel_l2(b1, truth[0])
+            limit = {n: max(MESH_RING_RATIO * row["plain_err"][n], MESH_RING_FLOOR)
+                     for n in names}
+            ok = (all(row["ring_err"][n] <= limit[n] for n in names)
+                  and row["b1_err"] <= limit["out"])
+            rank_log(rank, f"ring {'causal' if causal else 'full'} {list(MESH_RING_SHAPE)} "
+                     f"bf16 over 2 ranks: relative L2 against f32 full attention, ring "
+                     + ", ".join(f"{n} {row['ring_err'][n]:.2e}" for n in names)
+                     + "; plain bf16 " + ", ".join(f"{n} {row['plain_err'][n]:.2e}"
+                                                  for n in names)
+                     + f"; B1 out {row['b1_err']:.2e} (limit {MESH_RING_RATIO}x the plain "
+                     f"path's, floor {MESH_RING_FLOOR:.2e}); ms per call: ring forward "
+                     f"{fwd_ms:.2f}, forward + backward {step_ms:.2f}, plain full "
+                     f"{row['plain_ms']:.2f}, B1 full {row['b1_ms']:.3f} "
+                     f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError("mesh ring: ring attention strays from full attention")
+        rows["causal" if causal else "full"] = row
+        del parts, out, whole
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def same_detections(got, want) -> bool:
+    """Equal counts per frame and concept, scores within SCORE_TOL, boxes
+    within a pixel and areas within MASK_FLIP_SHARE (a mask cell that
+    rounds across the threshold when a rank segments half the frames)."""
+    for fg, fw in zip(got, want):
+        for cg, cw in zip(fg, fw):
+            if len(cg) != len(cw):
+                return False
+            for a, b in zip(cg, cw):
+                ma, mb = a["mask"], b["mask"]
+                boxes = (ma.bbox.x_min, ma.bbox.y_min, ma.bbox.x_max, ma.bbox.y_max,
+                         mb.bbox.x_min, mb.bbox.y_min, mb.bbox.x_max, mb.bbox.y_max)
+                if (abs(ma.confidence - mb.confidence) > SCORE_TOL
+                        or max(abs(boxes[i] - boxes[i + 4]) for i in range(4)) > 1
+                        or abs(ma.area_pixels - mb.area_pixels)
+                        > MASK_FLIP_SHARE * max(mb.area_pixels, 1)):
+                    return False
+    return len(got) == len(want)
+
+
+def mesh_segmenter(mm, rank: int) -> dict:
+    """The segmenter at its trained geometry (phase 11's seeded weights) on
+    MESH_FRAMES frames x 4 concepts split over data 2."""
+    import torch
+
+    from gvl_tpu_torch.perception import encoders as E
+    from gvl_tpu_torch.perception.segmenter import SAMConfig, TorchSegmenterBackend
+
+    dev = mm.device
+    backend = TorchSegmenterBackend(
+        SAMConfig(), generator=torch.Generator(device=dev).manual_seed(PERCEPTION_SEED),
+        device=dev, mesh=mm)
+    frames = E.gameplay_frames(MESH_FRAMES, seed=PERCEPTION_SEED)
+    concepts, index = list(E.CONCEPTS), list(range(MESH_FRAMES))
+    with uncounted():
+        backend(frames, concepts, index)
+    reset_launches()
+    start = time.perf_counter()
+    got = backend(frames, concepts, index)
+    seconds = time.perf_counter() - start
+    launches = kernel_launches()
+    if not launches["flash_attention"]:
+        raise AssertionError("mesh segmenter: no flash_attention launch")
+    row = {"ms": 1e3 * seconds, "launches": {k: v for k, v in launches.items() if v},
+           "detections": sum(len(c) for f in got for c in f)}
+    if rank == 0:
+        backend.mesh = None
+        with uncounted():
+            start = time.perf_counter()
+            want = backend(frames, concepts, index)
+            row["alone_ms"] = 1e3 * (time.perf_counter() - start)
+        ok = same_detections(got, want)
+        rank_log(rank, f"segmenter: {MESH_FRAMES} frames x {len(concepts)} concepts over "
+                 f"data 2: {row['detections']} detections, "
+                 f"{'equal to' if ok else 'DIFFERENT FROM'} one rank's; {row['ms']:.1f} ms "
+                 f"against {row['alone_ms']:.1f} on one rank; launches {row['launches']}")
+        if not ok:
+            raise AssertionError("mesh segmenter: data-parallel detections differ")
+    del backend
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_siglip(mm, rank: int) -> dict:
+    """The fused W8A8 so400m tower (phase 9's seeded weights), padded heads
+    (B7, B8, B9) and packed heads (B7, B8, B10), on MESH_FRAMES frames split
+    over data 2: pooled embeddings against one rank's."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.perception.semantic import (
+        FusedSigLIPBackend,
+        NaFlexConfig,
+        SigLIPSemanticEncoder,
+        calibration_pixels,
+    )
+
+    dev = mm.device
+    config = NaFlexConfig(quant_fused=True)
+    encoder = SigLIPSemanticEncoder.with_random_tower(config, device=dev, seed=SEMANTIC_SEED,
+                                                      mesh=mm)
+    tower = encoder.backend.tower
+    packed = SigLIPSemanticEncoder(config, backend=FusedSigLIPBackend(
+        tower, calib_pixels=calibration_pixels(config, tower.config.image_size, dev),
+        pool_strategy=config.pool_strategy, packed_attention=True, mesh=mm))
+    frames = semantic_inputs()[0][:MESH_FRAMES]
+    layers = tower.config.num_layers
+    rows = {}
+    for name, enc, head in (("padded", encoder, "attention_fused_qkv"),
+                            ("packed", packed, "attention_packed_multihead")):
+        with uncounted():
+            enc.encode_images_batch(frames)
+        reset_launches()
+        got = enc.encode_images_batch(frames)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        check_implied(f"mesh siglip {name}", launches, dict(FUSED_LAUNCHES, **{head: layers}))
+        row = {"launches": {k: v for k, v in launches.items() if v}}
+        if rank == 0:
+            enc.backend.mesh = None
+            with uncounted():
+                want = enc.encode_images_batch(frames)
+            enc.backend.mesh = mm
+            cos = cosines(got, want)
+            row["cos_min"] = float(cos.min())
+            ok = bool(np.isfinite(got).all()) and got.shape == want.shape and cos.min() >= COS_DP
+            rank_log(rank, f"siglip {name}: {len(frames)} frames over data 2, pooled cosine "
+                     f"to one rank's min {cos.min():.7f} (limit {COS_DP}); launches "
+                     f"{row['launches']} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"mesh siglip {name}: data-parallel embeddings differ")
+        rows[name] = row
+    del encoder, packed, tower
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_process(rank: int, store: str, workdir: str) -> int:
+    """One rank of phase 20's gloo world (both ranks on cuda:0): each part
+    in turn, in lockstep; writes its numbers to ``workdir/rank{rank}.json``."""
+    import torch
+
+    from gvl_tpu_torch.ops import _build
+    from gvl_tpu_torch.parallel import collectives
+    from gvl_tpu_torch.parallel.mesh import (
+        MeshManager,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    faulthandler.dump_traceback_later(MESH_RANK_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(init_method=store, world_size=2, rank=rank, local_rank=rank,
+                     local_world_size=2, device="cuda")
+    _build.library()
+    collectives.set_timing(True)
+    tp, dp = MeshManager(build_mesh(1, 2)), MeshManager(build_mesh(2, 1))
+    for mm in (tp, dp):
+        if mm.backend != "gloo" or mm.device != torch.device("cuda", 0):
+            raise AssertionError(f"mesh: {mm.describe()}: ranks sharing a card take gloo "
+                                 "on cuda:0")
+    rank_log(rank, f"{tp.describe()}; {dp.describe()}")
+    prompts = json.loads(Path(workdir, "prompts.json").read_text())
+    torch.cuda.reset_peak_memory_stats()
+    out = {"describe": [tp.describe(), dp.describe()]}
+    out["tp"] = mesh_tp(tp, rank)
+    out["qa"] = mesh_qa({"2x1": dp, "1x2": tp}, rank, prompts)
+    out["ring"] = mesh_ring(dp, rank)
+    out["segmenter"] = mesh_segmenter(dp, rank)
+    out["siglip"] = mesh_siglip(dp, rank)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    rank_log(rank, f"allocator peak {out['peak_gib']:.2f} GiB")
+    shutdown_distributed()
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def gloo_world(workdir: Path) -> list[dict]:
+    """Phase 20 (b): two processes joined over gloo, both on cuda:0; fails
+    as soon as one of them does (the other is stopped)."""
+    store = f"file://{workdir / 'store'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.mesh_process("
+         f"{rank}, {store!r}, {str(workdir)!r}))"], cwd=REPO) for rank in (0, 1)]
+    deadline = time.time() + MESH_RANK_S + 30
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                raise AssertionError(f"mesh: rank {failed or 'time'} of the gloo world "
+                                     f"failed (exit codes {[p.poll() for p in procs]})")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [json.loads((workdir / f"rank{rank}.json").read_text()) for rank in (0, 1)]
+
+
+class Deploy:
+    """``torchrun --nproc-per-node 2 -m gvl_tpu_torch.scripts.deploy_api
+    --tp 2`` on the QA model, as processes (output in ``log``)."""
+
+    def __init__(self, workdir: Path):
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.log = workdir / "deploy.log"
+        self.sink = open(self.log, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m", "gvl_tpu_torch.scripts.deploy_api", "--tp", "2",
+             "--port", str(self.port), "--num-slots", str(QA_SLOTS),
+             "--llm-checkpoint", str(QA_CKPT)],
+            cwd=REPO, stdout=self.sink, stderr=subprocess.STDOUT, start_new_session=True)
+
+    def ready(self, deadline: float) -> int:
+        """The serving rank's pid, once it listens."""
+        while time.time() < deadline and self.proc.poll() is None:
+            found = re.search(r"serving on 127\.0\.0\.1:\d+ \(pid (\d+)\)",
+                              self.log.read_text())
+            if found:
+                return int(found.group(1))
+            time.sleep(0.2)
+        raise AssertionError(f"mesh deploy: not serving ({self.tail()})")
+
+    def tail(self) -> str:
+        return self.log.read_text()[-2000:]
+
+    def stop(self) -> None:
+        import os
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.sink.close()
+
+
+def mesh_deploy(dev, deploy: Deploy, four) -> None:
+    """4 concurrent POST /generate against the unsharded generate_many; then
+    SIGTERM to the serving rank, which releases its follower: both exit 0."""
+    import os
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+    from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
+
+    cfg, state = load_qa_lm(QA_CKPT, device=dev)
+    with uncounted():
+        want = ContinuousBatchingEngine(cfg, state, eos_token_id=EOS_ID, num_slots=QA_SLOTS,
+                                        device=dev).generate_many(four, QA_MAX_NEW)
+    del state
+    torch.cuda.empty_cache()
+    pid = deploy.ready(time.time() + MESH_DEPLOY_S)
+    start = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        replies = list(pool.map(lambda p: http_json(deploy.port, "POST", "/generate", {
+            "prompt_ids": p, "max_new_tokens": QA_MAX_NEW}), four))
+    seconds = time.perf_counter() - start
+    os.kill(pid, signal.SIGTERM)
+    rc = deploy.proc.wait(timeout=60)
+    same = sum(r[0] == 200 and r[1].get("tokens") == w for r, w in zip(replies, want))
+    described = re.search(r"serving over (.*)", deploy.log.read_text())
+    log("mesh", f"deploy_api --tp 2 under torchrun ({described.group(1) if described else '?'})"
+        f": 4 concurrent POST /generate in {seconds:.2f} s, tokens equal to the unsharded "
+        f"generate_many {same}/4; SIGTERM to rank 0: torchrun exit {rc}")
+    if same != 4 or rc != 0:
+        raise AssertionError(f"mesh deploy: {same}/4 equal, exit {rc} ({deploy.tail()})")
+
+
+def run_mesh(dev, prompts):
+    """Phase 20 (the module docstring): (a) the NCCL world of one rank, (b)
+    the gloo world of two processes on the card, and deploy_api --tp 2
+    under torchrun (started first, served last)."""
+    import tempfile
+
+    start = time.perf_counter()
+    launched = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        workdir = Path(tmp)
+        (workdir / "prompts.json").write_text(json.dumps(prompts[:MESH_QA_PROMPTS]))
+        deploy = Deploy(workdir)
+        try:
+            add(mesh_nccl(dev))
+            ranks = gloo_world(workdir)
+            for r, out in enumerate(ranks):
+                for part in ("tp", "qa"):
+                    add(out[part]["launches"])
+                add(out["segmenter"]["launches"])
+                for row in out["siglip"].values():
+                    add(row["launches"])
+                tp_rows = out["tp"]["rows"]
+                log("mesh", f"(b) rank {r}: TP 2 decode ms/step "
+                    + ", ".join(f"{n} {row['decode_ms']:.3f} (collectives "
+                                f"{row['collective_ms']:.3f})" for n, row in tp_rows.items())
+                    + f"; allocator peak {out['peak_gib']:.2f} GiB; {nvidia_smi()}; gloo "
+                    "stages every collective through the host: these times measure the "
+                    "sharded code on one card, not a multi-card deployment")
+            mesh_deploy(dev, deploy, prompts[:4])
+        finally:
+            deploy.stop()
+    elapsed = time.perf_counter() - start
+    log("mesh", f"phase 20 in {elapsed:.1f} s (budget {MESH_BUDGET_S} s)")
+    if elapsed > MESH_BUDGET_S:
+        raise AssertionError(f"mesh: phase 20 took {elapsed:.1f} s, over its {MESH_BUDGET_S} s")
+    return {k: launched.get(k, 0) for k in kernel_launches()}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import tempfile
@@ -5264,6 +5989,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("device", f"{smi}; torch {torch.__version__} (CUDA {torch.version.cuda}),"
         f" {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log("device", f"gloo collectives on CUDA tensors in this PyTorch: {gloo_probe()} "
+        "(the port stages CUDA tensors through the host on every gloo group)")
 
     build = _build.build()
     _build.library()
@@ -5312,9 +6039,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     perception_launches, trainer_rows = run_perception_train(dev)
     served.append(perception_launches)
+    torch.cuda.empty_cache()
+    served.append(run_mesh(dev, prompts))
     trainer_b1 = {row["name"]: row["b1_per_step"] for row in trainer_rows}
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-19): {launches}")
+    log("launches", f"served paths (phases 3-20): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

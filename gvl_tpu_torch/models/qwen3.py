@@ -44,8 +44,22 @@ utilities on the port's state dicts.
 need the unrolled stack, and a ``scan_layers`` model raises on them (the
 JAX model ignores them there, ROADMAP C10).  :func:`convert_hf_qwen3` and
 :func:`load_hf_qwen3` read HF ``Qwen3ForCausalLM`` checkpoints
-(``transformers`` is imported inside the loader only).  Not ported:
-tensor-parallel meshes (ROADMAP A12).
+(``transformers`` is imported inside the loader only).
+
+``mesh=`` (a :class:`~gvl_tpu_torch.parallel.mesh.Mesh` or ``MeshManager``)
+builds this rank's shards of a tensor-parallel model, Megatron style, with
+the collectives of :mod:`gvl_tpu_torch.parallel.collectives` over the
+mesh's ``model`` group (the JAX model's variables sharded by ``LLM_RULES``,
+where GSPMD inserts them): q/k/v/gate/up are column-parallel (``lora_b``
+and the int8 ``scale`` follow the output), o/down row-parallel with one
+``all_reduce_sum`` each (``lora_a`` cut on the input), the embedding cut on
+the hidden size and the LM head on the vocabulary, each followed by
+``all_gather_cat``; norms are whole.  Attention shards by whole KV groups
+when ``num_kv_heads`` divides over ``model`` and is otherwise whole on
+every rank with its cache (JAX's ``_cache_sharding`` rule); the MLP shards
+when ``intermediate_size`` divides.  The kernels run per rank at the local
+head counts.  :func:`load_model` cuts a full state dict with
+:func:`~gvl_tpu_torch.parallel.sharding.shard_state`.
 """
 
 from __future__ import annotations
@@ -76,6 +90,12 @@ from gvl_tpu_torch.ops.decode_attention import (
     decode_attention_stacked_reference,
 )
 from gvl_tpu_torch.ops.rope import rope_angles, rotate_half
+from gvl_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_reduce_sum,
+    copy_to_group,
+)
+from gvl_tpu_torch.parallel.mesh import as_mesh
 
 
 @dataclass(frozen=True)
@@ -125,6 +145,46 @@ class Qwen3Config:
         """This config with every kernel switched to its plain version."""
         return replace(self, use_flash_kernel=False, use_decode_kernel=False,
                        use_cache_append_kernel=False)
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """What a rank of a ``model`` group holds of the decoder: ``group``
+    (None: the whole model, no collectives), its ``size`` and this rank's
+    ``index`` in it, and which parts are cut (:func:`tensor_parallel`)."""
+
+    group: object = None
+    size: int = 1
+    index: int = 0
+    attention: bool = False
+    mlp: bool = False
+    embed: bool = False
+    head: bool = False
+
+    def part(self, n: int, cut: bool) -> int:
+        return n // self.size if cut else n
+
+
+def tp_cuts(config: "Qwen3Config", model_size: int) -> dict[str, bool]:
+    """Which parts of the decoder are cut over ``model_size`` ranks (the
+    layout ``LLM_RULES`` gives, with whole KV groups per rank): attention
+    only when ``num_kv_heads`` divides, the MLP when ``intermediate_size``
+    does, the embedding when ``hidden_size`` does, the LM head when
+    ``vocab_size`` does."""
+    m = model_size
+    return dict(attention=config.num_kv_heads % m == 0,
+                mlp=config.intermediate_size % m == 0,
+                embed=config.hidden_size % m == 0,
+                head=not config.tie_word_embeddings and config.vocab_size % m == 0)
+
+
+def tensor_parallel(config: "Qwen3Config", mesh) -> TensorParallel:
+    """This rank's share of ``config``'s decoder on ``mesh`` (:func:`tp_cuts`)."""
+    mesh = as_mesh(mesh)
+    if mesh is None or mesh.model_group is None:
+        return TensorParallel()
+    m = mesh.shape["model"]
+    return TensorParallel(mesh.model_group, m, mesh.model_index, **tp_cuts(config, m))
 
 
 class KVCache:
@@ -180,10 +240,12 @@ class KVCache:
     @classmethod
     def zeros(cls, config: Qwen3Config, batch: int,
               dtype: torch.dtype = torch.bfloat16,
-              device: str | torch.device = "cuda") -> "KVCache":
+              device: str | torch.device = "cuda", mesh=None) -> "KVCache":
+        """``mesh``: this rank's KV heads of a tensor-parallel model."""
         device = resolve_device(device)
-        shape = (batch, config.num_kv_heads, config.max_cache_length,
-                 config.head_dim)
+        tp = tensor_parallel(config, mesh)
+        shape = (batch, tp.part(config.num_kv_heads, tp.attention),
+                 config.max_cache_length, config.head_dim)
         if config.scan_layers:
             stacked = (config.num_layers, *shape)
             return cls(torch.zeros(stacked, dtype=dtype, device=device),
@@ -250,14 +312,19 @@ def _write_back(result: torch.Tensor, cache: torch.Tensor) -> None:
 
 
 class Qwen3Attention(nn.Module):
-    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
+    def __init__(self, cfg: Qwen3Config, stack: tuple = (),
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
         self.config = cfg
         hidden, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = _projection(cfg, "q_proj", hidden, cfg.num_heads * d, stack)
-        self.k_proj = _projection(cfg, "k_proj", hidden, cfg.num_kv_heads * d, stack)
-        self.v_proj = _projection(cfg, "v_proj", hidden, cfg.num_kv_heads * d, stack)
-        self.o_proj = _projection(cfg, "o_proj", cfg.num_heads * d, hidden, stack)
+        # this rank's heads: whole KV groups, or every head when not cut
+        self.n_q = tp.part(cfg.num_heads, tp.attention)
+        self.n_kv = tp.part(cfg.num_kv_heads, tp.attention)
+        self.group = tp.group if tp.attention else None
+        self.q_proj = _projection(cfg, "q_proj", hidden, self.n_q * d, stack)
+        self.k_proj = _projection(cfg, "k_proj", hidden, self.n_kv * d, stack)
+        self.v_proj = _projection(cfg, "v_proj", hidden, self.n_kv * d, stack)
+        self.o_proj = _projection(cfg, "o_proj", self.n_q * d, hidden, stack)
         self.q_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
         self.k_norm = RMSNorm(d, cfg.rms_norm_eps, stack)
 
@@ -271,7 +338,8 @@ class Qwen3Attention(nn.Module):
         read from the stacked cache by the stacked kernels."""
         cfg = self.config
         batch, seq, _ = x.shape
-        n_q, n_kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n_q, n_kv, d = self.n_q, self.n_kv, cfg.head_dim
+        x = copy_to_group(x, self.group)
         q = self.q_norm(self.q_proj(x, index).view(batch, seq, n_q, d), index)
         k = self.k_norm(self.k_proj(x, index).view(batch, seq, n_kv, d), index)
         v = self.v_proj(x, index).view(batch, seq, n_kv, d)
@@ -340,32 +408,36 @@ class Qwen3Attention(nn.Module):
                 out = decode(q[:, :, 0], ck, cv, cache_len + 1)[:, :, None, :]
 
         out = out.transpose(1, 2).reshape(batch, seq, n_q * d)
-        return self.o_proj(out, index)
+        return all_reduce_sum(self.o_proj(out, index), self.group)
 
 
 class Qwen3Mlp(nn.Module):
-    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
+    def __init__(self, cfg: Qwen3Config, stack: tuple = (),
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
-        hidden, inter = cfg.hidden_size, cfg.intermediate_size
+        hidden, inter = cfg.hidden_size, tp.part(cfg.intermediate_size, tp.mlp)
+        self.group = tp.group if tp.mlp else None
         self.gate_proj = _projection(cfg, "gate_proj", hidden, inter, stack)
         self.up_proj = _projection(cfg, "up_proj", hidden, inter, stack)
         self.down_proj = _projection(cfg, "down_proj", inter, hidden, stack)
 
     def forward(self, x: torch.Tensor, index: Optional[int] = None) -> torch.Tensor:
+        x = copy_to_group(x, self.group)
         gate = F.silu(self.gate_proj(x, index)) * self.up_proj(x, index)
-        return self.down_proj(gate, index)
+        return all_reduce_sum(self.down_proj(gate, index), self.group)
 
 
 class Qwen3Layer(nn.Module):
     """One decoder layer, or (``stack=(L,)``) all L layers' weights stacked
     for a ``scan_layers`` model, which runs it once per layer index."""
 
-    def __init__(self, cfg: Qwen3Config, stack: tuple = ()):
+    def __init__(self, cfg: Qwen3Config, stack: tuple = (),
+                 tp: TensorParallel = TensorParallel()):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, stack)
-        self.self_attn = Qwen3Attention(cfg, stack)
+        self.self_attn = Qwen3Attention(cfg, stack, tp)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, stack)
-        self.mlp = Qwen3Mlp(cfg, stack)
+        self.mlp = Qwen3Mlp(cfg, stack, tp)
 
     def forward(self, x, cos, sin, layer: int, cache: Optional[KVCache],
                 cache_len: Optional[torch.Tensor], index: Optional[int] = None,
@@ -375,6 +447,18 @@ class Qwen3Layer(nn.Module):
         return x + self.mlp(self.post_attn_norm(x, index), index)
 
 
+class Embedding(nn.Embedding):
+    """Token embedding; with ``group``, this rank's slice of the hidden
+    size, gathered whole after the lookup."""
+
+    def __init__(self, vocab: int, hidden: int, group=None):
+        super().__init__(vocab, hidden)
+        self.group = group
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return all_gather_cat(super().forward(tokens), -1, self.group)
+
+
 class Qwen3Model(nn.Module):
     """Decoder stack with an optional KV cache.
 
@@ -382,20 +466,26 @@ class Qwen3Model(nn.Module):
     K/V are written into it in place at each slot's offset and every slot's
     length advances by the sequence length.  A write past
     ``max_cache_length`` raises (the JAX model's writes clamp instead).
+    ``mesh``: this rank's shards of a tensor-parallel model (the module
+    docstring); every rank of the ``model`` group runs each call, and each
+    returns the whole logits.
     """
 
-    def __init__(self, config: Qwen3Config):
+    def __init__(self, config: Qwen3Config, mesh=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size)
+        self.tp = tp = tensor_parallel(config, mesh)
+        self.embed_tokens = Embedding(config.vocab_size,
+                                      tp.part(config.hidden_size, tp.embed),
+                                      tp.group if tp.embed else None)
         if config.scan_layers:
-            self.layers = Qwen3Layer(config, stack=(config.num_layers,))
+            self.layers = Qwen3Layer(config, stack=(config.num_layers,), tp=tp)
         else:
-            self.layers = nn.ModuleList(Qwen3Layer(config)
+            self.layers = nn.ModuleList(Qwen3Layer(config, tp=tp)
                                         for _ in range(config.num_layers))
         self.final_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
         self.lm_head = (None if config.tie_word_embeddings else
-                        Linear(config.hidden_size, config.vocab_size,
+                        Linear(config.hidden_size, tp.part(config.vocab_size, tp.head),
                                quant=config.quant_int8))
 
     def forward(
@@ -464,9 +554,20 @@ class Qwen3Model(nn.Module):
             if deepstack_embeds is not None and i < deepstack_embeds.shape[0]:
                 x = x + deepstack_embeds[i].to(x.dtype)
         x = weights(self.final_norm)(x)
+        tp = self.tp
         if cfg.tie_word_embeddings:
             embed = self.embed_tokens.weight
-            logits = x @ (embed if param_dtype is None else embed.to(param_dtype)).T
+            embed = embed if param_dtype is None else embed.to(param_dtype)
+            if tp.embed:
+                # this rank's hidden slice against its embedding columns
+                part = embed.shape[1]
+                x = copy_to_group(x, tp.group).narrow(-1, tp.index * part, part)
+                logits = all_reduce_sum(x @ embed.T, tp.group)
+            else:
+                logits = x @ embed.T
+        elif tp.head:
+            logits = all_gather_cat(weights(self.lm_head)(copy_to_group(x, tp.group)),
+                                    -1, tp.group)
         else:
             logits = weights(self.lm_head)(x)
         if cache is not None:
@@ -479,12 +580,19 @@ class Qwen3Model(nn.Module):
 
 
 def load_model(config: Qwen3Config, state_dict: dict[str, torch.Tensor],
-               device: str | torch.device = "cuda") -> Qwen3Model:
+               device: str | torch.device = "cuda", mesh=None) -> Qwen3Model:
     """A :class:`Qwen3Model` in eval mode on ``device`` whose parameters are
-    the state dict's tensors (shared, not copied, when already there)."""
+    the state dict's tensors (shared, not copied, when already there).
+    ``mesh``: this rank's shards, cut from a full state dict by
+    :func:`~gvl_tpu_torch.parallel.sharding.shard_state` (tensors already
+    cut are taken as they are)."""
     device = resolve_device(device)
     with torch.device("meta"):
-        model = Qwen3Model(config)
+        model = Qwen3Model(config, mesh)
+    if as_mesh(mesh) is not None:
+        from gvl_tpu_torch.parallel.sharding import shard_state
+
+        state_dict = shard_state(state_dict, mesh, config)
     model.load_state_dict(state_dict, assign=True)
     return model.to(device).eval()
 
@@ -600,19 +708,22 @@ class Qwen3Engine:
     ...     ...
 
     ``dtype`` is the KV cache's (and an embedding prefix's) type; the
-    weights keep theirs.
+    weights keep theirs.  ``mesh``: serve tensor-parallel (every rank of
+    the ``model`` group makes the same calls; the cache holds this rank's
+    KV heads).
     """
 
     PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192)
 
     def __init__(self, config: Qwen3Config, state_dict: dict[str, torch.Tensor],
                  eos_token_id: int = 151645, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.config = config
         self.eos_token_id = eos_token_id
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.model = load_model(config, state_dict, self.device)
+        self.mesh = mesh
+        self.model = load_model(config, state_dict, self.device, mesh)
 
     def _bucket(self, n: int) -> int:
         for b in self.PROMPT_BUCKETS:
@@ -655,7 +766,7 @@ class Qwen3Engine:
         if pad:
             ids = F.pad(ids, (0, pad))
 
-        cache = KVCache.zeros(self.config, 1, dtype=self.dtype, device=dev)
+        cache = KVCache.zeros(self.config, 1, dtype=self.dtype, device=dev, mesh=self.mesh)
         x = self.model.embed_tokens(ids)
         if inputs_embeds_prefix is not None:
             prefix = torch.as_tensor(np.asarray(inputs_embeds_prefix), device=dev)

@@ -366,7 +366,10 @@ class Qwen3VL:
         image_token_id: int = 151655,
         mrope_section: tuple[int, int, int] = (24, 20, 20),
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
+        """``mesh``: the text decoder tensor-parallel over its ``model``
+        group (the vision tower stays whole on every rank)."""
         if text_config.scan_layers:
             raise ValueError("Qwen3VL needs an unrolled text decoder (scan_layers=False)")
         self.vision_config = vision_config
@@ -374,11 +377,17 @@ class Qwen3VL:
         self.image_token_id = image_token_id
         self.mrope_section = mrope_section
         self.device = resolve_device(device)
+        self.mesh = mesh
         with torch.device("meta"):
             vision = Qwen3VLVisionTower(vision_config)
-            text = Qwen3Model(text_config)
+            text = Qwen3Model(text_config, mesh)
+        text_state = _split(state_dict, "text.")
+        if mesh is not None:
+            from gvl_tpu_torch.parallel.sharding import shard_state
+
+            text_state = shard_state(text_state, mesh, text_config)
         vision.load_state_dict(_split(state_dict, "vision."), assign=True)
-        text.load_state_dict(_split(state_dict, "text."), assign=True)
+        text.load_state_dict(text_state, assign=True)
         self.vision = vision.to(self.device).eval()
         self.text = text.to(self.device).eval()
         self.last_decode_steps = 0
@@ -477,7 +486,7 @@ class Qwen3VL:
         dev = self.device
         tokens = torch.as_tensor(ids, device=dev)
         embeds, deepstack = self._embeds(tokens, patches, grid)
-        cache = KVCache.zeros(cfg, 1, dtype=cache_dtype, device=dev)
+        cache = KVCache.zeros(cfg, 1, dtype=cache_dtype, device=dev, mesh=self.mesh)
         logits, cache = self.text(inputs_embeds=embeds, rope_cos_sin=self._mrope(position_ids),
                                   deepstack_embeds=deepstack, cache=cache)
         token = sample_logits(logits[:, -1], generator, temperature, top_p, top_k)

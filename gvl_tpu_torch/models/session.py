@@ -57,12 +57,13 @@ class Qwen3ChatSession:
 
     def __init__(self, config: Qwen3Config, state_dict: dict[str, torch.Tensor],
                  eos_token_id: int = 151645, dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.config = dataclasses.replace(config, chunk_verify=True)
         self.eos_token_id = eos_token_id
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.model = load_model(self.config, state_dict, self.device)
+        self.mesh = mesh          # tensor-parallel: every model rank calls alike
+        self.model = load_model(self.config, state_dict, self.device, mesh)
         self.cache: Optional[KVCache] = None
         self._cached: list[int] = []   # tokens whose K/V live in the cache
         self.last_ingested: int = 0    # delta size of the latest turn
@@ -101,7 +102,8 @@ class Qwen3ChatSession:
             raise ValueError("prompt + max_new_tokens exceeds cache")
 
         if self.cache is None:
-            self.cache = KVCache.zeros(cfg, 1, dtype=self.dtype, device=self.device)
+            self.cache = KVCache.zeros(cfg, 1, dtype=self.dtype, device=self.device,
+                                       mesh=self.mesh)
             self._cached = []
         elif ids[:len(self._cached)] != self._cached:
             # not an extension of the cached transcript: start over (stale

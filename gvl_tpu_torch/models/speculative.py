@@ -59,6 +59,7 @@ class SpeculativeEngine:
         eos_token_id: int = 151645,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if target_config.vocab_size != draft_config.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
@@ -68,8 +69,9 @@ class SpeculativeEngine:
         self.device = resolve_device(device)
         self.target_config = dataclasses.replace(target_config, chunk_verify=True)
         self.draft_config = dataclasses.replace(draft_config, chunk_verify=True)
-        self.target_model = load_model(self.target_config, target_state, self.device)
-        self.draft_model = load_model(self.draft_config, draft_state, self.device)
+        self.mesh = mesh          # tensor-parallel: every model rank calls alike
+        self.target_model = load_model(self.target_config, target_state, self.device, mesh)
+        self.draft_model = load_model(self.draft_config, draft_state, self.device, mesh)
         self.last_stats: dict = {}
 
     # ------------------------------------------------------------ forwards
@@ -147,7 +149,7 @@ class SpeculativeEngine:
     def _draft_reset(self) -> None:
         """Called once per stream: the draft's own cache."""
         self._draft_cache = KVCache.zeros(self.draft_config, 1, dtype=self.dtype,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
         self._draft_len = 0    # committed tokens the draft has processed
 
     def _draft_propose(self, committed: list[int], temperature: float,
@@ -219,7 +221,8 @@ class SpeculativeEngine:
                 tcfg.max_cache_length, dcfg.max_cache_length):
             raise ValueError("prompt + max_new_tokens exceeds cache")
 
-        target_cache = KVCache.zeros(tcfg, 1, dtype=self.dtype, device=self.device)
+        target_cache = KVCache.zeros(tcfg, 1, dtype=self.dtype, device=self.device,
+                                     mesh=self.mesh)
         self._draft_reset()
         # target prefill: the cache then holds K/V for committed[:-1]
         logits = self._ingest(self.target_model, target_cache, prompt_ids,
@@ -277,10 +280,11 @@ class PromptLookupEngine(SpeculativeEngine):
         eos_token_id: int = 151645,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         super().__init__(target_config, target_state, target_config,
                          target_state, gamma=gamma, eos_token_id=eos_token_id,
-                         dtype=dtype, device=device)
+                         dtype=dtype, device=device, mesh=mesh)
         self.ngram = int(ngram)
 
     def _draft_reset(self) -> None:  # no draft model, no draft cache

@@ -152,7 +152,7 @@ def run_batched_perception(
     return out
 
 
-def build_segmenter(config, device: str | torch.device = "cuda"):
+def build_segmenter(config, device: str | torch.device = "cuda", mesh=None):
     """Segmenter from the preset ladder (``config`` a
     :class:`~gvl_tpu_torch.config.presets.SystemConfig`): the model on
     ``device`` when ``sam_checkpoint`` resolves ("auto"), the model always
@@ -165,6 +165,9 @@ def build_segmenter(config, device: str | torch.device = "cuda"):
     :func:`~gvl_tpu_torch.perception.open_vocab.create_open_vocab_segmenter`)
     when ``sam_vit_dir`` and ``siglip_checkpoint`` resolve; with neither it
     falls back to "auto", as in JAX.
+
+    ``mesh`` enables data-parallel segmentation over its ``data`` axis (the
+    model backend; the composites and the fake take none, as in JAX).
 
     Unlike the JAX package (ROADMAP C7), a checkpoint that resolves but
     cannot be read, or whose geometry is not the model's, raises: the arm
@@ -215,11 +218,11 @@ def build_segmenter(config, device: str | torch.device = "cuda"):
                     f"segmenter checkpoint {ckpt} cannot be used ({exc}); the JAX "
                     "package would segment with random weights here (ROADMAP C7)") from exc
         return SAMConceptSegmenter(seg_config, backend=TorchSegmenterBackend(
-            seg_config, state=state, device=device))
+            seg_config, state=state, device=device, mesh=mesh))
     return SAMConceptSegmenter(SAMConfig())
 
 
-def build_siglip_encoder(config, device: str | torch.device = "cuda"):
+def build_siglip_encoder(config, device: str | torch.device = "cuda", mesh=None):
     """Semantic encoder from the preset ladder: the trained mini-SigLIP
     (:meth:`SigLIPSemanticEncoder.from_trained_checkpoint`, its own f32
     numerics; ``siglip_int8`` gives its dynamic W8A8 blocks) when
@@ -227,7 +230,8 @@ def build_siglip_encoder(config, device: str | torch.device = "cuda"):
     (:meth:`SigLIPSemanticEncoder.from_hf_checkpoint`: the fused W8A8 tower
     when ``siglip_fused``, the dynamic W8A8 one for ``siglip_int8``), the so400m tower on seeded random weights for
     ``siglip_backend="jax"`` (the fused W8A8 tower when ``siglip_fused``),
-    the deterministic fake for "fake" or without a checkpoint."""
+    the deterministic fake for "fake" or without a checkpoint.  ``mesh``
+    encodes data-parallel over its ``data`` axis."""
     from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
     from gvl_tpu_torch.training.siglip_train import is_minisiglip_checkpoint
     from gvl_tpu_torch.utils.checkpoints import resolve_repo_path
@@ -250,18 +254,21 @@ def build_siglip_encoder(config, device: str | torch.device = "cuda"):
     if ckpt:
         if is_minisiglip_checkpoint(ckpt):
             return SigLIPSemanticEncoder.from_trained_checkpoint(ckpt, config=nf,
-                                                                 device=device)
+                                                                 device=device, mesh=mesh)
         return SigLIPSemanticEncoder.from_hf_checkpoint(ckpt, config=_fused(nf),
-                                                        device=device)
+                                                        device=device, mesh=mesh)
     if backend == "jax":
-        return SigLIPSemanticEncoder.with_random_tower(config=_fused(nf), device=device)
+        return SigLIPSemanticEncoder.with_random_tower(config=_fused(nf), device=device,
+                                                       mesh=mesh)
     return SigLIPSemanticEncoder()
 
 
-def build_perception_stack(config, device: str | torch.device = "cuda"):
-    """(segmenter, encoder, ocr) from the preset's ladders, on ``device``."""
+def build_perception_stack(config, device: str | torch.device = "cuda", mesh=None):
+    """(segmenter, encoder, ocr) from the preset's ladders, on ``device``;
+    ``mesh`` data-parallelizes the segmenter and tower over its ``data``
+    axis (frames split, each replica running the whole model)."""
     from gvl_tpu_torch.perception.ocr import create_ocr_pipeline
 
-    return (build_segmenter(config, device=device),
-            build_siglip_encoder(config, device=device),
+    return (build_segmenter(config, device=device, mesh=mesh),
+            build_siglip_encoder(config, device=device, mesh=mesh),
             create_ocr_pipeline(config.perception.ocr_backend, device=device))

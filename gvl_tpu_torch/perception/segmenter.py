@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gvl_tpu_torch import resolve_device
+from gvl_tpu_torch.parallel.collectives import gather_batch, split_batch
 from gvl_tpu_torch.runtime.native import resize_images, resize_mask
 
 logger = logging.getLogger(__name__)
@@ -192,11 +193,14 @@ class TorchSegmenterBackend:
     """The promptable segmenter on ``device``: frames × concepts in one
     forward.  ``state`` is the model's state dict (``None``: random
     weights from ``generator``, seed 0 by default, where the JAX backend
-    draws from ``PRNGKey(0)``)."""
+    draws from ``PRNGKey(0)``).  ``mesh``: data-parallel segmentation, the
+    frames padded to a multiple of the ``data`` size and split over it,
+    each replica running its block, the masks and scores gathered so that
+    every rank returns every frame's detections."""
 
     def __init__(self, config: SAMConfig, state: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         from gvl_tpu_torch.models.sam import PromptableSegmenter, SamConfig, hash_tokenize
         from gvl_tpu_torch.nn.layers import init_state, load_module
 
@@ -210,6 +214,7 @@ class TorchSegmenterBackend:
                                self.device)
         self.model = load_module(model, state, self.device)
         self._hash_tokenize = hash_tokenize
+        self.mesh = mesh
 
     @torch.inference_mode()
     def submit(self, frames, concepts):
@@ -218,7 +223,7 @@ class TorchSegmenterBackend:
         can track the previous chunk meanwhile."""
         size = self.config.image_size
         # one native call for a clip's frames (they share a shape)
-        resized = resize_images(frames, size, size)
+        resized, n_real = split_batch(resize_images(frames, size, size), self.mesh)
         tokens = np.stack([self._hash_tokenize(c, self.model_config.text_vocab)
                            for c in concepts])
         # uint8 over the link, normalised on the card; page-locked on a
@@ -230,8 +235,9 @@ class TorchSegmenterBackend:
         px = px.to(self.device, non_blocking=True).float() / 255.0
         out = self.model(px, ids.to(self.device, non_blocking=True))
         # thresholded on the card: bool masks come back at 1 byte a cell
-        return {"mask": out["mask_logits"] > float(self.config.mask_threshold),
-                "scores": out["scores"]}, len(frames)
+        mask = out["mask_logits"] > float(self.config.mask_threshold)
+        return {"mask": gather_batch(mask, self.mesh, n_real),
+                "scores": gather_batch(out["scores"], self.mesh, n_real)}, n_real
 
     def collect(self, handle, frames, frame_indices, concepts):
         """Wait for the card's result and run the host-side mask NMS."""
@@ -480,9 +486,11 @@ def create_sam_segmenter(
     checkpoint: Optional[str] = None,
     device: str | torch.device = "cuda",
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> SAMConceptSegmenter:
     """Factory: the model backend on ``device`` when asked for (or given a
-    checkpoint), the deterministic fake otherwise.
+    checkpoint), the deterministic fake otherwise.  ``mesh`` enables
+    data-parallel segmentation over its ``data`` axis.
 
     As in the JAX package, a checkpoint that cannot be read or whose
     geometry differs from the model's is NOT an error: a warning is
@@ -499,5 +507,5 @@ def create_sam_segmenter(
                 logger.warning("segmenter checkpoint %s unusable (%s); random init",
                                checkpoint, exc)
         backend = TorchSegmenterBackend(config, state=state, generator=generator,
-                                        device=device)
+                                        device=device, mesh=mesh)
     return SAMConceptSegmenter(config, backend=backend)

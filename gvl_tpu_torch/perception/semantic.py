@@ -32,6 +32,7 @@ from gvl_tpu_torch.models.siglip import (
 )
 from gvl_tpu_torch.models.siglip_fused import prepare_fused_siglip, siglip_fused_apply
 from gvl_tpu_torch.ops.quant_matmul import true_div
+from gvl_tpu_torch.parallel.collectives import gather_batch, split_batch
 from gvl_tpu_torch.runtime.native import resize_image
 
 PATCH = 14
@@ -173,12 +174,15 @@ class DeterministicFakeBackend:
 class _TowerBackend:
     """uint8 ``[N, H, W, 3]`` batches in, pooled f32 ``[N, D]`` out: the
     batch is normalised and pooled on the card (``mean``, ``max`` or the
-    MAP head for ``cls``)."""
+    MAP head for ``cls``).  ``mesh``: data-parallel encode, the batch padded
+    to a multiple of the ``data`` size and split over it, each replica
+    encoding its block, the embeddings gathered back on every rank."""
 
     def __init__(self, image_mean, image_std, pool_strategy: str,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.device = device
         self.pool_strategy = pool_strategy
+        self.mesh = mesh
         self._mean = torch.tensor(image_mean, dtype=torch.float32, device=device)
         self._std = torch.tensor(image_std, dtype=torch.float32, device=device)
 
@@ -188,7 +192,11 @@ class _TowerBackend:
             x = (true_div(x.float(), 255.0) - self._mean) / self._std
         return x.to(dtype)
 
-    def pooled(self, out: dict) -> np.ndarray:
+    def split(self, batch) -> tuple[np.ndarray, int]:
+        """This replica's block of the batch and the real count."""
+        return split_batch(np.asarray(batch), self.mesh)
+
+    def pooled(self, out: dict, n: Optional[int] = None) -> np.ndarray:
         seq = out["last_hidden_state"]
         if self.pool_strategy == "mean":
             pooled = seq.mean(1)
@@ -196,7 +204,7 @@ class _TowerBackend:
             pooled = seq.amax(1)
         else:
             pooled = out["pooled"]
-        return pooled.float().cpu().numpy()
+        return gather_batch(pooled.float(), self.mesh, n).cpu().numpy()
 
 
 class TorchSigLIPBackend(_TowerBackend):
@@ -205,9 +213,9 @@ class TorchSigLIPBackend(_TowerBackend):
     tower is held to."""
 
     def __init__(self, tower, dtype: str = "bfloat16", image_mean=(0.5, 0.5, 0.5),
-                 image_std=(0.5, 0.5, 0.5), pool_strategy: str = "mean"):
+                 image_std=(0.5, 0.5, 0.5), pool_strategy: str = "mean", mesh=None):
         super().__init__(image_mean, image_std, pool_strategy,
-                         next(tower.parameters()).device)
+                         next(tower.parameters()).device, mesh)
         self.tower = tower
         self._dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
@@ -217,10 +225,11 @@ class TorchSigLIPBackend(_TowerBackend):
         is rounded to the backend's type and the tower computes in the
         promoted type of that and its weights, as Flax promotes: an f32
         tower (the trained mini-SigLIP) runs bf16-rounded pixels in f32."""
+        batch, n = self.split(batch)
         x = self.normalize(batch, self._dtype)
         x = x.to(torch.promote_types(x.dtype, next(self.tower.parameters()).dtype))
         out = self.tower(x, pool=self.pool_strategy == "cls")
-        return None, self.pooled(out)
+        return None, self.pooled(out, n)
 
 
 def noise_pixels(n: int, size: int, device) -> torch.Tensor:
@@ -262,9 +271,9 @@ class FusedSigLIPBackend(_TowerBackend):
 
     def __init__(self, tower, *, calib_pixels, image_mean=(0.5, 0.5, 0.5),
                  image_std=(0.5, 0.5, 0.5), pool_strategy: str = "mean",
-                 packed_attention: bool = False):
+                 packed_attention: bool = False, mesh=None):
         device = next(tower.parameters()).device
-        super().__init__(image_mean, image_std, pool_strategy, device)
+        super().__init__(image_mean, image_std, pool_strategy, device, mesh)
         self.tower = tower
         self.config = tower.config
         if torch.is_tensor(calib_pixels) or isinstance(calib_pixels, np.ndarray):
@@ -276,16 +285,18 @@ class FusedSigLIPBackend(_TowerBackend):
 
     @torch.inference_mode()
     def __call__(self, batch: np.ndarray) -> tuple[None, np.ndarray]:
+        batch, n = self.split(batch)
         out = siglip_fused_apply(self.fused, self.normalize(batch, torch.bfloat16),
                                  self.config, pool=self.pool_strategy == "cls")
-        return None, self.pooled(out)
+        return None, self.pooled(out, n)
 
 
-def build_vision_backend(tower, config: NaFlexConfig):
+def build_vision_backend(tower, config: NaFlexConfig, mesh=None):
     """:class:`FusedSigLIPBackend` (calibrated on :func:`calibration_pixels`)
-    or :class:`TorchSigLIPBackend` per ``config.quant_fused``."""
+    or :class:`TorchSigLIPBackend` per ``config.quant_fused``; ``mesh``
+    encodes data-parallel."""
     kw = dict(image_mean=config.image_mean, image_std=config.image_std,
-              pool_strategy=config.pool_strategy)
+              pool_strategy=config.pool_strategy, mesh=mesh)
     if config.quant_fused:
         calib = calibration_pixels(config, tower.config.image_size,
                                    next(tower.parameters()).device)
@@ -310,19 +321,19 @@ class SigLIPSemanticEncoder:
 
     @classmethod
     def from_hf_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None,
-                           device: str | torch.device = "cuda"):
+                           device: str | torch.device = "cuda", mesh=None):
         """An HF ``SiglipVisionModel`` directory's tower on ``device``
         (``transformers`` imported by the loader only), served as
         :meth:`from_tower_state` serves it."""
         from gvl_tpu_torch.models.siglip import load_hf_siglip
 
         vision_config, state = load_hf_siglip(path)
-        return cls.from_tower_state(vision_config, state, config, device)
+        return cls.from_tower_state(vision_config, state, config, device, mesh)
 
     @classmethod
     def from_tower_state(cls, vision_config: SigLIPVisionConfig, state: dict,
                          config: Optional[NaFlexConfig] = None,
-                         device: str | torch.device = "cuda"):
+                         device: str | torch.device = "cuda", mesh=None):
         """The tower of a converted state dict (f32, as an HF checkpoint
         converts) behind the backend ``config`` asks for: the fused W8A8
         tower with ``quant_fused``, the dynamic W8A8 tower with
@@ -332,11 +343,11 @@ class SigLIPSemanticEncoder:
         device = resolve_device(device)
         vcfg, state = _maybe_quantize_tower(vision_config, state, config)
         tower = load_tower(vcfg, state, device)
-        return cls(config, backend=build_vision_backend(tower, config))
+        return cls(config, backend=build_vision_backend(tower, config, mesh))
 
     @classmethod
     def from_trained_checkpoint(cls, path: str, config: Optional[NaFlexConfig] = None,
-                                device: str | torch.device = "cuda"):
+                                device: str | torch.device = "cuda", mesh=None):
         """The self-trained mini-SigLIP directory (``outputs/minisiglip``):
         region embeddings in its learned image-text space, whose contrastive
         side is the MAP-pooled output, so pooling is forced to 'cls' and
@@ -351,12 +362,13 @@ class SigLIPSemanticEncoder:
         config.region_resolution = vision_cfg.image_size
         vcfg, state = _maybe_quantize_tower(vision_cfg, model.vision.state_dict(), config)
         tower = model.vision if vcfg is vision_cfg else load_tower(vcfg, state, device)
-        return cls(config, backend=build_vision_backend(tower, config))
+        return cls(config, backend=build_vision_backend(tower, config, mesh))
 
     @classmethod
     def with_random_tower(cls, config: Optional[NaFlexConfig] = None,
                           device: str | torch.device = "cuda", seed: int = 0,
-                          vision_config: Optional[SigLIPVisionConfig] = None):
+                          vision_config: Optional[SigLIPVisionConfig] = None,
+                          mesh=None):
         """The so400m tower (or ``vision_config``) on random weights drawn
         from a ``torch.Generator`` seeded with ``seed``: the whole compute
         path without a checkpoint (embeddings are meaningless)."""
@@ -368,7 +380,7 @@ class SigLIPSemanticEncoder:
         state = init_tower_params(vcfg, gen, dtype=dtype, device=device)
         vcfg, state = _maybe_quantize_tower(vcfg, state, config)
         tower = load_tower(vcfg, state, device)
-        return cls(config, backend=build_vision_backend(tower, config))
+        return cls(config, backend=build_vision_backend(tower, config, mesh))
 
     # ------------------------------------------------------------ encoding
 

@@ -9,15 +9,31 @@ repository's own format, ``qa_lm_config.json`` + ``params.npz``) or an HF
 ``Qwen3ForCausalLM`` directory and serves it through the
 continuous-batching engine (``POST /generate``, ``POST /chat``);
 ``--int8`` quantizes its weights per output channel (weight-only) first.
-An HF directory without a tokenizer serves ``prompt_ids`` only.  Not
-ported, and refused: ``--tp`` / ``--dp`` above 1 (ROADMAP A12).
+An HF directory without a tokenizer serves ``prompt_ids`` only.
+
+``--tp`` / ``--dp`` serve the model tensor- and data-parallel over a
+``(dp, tp)`` mesh, one process per rank::
+
+    torchrun --nproc-per-node <dp*tp> -m gvl_tpu_torch.scripts.deploy_api \\
+        --tp 2 --dp 1 --llm-checkpoint outputs/qa_lm
+
+Rank 0 serves HTTP; the other ranks follow the batching engine's steps
+(:meth:`~gvl_tpu_torch.serving.batch_engine.ContinuousBatchingEngine.follow`)
+until rank 0 stops (SIGTERM or SIGINT to rank 0 ends every rank).  The
+mesh is fitted to the world's size as JAX fits it to the attached devices;
+the backend follows the layout (NCCL with a card per rank, gloo when ranks
+share a card).  Without a distributed launch, ``--tp`` / ``--dp`` above 1
+raise, naming the launch line.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import logging
+import os
+import signal
 
 from gvl_tpu_torch.config import load_preset
 from gvl_tpu_torch.serving.api import InferenceService, create_server
@@ -25,23 +41,41 @@ from gvl_tpu_torch.serving.api import InferenceService, create_server
 logger = logging.getLogger(__name__)
 
 
+def _mesh(tp: int, dp: int, device):
+    """The ``(dp, tp)`` mesh of a distributed launch (None for 1 x 1);
+    raises without one."""
+    from gvl_tpu_torch.parallel.mesh import MeshManager, build_mesh, init_distributed
+
+    if tp <= 1 and dp <= 1:
+        return None
+    # an idle server waits on rank 0 for hours: no collective timeout
+    if not init_distributed(device=device, timeout=datetime.timedelta(days=365)):
+        raise RuntimeError(
+            f"--tp {tp} / --dp {dp} need one process per rank; launch with: "
+            f"torchrun --nproc-per-node {dp * tp} -m gvl_tpu_torch.scripts.deploy_api "
+            f"--tp {tp} --dp {dp} --llm-checkpoint <dir>")
+    mesh = MeshManager(build_mesh(data=dp, model=tp))
+    logger.info("LLM dp x tp serving over %s", mesh.describe())
+    return mesh
+
+
 def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
-                int8: bool = False, tp: int = 1, dp: int = 1) -> None:
+                int8: bool = False, mesh=None):
     """Load a QA-model checkpoint, or an HF Qwen3 checkpoint, on the
     service's device and serve it through the shared continuous-batching
     engine; ``int8`` quantizes the loaded weights per output channel
     (:func:`~gvl_tpu_torch.models.qwen3.quantize_int8`).  An HF directory's
     tokenizer serves string prompts; without one (a weights-only
-    checkpoint) ``/generate`` takes ``prompt_ids`` only, and EOS is 151645."""
+    checkpoint) ``/generate`` takes ``prompt_ids`` only, and EOS is 151645.
+    ``mesh``: serve ``/generate`` DP x TP; ``POST /chat`` then has no
+    sessions (they would run on rank 0 alone) and answers 400.  Returns the
+    engine."""
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID, ByteTokenizer
     from gvl_tpu_torch.models.qwen3 import load_hf_qwen3, quantize_int8
     from gvl_tpu_torch.models.session import Qwen3ChatSession
     from gvl_tpu_torch.serving import ContinuousBatchingEngine, EngineServer
     from gvl_tpu_torch.training.qa_lm_train import is_qa_lm_checkpoint, load_qa_lm
 
-    if tp > 1 or dp > 1:
-        raise NotImplementedError(
-            f"--tp {tp} / --dp {dp}: multi-device serving is not ported yet (ROADMAP A12)")
     device = service.device
     if is_qa_lm_checkpoint(checkpoint):
         config, state = load_qa_lm(checkpoint, device=device)
@@ -63,13 +97,32 @@ def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
         state = quantize_int8(state, config)
         config = dataclasses.replace(config, quant_int8=True, lora_rank=0)
     engine = ContinuousBatchingEngine(config, state, eos_token_id=eos,
-                                      num_slots=num_slots, device=device)
+                                      num_slots=num_slots, device=device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return engine            # a follower serves no HTTP
 
     def session_factory():
         return Qwen3ChatSession(config, state, eos_token_id=eos, device=device)
 
     service.attach_engine(EngineServer(engine), tokenizer=tokenizer,
-                          session_factory=session_factory)
+                          session_factory=session_factory if mesh is None else None)
+    return engine
+
+
+class Follower:
+    """What a rank other than 0 serves: the engine's steps, as rank 0
+    runs them."""
+
+    server_address = None
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def serve_forever(self) -> None:
+        self.engine.follow()
+
+    def server_close(self) -> None:
+        pass
 
 
 def build_server(argv=None):
@@ -91,36 +144,70 @@ def build_server(argv=None):
     parser.add_argument("--int8", action="store_true",
                         help="weight-only int8 quantize the LLM after load")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (not ported: above 1 raises)")
+                        help="tensor-parallel degree: shard the LLM over this many "
+                             "ranks (one process each, under torchrun)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel replicas (not ported: above 1 raises)")
+                        help="data-parallel replicas: decode slots shard over the mesh's "
+                             "data axis (num-slots must divide over dp)")
     parser.add_argument("--device", default="cuda",
                         help="where the models run: cuda (default; raises without a "
                              "card) or cpu")
     args = parser.parse_args(argv)
     from gvl_tpu_torch import resolve_device
 
-    service = InferenceService(load_preset(args.preset), device=resolve_device(args.device))
+    mesh = _mesh(args.tp, args.dp, args.device)
+    if mesh is not None and not args.llm_checkpoint:
+        raise ValueError(f"--tp {args.tp} / --dp {args.dp} shard the LLM: pass "
+                         "--llm-checkpoint")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    service = InferenceService(load_preset(args.preset), device=device)
+    engine = None
     if args.llm_checkpoint:
-        _attach_llm(service, args.llm_checkpoint, args.num_slots, int8=args.int8,
-                    tp=args.tp, dp=args.dp)
-    elif args.tp > 1 or args.dp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp} / --dp {args.dp}: multi-device serving is not ported yet "
-            "(ROADMAP A12)")
-    return create_server(args.host, args.port, service)
+        engine = _attach_llm(service, args.llm_checkpoint, args.num_slots,
+                             int8=args.int8, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return Follower(engine)
+    server = create_server(args.host, args.port, service)
+    server.engine = engine
+    return server
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    from gvl_tpu_torch.parallel.mesh import shutdown_distributed
+
     server = build_server(argv)
+    if isinstance(server, Follower):
+        server.serve_forever()
+        shutdown_distributed()
+        return 0
     host, port = server.server_address[:2]
-    logger.info("serving on %s:%d", host, port)
+    # SIGTERM ends rank 0 as Ctrl-C does, so that its followers are released
+    signal.signal(signal.SIGTERM, _interrupt)
+    logger.info("serving on %s:%d (pid %d)", host, port, os.getpid())
     try:
         server.serve_forever()
+    except KeyboardInterrupt:
+        logger.info("stopping")
     finally:
         server.server_close()
+        stop_engine(server)
+        shutdown_distributed()
     return 0
+
+
+def stop_engine(server) -> None:
+    """Stop the engine's driver and release the followers (rank 0)."""
+    engine = getattr(server, "engine", None)
+    engine_server = getattr(server.service, "_engine_server", None)
+    if engine_server is not None:
+        engine_server.shutdown()
+    if engine is not None:
+        engine.release_followers()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,20 @@ Inactive slots run in the step as in the JAX engine: each writes one row
 at its length, and its length is then set back, so what they hold is
 unchanged and the active slots' numbers do not depend on them.  Lengths
 live on the host; each step reads its tokens back from the device once.
+
+``mesh=`` serves DP x TP in lockstep (the JAX engine's one sharded program,
+written out on ``torch.distributed``): every rank runs the same steps.  The
+slots shard over ``data`` (replica ``d`` holds slots ``d * S/D`` to
+``(d+1) * S/D - 1`` in its cache and advances them), the weights over
+``model`` (:mod:`gvl_tpu_torch.models.qwen3`).  Rank 0 holds the queue:
+each step starts with rank 0 broadcasting the requests submitted since the
+last one (:func:`~gvl_tpu_torch.parallel.collectives.broadcast_objects`),
+so every rank admits alike and keeps every slot's host state; after each
+admission and each decode step the tokens are gathered over ``data``.
+Every rank draws every slot's random numbers from its own copy of the
+engine's generator and keeps its own slots' samples, so sampled streams
+are the unsharded engine's.  Ranks other than 0 run :meth:`follow` until
+rank 0 calls :meth:`release_followers`.
 """
 
 from __future__ import annotations
@@ -32,6 +46,8 @@ from gvl_tpu_torch.models.qwen3 import (
     load_model,
     sample_logits,
 )
+from gvl_tpu_torch.parallel.collectives import all_gather_cat, broadcast_objects
+from gvl_tpu_torch.parallel.mesh import as_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -74,9 +90,17 @@ class ContinuousBatchingEngine:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh=) is not ported yet (ROADMAP A12)")
+        self.mesh = mesh = as_mesh(mesh)
+        data_size = 1 if mesh is None else mesh.shape["data"]
+        if num_slots % data_size:
+            raise ValueError(
+                f"num_slots={num_slots} must divide over the data "
+                f"axis ({data_size})")
+        # this replica's slots: [lo, hi)
+        local = num_slots // data_size
+        self._lo = 0 if mesh is None else mesh.data_index * local
+        self._hi = self._lo + local
+        self._lockstep = mesh is not None and mesh.data_group is not None
         self.config = config
         self.eos_token_id = eos_token_id
         self.num_slots = num_slots
@@ -85,11 +109,12 @@ class ContinuousBatchingEngine:
         self._sampling = (float(temperature), float(top_p), int(top_k))
         # one generator for the engine, seeded 0 unless given (JAX: one key)
         self._generator = call_generator(generator, self.device)
-        self.model = load_model(config, state_dict, self.device)
+        self.model = load_model(config, state_dict, self.device, mesh)
         # the same weights, with multi-token chunks attending at the offset
         self._chunk_model = load_model(
             dataclasses.replace(config, chunk_verify=True),
-            self.model.state_dict(), self.device)
+            self.model.state_dict(), self.device, mesh)
+        self._submitted: list[Request] = []   # since the last step (lockstep)
 
         self.reset_cache()   # the cache and the per-slot state
         self._queue: list[Request] = []
@@ -121,7 +146,53 @@ class ContinuousBatchingEngine:
                           session_key=session_key)
         self._requests[request.request_id] = request
         self._queue.append(request)
+        self._submitted.append(request)
         return request.request_id
+
+    # ------------------------------------------------------------ lockstep
+
+    def _sync(self, stop: bool = False) -> bool:
+        """Rank 0's submissions since the last step on every rank (a
+        rank's own submissions, when every rank submitted alike, are the
+        same requests under the same ids).  Returns False once rank 0 has
+        released the followers."""
+        if not self._lockstep:
+            return True
+        import torch.distributed as dist
+
+        sent = [dataclasses.replace(r, tokens=[]) for r in self._submitted]
+        stop, sent = broadcast_objects((stop, sent))
+        self._submitted = []
+        if dist.get_rank() != 0:
+            for request in sent:
+                if request.request_id not in self._requests:
+                    self._requests[request.request_id] = request
+                    self._queue.append(request)
+            ids = [r.request_id for r in self._requests.values()]
+            self._ids = itertools.count(max(ids, default=-1) + 1)
+        return not stop
+
+    def follow(self) -> None:
+        """A rank other than 0: run every step rank 0 runs, until it calls
+        :meth:`release_followers`."""
+        while self._tick():
+            pass
+
+    def release_followers(self) -> None:
+        """Rank 0: end the followers' :meth:`follow` (call once no step
+        can run any more)."""
+        if self._lockstep:
+            self._sync(stop=True)
+
+    def _gather_tokens(self, local: list[int]) -> list[int]:
+        """Every replica's tokens, in slot order, on every rank."""
+        if not self._lockstep:
+            return local
+        t = torch.tensor(local, dtype=torch.int64, device=self.device)
+        return all_gather_cat(t, 0, self.mesh.data_group).tolist()
+
+    def _owns(self, slot: int) -> bool:
+        return self._lo <= slot < self._hi
 
     def _bucket(self, n: int) -> int:
         for b in self.DELTA_BUCKETS:
@@ -146,18 +217,27 @@ class ContinuousBatchingEngine:
     @torch.inference_mode()
     def _prefill(self, slot: int, delta: list[int]) -> int:
         """The delta as one padded chunk at the slot's offset; returns the
-        first sampled token (the one read back of an admission)."""
-        cache = self.cache.slot(slot)       # views: writes land in self.cache
-        offset = cache.length
+        first sampled token (the one read back of an admission).  Under a
+        mesh only the slot's replica runs the chunk; every rank draws the
+        sample's random numbers."""
+        offset = self._lengths[slot]
+        temperature, top_p, top_k = self._sampling
+        if not self._owns(slot):
+            # the same draws as the owner's, on a stand-in row
+            sample_logits(torch.zeros(1, self.config.vocab_size, device=self.device),
+                          self._generator, temperature, top_p, top_k)
+            self._lengths[slot] = offset + len(delta)
+            return -1
+        cache = self.cache.slot(slot - self._lo)   # views: writes land in self.cache
+        cache.lengths = [offset]
         size = self._bucket(len(delta))
         tokens = torch.tensor([delta + [0] * (size - len(delta))],
                               device=self.device)
         positions = torch.arange(offset, offset + size, device=self.device)
         logits, _ = self._chunk_model(tokens, positions=positions, cache=cache)
-        temperature, top_p, top_k = self._sampling
         token = sample_logits(logits[:, len(delta) - 1], self._generator,
                               temperature, top_p, top_k)
-        self.cache.lengths[slot] = offset + len(delta)
+        self._lengths[slot] = offset + len(delta)
         return int(token[0])
 
     def _admit(self) -> None:
@@ -190,16 +270,18 @@ class ContinuousBatchingEngine:
                     reuse = False
             if not reuse:
                 # fresh slot: offset 0 (stale rows are masked and overwritten)
-                self.cache.lengths[slot] = 0
+                self._lengths[slot] = 0
                 cached = []
             delta = prompt[len(cached):]
             if not delta:       # the prompt is the cached transcript exactly
                 delta = prompt[-1:]
                 cached = cached[:-1]
-                self.cache.lengths[slot] = len(cached)
+                self._lengths[slot] = len(cached)
             try:
                 token = self._prefill(slot, delta)
             except Exception as exc:  # noqa: BLE001 — attribute to request
+                if self._lockstep:
+                    raise    # the other replicas cannot tell: no rank goes on alone
                 # the failure belongs to this request; the other slots'
                 # prefixes are untouched (the chunk writes only rows past
                 # this slot's offset), so only this slot's reservation goes
@@ -207,10 +289,14 @@ class ContinuousBatchingEngine:
                                  request.request_id)
                 request.error = f"prefill failed: {exc!r}"
                 request.done = True
-                self.cache.lengths[slot] = 0
+                self._lengths[slot] = 0
                 self._slot_session[slot] = None
                 self._slot_cached[slot] = []
                 continue
+            if self._lockstep:
+                # the owner's token, from its replica's entry
+                local = self.num_slots // self.mesh.shape["data"]
+                token = self._gather_tokens([token])[slot // local]
             request.prefilled = len(delta)
             request.slot = slot
             self._slot_req[slot] = request
@@ -224,8 +310,9 @@ class ContinuousBatchingEngine:
         """Rebuild the KV cache and slot state from scratch (the recovery
         path after a failed step; sessions lose their prefixes and
         re-prefill)."""
-        self.cache = KVCache.zeros(self.config, self.num_slots, dtype=self.dtype,
-                                   device=self.device)
+        self.cache = KVCache.zeros(self.config, self._hi - self._lo, dtype=self.dtype,
+                                   device=self.device, mesh=self.mesh)
+        self._lengths: list[int] = [0] * self.num_slots   # every slot's, on the host
         self._slot_req: list[Optional[Request]] = [None] * self.num_slots
         self._slot_cached: list[list[int]] = [[] for _ in range(self.num_slots)]
         self._slot_session: list[Optional[str]] = [None] * self.num_slots
@@ -244,40 +331,60 @@ class ContinuousBatchingEngine:
         else:
             self._last_token[request.slot] = token
 
-    @torch.inference_mode()
     def step(self) -> dict[int, int]:
         """Admit queued work, run one batched decode step.
 
         Returns {request_id: token} for tokens produced this step.
         """
+        produced: dict[int, int] = {}
+        self._tick(produced)
+        return produced
+
+    @torch.inference_mode()
+    def _tick(self, produced: Optional[dict] = None) -> bool:
+        """One step (a follower's too); False when rank 0 has released the
+        followers."""
+        if not self._sync():
+            return False
+        produced = {} if produced is None else produced
         self._admit()
         active = [r is not None for r in self._slot_req]
         if not any(active):
-            return {}
+            return True
         # the token fed this step enters each active slot's cache
         for slot, request in enumerate(self._slot_req):
             if request is not None:
                 self._slot_cached[slot].append(self._last_token[slot])
+        lo, hi = self._lo, self._hi
+        self.cache.lengths = self._lengths[lo:hi]
         lengths = self.cache.lengths_tensor(self.device)
-        tokens = torch.tensor(self._last_token, dtype=torch.int64)
+        tokens = torch.tensor(self._last_token[lo:hi], dtype=torch.int64)
         if self.device.type != "cpu":
             tokens = tokens.to(self.device, non_blocking=True)
         logits, _ = self.model(tokens[:, None], positions=lengths[:, None],
                                cache=self.cache)
         temperature, top_p, top_k = self._sampling
-        nxt = sample_logits(logits[:, -1], self._generator, temperature, top_p,
-                            top_k).tolist()
+        if hi - lo < self.num_slots:
+            # every slot's random numbers: this replica's rows in place,
+            # stand-in rows elsewhere, whose samples are dropped
+            rows = torch.zeros(self.num_slots, logits.shape[-1], dtype=logits.dtype,
+                               device=self.device)
+            rows[lo:hi] = logits[:, -1]
+            local = sample_logits(rows, self._generator, temperature, top_p,
+                                  top_k)[lo:hi]
+            nxt = self._gather_tokens(local.tolist())
+        else:
+            nxt = sample_logits(logits[:, -1], self._generator, temperature, top_p,
+                                top_k).tolist()
         # only active slots advance: the others' rows past their lengths
         # are masked and overwritten later
-        self.cache.lengths = [n if on else n - 1
-                              for n, on in zip(self.cache.lengths, active)]
-        produced: dict[int, int] = {}
+        self._lengths = [n + 1 if on else n for n, on in zip(self._lengths, active)]
         for slot, request in enumerate(list(self._slot_req)):
             if request is None:
                 continue
             produced[request.request_id] = nxt[slot]
             self._record_token(request, nxt[slot])
-        return produced
+        return True
 
     @property
     def has_work(self) -> bool:

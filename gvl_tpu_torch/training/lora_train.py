@@ -5,8 +5,10 @@ the prompt tokens masked out of the loss, r=32/alpha=64 on all seven
 projection targets, lr 2e-5, the mean of 8 gradients per update.  Only the
 ``lora_a``/``lora_b`` pairs take gradients; every other tensor keeps its
 bits.  Adapters are saved in the JAX package's npz layout (the parameter
-paths of its tree), so either package merges them.  Not ported: the
-data-parallel mesh (ROADMAP A12).
+paths of its tree), so either package merges them.  ``mesh=`` is taken
+and kept as JAX's trainer keeps it, and read nowhere (ROADMAP C17): the
+data-parallel step lives in ``gvl_tpu_torch.entry.dryrun_multichip``, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -82,12 +84,6 @@ def adapter_arrays(state_dict: dict, config: Qwen3Config) -> dict[str, np.ndarra
             for name, t in state_dict.items() if lora_mask({name: t})[name]}
 
 
-def mesh_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel meshes are not ported to gvl_tpu_torch (ROADMAP A12)")
-
-
 class LoraTrainer:
     """SFT loop updating only the LoRA pairs of a frozen base model.
 
@@ -106,12 +102,12 @@ class LoraTrainer:
         mesh=None,
         device="cuda",
     ):
-        mesh_unported(mesh)
         if model_config.lora_rank <= 0:
             raise ValueError(
                 "model must be built with lora_rank > 0 for LoRA training"
             )
         self.model_config = model_config
+        self.mesh = mesh      # stored and not read, as JAX's (ROADMAP C17)
         self.device = resolve_device(device)
         self.model = training_model(model_config, params, self.device)
         self.tokenize = tokenize

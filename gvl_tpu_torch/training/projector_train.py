@@ -11,7 +11,7 @@ norm calibration toward sqrt(llm_dim) (``norm``).  Samples are batched per
 modality; each modality's head has its own optimizer state.  Writes the
 reference-layout ``projector_weights.pt`` at the best epoch loss, which
 :meth:`~gvl_tpu_torch.models.projector.ProjectorBank.load_weights` reads.
-Not ported: the data-parallel mesh (ROADMAP A12).
+``mesh=`` is kept and read nowhere, as in JAX (ROADMAP C17).
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from gvl_tpu_torch import resolve_device
 from gvl_tpu_torch.agent.config import ReasoningCoreConfig
 from gvl_tpu_torch.models.projector import MODALITY_DIMS, ProjectorBank
 from gvl_tpu_torch.training import optim
-from gvl_tpu_torch.training.lora_train import mesh_unported
 from gvl_tpu_torch.training.qa_lm_train import masked_ce
 
 logger = logging.getLogger(__name__)
@@ -207,7 +206,7 @@ class ProjectorTrainer:
         mesh=None,
         device="cuda",
     ):
-        mesh_unported(mesh)
+        self.mesh = mesh      # stored and not read, as JAX's (ROADMAP C17)
         self.config = config or ProjectorTrainingConfig()
         self.device = resolve_device(device)
         self.reasoning_config = reasoning_config or ReasoningCoreConfig(

@@ -245,7 +245,9 @@ def test_deploy_api_serves_metrics_and_generate(tiny_qa, int8):
     (["--llm-checkpoint", "{qa}", "--tp", "2"], "A12"),
 ])
 def test_deploy_api_refusals(tmp_path, tiny_qa, argv, label):
-    """``--tp`` / ``--dp`` above 1 are refused (ROADMAP A12).  The HF cases
+    """``--tp`` / ``--dp`` above 1 (ROADMAP A12, ported) need one process
+    per rank: without a distributed launch they raise, naming the torchrun
+    line (served under one: ``tests/test_torch_multichip.py``).  The HF cases
     (ROADMAP A10, whose reasoning half is ported) load the directory, whose
     bare ``config.json`` fails in ``transformers`` with the error JAX's
     script meets there (HF directories that load: ``tests/test_torch_hf_qwen3.py``)."""
@@ -262,5 +264,5 @@ def test_deploy_api_refusals(tmp_path, tiny_qa, argv, label):
             deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])
         assert str(got.value) == str(want.value)
         return
-    with pytest.raises(NotImplementedError, match=label):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
         deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])

@@ -1551,3 +1551,34 @@ def test_perception_trainer_kernel_path_matches_plain(dev, name):
     torch.backends.cudnn.allow_tf32 = False
     case = next(c for c in chip_smoke.perception_trainer_cases(dev) if c.name == name)
     chip_smoke.kernel_against_plain(case, case.init(), case.batch(), dev)
+
+
+def test_nccl_one_rank_tensor_parallel_is_bit_equal(dev, tmp_path):
+    """A world of one rank over NCCL (a ``file://`` store): the decoder at a
+    1 x 1 mesh, whose collectives run and sum one rank, gives the unsharded
+    engine's logits bit for bit, prefill and greedy steps alike."""
+    from gvl_tpu_torch.parallel.mesh import (
+        MeshManager,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    init_distributed(init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+                     local_rank=0, local_world_size=1, device="cuda")
+    try:
+        mm = MeshManager(build_mesh(1, 1))
+        assert mm.backend == "nccl"
+        cfg = Qwen3Config.tiny(num_heads=8, num_kv_heads=4, head_dim=128, hidden_size=256,
+                               max_cache_length=256)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        alone = Qwen3Engine(cfg, params, eos_token_id=-1, device=dev)
+        meshed = Qwen3Engine(cfg, params, eos_token_id=-1, device=dev, mesh=mm)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 40), device=dev)
+        with torch.inference_mode():
+            assert torch.equal(meshed.model(tokens)[0], alone.model(tokens)[0])
+        prompt = tokens[0].tolist()
+        assert meshed.generate(prompt, max_new_tokens=8, temperature=0.0) == \
+            alone.generate(prompt, max_new_tokens=8, temperature=0.0)
+    finally:
+        shutdown_distributed()

@@ -92,7 +92,9 @@ for name in ("gvl_tpu_torch.models.session", "gvl_tpu_torch.models.speculative",
              "gvl_tpu_torch.scripts.train_segmenter", "gvl_tpu_torch.scripts.train_ocr",
              "gvl_tpu_torch.scripts.train_audio_events", "gvl_tpu_torch.scripts.train_asr",
              "gvl_tpu_torch.scripts.train_siglip", "gvl_tpu_torch.scripts.train_retriever",
-             "gvl_tpu_torch.scripts.train_videomae", "gvl_tpu_torch.scripts.train_hico"):
+             "gvl_tpu_torch.scripts.train_videomae", "gvl_tpu_torch.scripts.train_hico",
+             "gvl_tpu_torch.parallel.mesh", "gvl_tpu_torch.parallel.sharding",
+             "gvl_tpu_torch.parallel.collectives", "gvl_tpu_torch.ops.ring_attention"):
     assert name in names, name
 import chip_smoke
 import launch_costs

@@ -212,7 +212,8 @@ def test_unported_options_raise(tmp_path):
     do SigLIP, VideoMAE and HiCo (the trained HiCo file).  An HF LLM
     checkpoint (A10's reasoning half, ported) is loaded as JAX loads it; one
     without weights raises JAX's error.  More than one device for the LLM
-    still raises, naming A12."""
+    (ROADMAP A12, ported) needs a distributed launch: without one it raises,
+    naming the torchrun line."""
     from gvl_tpu_torch.scripts import deploy_api
 
     jcfg, tcfg = _tiny_presets(None)
@@ -252,7 +253,7 @@ def test_unported_options_raise(tmp_path):
     assert str(got.value) == str(want.value)
     for argv, label in ((["--tp", "2"], "A12"), (["--dp", "2"], "A12"),
                         (["--llm-checkpoint", str(hf), "--tp", "2"], "A12")):
-        with pytest.raises(NotImplementedError, match=label):
+        with pytest.raises(RuntimeError, match=f"torchrun .*{argv[-2]}"):
             deploy_api.build_server(["--port", "0", "--device", "cpu", *argv])
 
 

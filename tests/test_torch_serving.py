@@ -180,8 +180,18 @@ def test_submit_limits_and_unported_mesh(tiny):
     with pytest.raises(ValueError, match="max_cache_length"):
         engine.submit(list(range(60)), max_new_tokens=8)
     engine.submit([1, 2, 3], max_new_tokens=tcfg.max_cache_length - 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ContinuousBatchingEngine(tcfg, state, mesh=object(), **F32)
+    # the mesh (ROADMAP A12, ported): slots must divide over data, as in JAX;
+    # a 1 x 1 mesh outside a world serves as no mesh does (DP x TP worlds:
+    # tests/test_torch_tensor_parallel.py)
+    from gvl_tpu_torch.parallel.mesh import Mesh, build_mesh
+
+    with pytest.raises(ValueError, match="divide over the data"):
+        ContinuousBatchingEngine(tcfg, state, num_slots=3, mesh=Mesh(
+            {"data": 2, "model": 1}, 0, torch.device("cpu")), **F32)
+    meshed = ContinuousBatchingEngine(tcfg, state, num_slots=2,
+                                      mesh=build_mesh(1, 1, device="cpu"), **F32)
+    assert meshed.generate_many(PROMPTS[:2], 4) == [
+        _single(tcfg, state, p, 4) for p in PROMPTS[:2]]
 
 
 # ------------------------------------------------------------ engine server
