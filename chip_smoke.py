@@ -5280,6 +5280,7 @@ MESH_QA_PROMPTS = 8          # phase 5's first prompts, on QA_SLOTS slots
 MESH_RING_SHAPE = (1, 8, 8192, 128)   # [B, H, S, D] bf16, S split over 2 ranks
 MESH_FRAMES = 8
 MESH_DEPLOY_S = 120          # torchrun's two processes serving
+MESH_TAIL = [11, 12, 13]     # a next turn's new tokens after an answer (8B session)
 # TP 2 at bf16: the all-reduce sums two bf16 partial products in another
 # order and rounds each once more, a change of the size of bf16's own
 # rounding; so the sharded bf16 logits may stray from the unsharded bf16
@@ -5585,7 +5586,207 @@ def mesh_qa(meshes: dict, rank: int, prompts) -> dict:
         del engine
     del state
     torch.cuda.empty_cache()
-    return {"rows": rows, "launches": launched}
+    return {"rows": rows, "launches": launched, "want": want}
+
+
+def mesh_session(mm, rank: int) -> dict:
+    """A chat session's three turns through the batching engine's lockstep
+    turns (``submit_turn``, ``POST /chat`` under a mesh) at TP 2 on the 8B
+    geometry, depth 4, f32 weights and the bf16 cache: each turn's tokens
+    and prefilled count equal to the unsharded session's on rank 0; per turn
+    and rank B6 once a layer for the delta, B2 = B3 once a layer and decode
+    step; decode ms a step from the difference of turns 3 (2 x MESH_STEPS)
+    and 2 (MESH_STEPS), both prefilling a delta of len(MESH_TAIL).  Rank 0
+    times the unsharded session first, while rank 1 waits at a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    from gvl_tpu_torch.entry import flagship_config
+    from gvl_tpu_torch.models.qwen3 import init_params
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+
+    dev = mm.device
+    cfg = flagship_config()
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(MESH_SEED),
+                       dtype=torch.float32, device=dev)
+    prompt = mesh_prompt(cfg).tolist()
+    steps = (MESH_STEPS, MESH_STEPS, 2 * MESH_STEPS)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - start)
+
+    def turns(run_turn) -> list:
+        """(tokens, prefilled, ms, launches) of each turn, the transcript
+        growing by the answer and MESH_TAIL."""
+        rows, ids = [], prompt
+        for i, n in enumerate(steps):
+            if i:
+                ids = ids + rows[-1][0] + MESH_TAIL
+            reset_launches()
+            (tokens, prefilled), ms = timed(lambda: run_turn(ids, n))
+            rows.append((tokens, prefilled, ms, kernel_launches()))
+        return rows
+
+    out = {}
+    dist.barrier()
+    if rank == 0:
+        alone = Qwen3ChatSession(cfg, full, eos_token_id=-1, device=dev)
+
+        def alone_turn(ids, n):
+            return alone.generate(ids, max_new_tokens=n, temperature=0.0), \
+                alone.last_ingested
+
+        with uncounted():
+            alone_turn(prompt[:16], 2)
+            alone.reset()
+            want = turns(alone_turn)
+        out.update(alone_turn_ms=[row[2] for row in want],
+                   alone_decode_ms=(want[2][2] - want[1][2]) / MESH_STEPS)
+        del alone
+        torch.cuda.empty_cache()
+    dist.barrier()
+    engine = ContinuousBatchingEngine(cfg, full, eos_token_id=-1, num_slots=2, device=dev,
+                                      mesh=mm)
+
+    def lockstep_turn(ids, n):
+        turn = engine.submit_turn("s", ids, n) if rank == 0 else None
+        engine.step()
+        if rank != 0:
+            return [], 0
+        if turn.error is not None:
+            raise AssertionError(f"mesh session: {turn.error}")
+        return turn.tokens, turn.prefilled
+
+    # one turn first: lazy kernel loads, allocator growth
+    with uncounted():
+        lockstep_turn(prompt[:16], 2)
+    got = turns(lockstep_turn)
+    if list(engine.sessions) != ["s"]:
+        raise AssertionError(f"mesh session: table {list(engine.sessions)}")
+    launched = {}
+    for i, (_, _, _, launches) in enumerate(got):
+        expected = {"chunk_attention": cfg.num_layers,
+                    "decode_attention": cfg.num_layers * steps[i],
+                    "cache_append": cfg.num_layers * steps[i]}
+        check_implied(f"mesh session turn {i + 1}", launches, expected)
+        for k, v in launches.items():
+            launched[k] = launched.get(k, 0) + v
+    out.update(turn_ms=[row[2] for row in got],
+               decode_ms=(got[2][2] - got[1][2]) / MESH_STEPS,
+               launches_per_turn=[{k: v for k, v in row[3].items() if v} for row in got],
+               launches=launched)
+    del engine
+    if rank == 0:
+        same = [g[:2] == w[:2] for g, w in zip(got, want)]
+        rank_log(rank, f"session TP 2 (8B geometry depth {cfg.num_layers}, f32 weights, "
+                 f"bf16 cache): 3 lockstep turns, tokens and prefilled "
+                 f"{[g[1] for g in got]} equal to the unsharded session's {same}; turn ms "
+                 f"{[round(r[2], 3) for r in got]} against {[round(r[2], 3) for r in want]}; "
+                 f"decode {out['decode_ms']:.3f} ms/step against "
+                 f"{out['alone_decode_ms']:.3f} unsharded; launches a turn "
+                 f"{out['launches_per_turn']}")
+        if not all(same) or got[1][1] != len(MESH_TAIL):
+            raise AssertionError("mesh session: the TP 2 turns differ from the unsharded "
+                                 "session's")
+    else:
+        rank_log(rank, f"session TP 2: turn ms {[round(r[2], 3) for r in got]}, decode "
+                 f"{out['decode_ms']:.3f} ms/step; launches a turn {out['launches_per_turn']}")
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_failures(mm, rank: int, prompts, want) -> dict:
+    """Failures at 2 x 1 on the QA model (QA_SLOTS slots): the third
+    request's prefill fails on its slot's replica only (rank 1: rank 0
+    learns it from the admission's gather), which fails that request alone
+    on both ranks; then, with rank 0's EngineServer driving and rank 1
+    following, a decode step fails on both ranks once two slots are live:
+    the live requests fail on both ranks, and the next requests give the
+    unsharded engine's answers (``want``, rank 0's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine, EngineServer
+    from gvl_tpu_torch.serving.engine_server import EngineError
+    from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
+
+    dev = mm.device
+    cfg, state = load_qa_lm(QA_CKPT, device=dev)
+    engine = ContinuousBatchingEngine(cfg, state, eos_token_id=EOS_ID, num_slots=QA_SLOTS,
+                                      device=dev, mesh=mm)
+    real, calls = engine._prefill, []
+
+    def flaky(slot, delta):
+        calls.append(slot)
+        if len(calls) == 3 and engine._owns(slot):
+            raise RuntimeError("injected prefill error")
+        return real(slot, delta)
+
+    engine._prefill = flaky
+    first, second = prompts[:4], prompts[4:8]
+    with uncounted():
+        ids = [engine.submit(p, QA_MAX_NEW) for p in first]
+        results = engine.run()
+        after = engine.generate_many(second, QA_MAX_NEW)
+    prefill_failed = [engine._requests[i].error is not None for i in ids]
+    out = {"prefill_failed": prefill_failed}
+    tripped = []
+
+    def trip(module, args):
+        if not tripped and sum(r is not None for r in engine._slot_req) >= 2:
+            tripped.append(1)
+            raise RuntimeError("injected device error")
+
+    engine.model.register_forward_pre_hook(trip)
+    with uncounted():
+        if rank == 0:
+            server = EngineServer(engine)
+
+            def generate(prompt):
+                try:
+                    return server.generate(prompt, QA_MAX_NEW)
+                except EngineError as exc:
+                    return str(exc)
+
+            try:
+                with ThreadPoolExecutor(4) as pool:
+                    streams = list(pool.map(generate, first))
+                with ThreadPoolExecutor(4) as pool:
+                    served = list(pool.map(generate, second))
+            finally:
+                server.shutdown()
+                engine.release_followers()
+        else:
+            engine.follow()
+    out["decode_failed"] = sorted(i for i, r in engine._requests.items() if r.error
+                                  and "injected device error" in r.error)
+    out["tripped"] = len(tripped)
+    if rank == 0:
+        kept = [results[i] == w for i, w, bad in zip(ids, want, prefill_failed) if not bad]
+        failed = [isinstance(s, str) for s in streams]
+        ok = (prefill_failed == [False, False, True, False] and all(kept)
+              and after == want[4:8] and tripped == [1] and any(failed)
+              and all(s == w for s, w, f in zip(streams, want, failed) if not f)
+              and served == want[4:8] and len(out["decode_failed"]) == sum(failed))
+        rank_log(rank, f"failures at 2 x 1: the prefill failed on rank 1 only fails its "
+                 f"request alone ({prefill_failed}), the other answers equal the unsharded "
+                 f"engine's {sum(kept)}/3, the run after {after == want[4:8]}; a decode "
+                 f"step failed on both ranks: {sum(failed)} live stream(s) failed, the next "
+                 f"4 answers equal the unsharded engine's {served == want[4:8]}")
+        if not ok:
+            raise AssertionError("mesh failures: not isolated as the unsharded engine "
+                                 "isolates them")
+    del engine, state
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_ring(mm, rank: int) -> dict:
@@ -5815,6 +6016,8 @@ def mesh_process(rank: int, store: str, workdir: str) -> int:
     out = {"describe": [tp.describe(), dp.describe()]}
     out["tp"] = mesh_tp(tp, rank)
     out["qa"] = mesh_qa({"2x1": dp, "1x2": tp}, rank, prompts)
+    out["session"] = mesh_session(tp, rank)
+    out["failures"] = mesh_failures(dp, rank, prompts, out["qa"].pop("want"))
     out["ring"] = mesh_ring(dp, rank)
     out["segmenter"] = mesh_segmenter(dp, rank)
     out["siglip"] = mesh_siglip(dp, rank)
@@ -5891,23 +6094,63 @@ class Deploy:
         self.sink.close()
 
 
-def mesh_deploy(dev, deploy: Deploy, four) -> None:
-    """4 concurrent POST /generate against the unsharded generate_many; then
-    SIGTERM to the serving rank, which releases its follower: both exit 0."""
+def stream_times(port: int, body: dict, times: list) -> None:
+    """Appends to ``times`` the arrival time (``perf_counter``) of each
+    token of ``POST /generate/stream`` as it comes."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/generate/stream", body=json.dumps(body))
+        resp = conn.getresponse()
+        while line := resp.readline():
+            if line.strip():
+                times.append(time.perf_counter())
+    finally:
+        conn.close()
+
+
+def mesh_deploy(dev, deploy: Deploy, prompts) -> None:
+    """4 concurrent POST /generate against the unsharded generate_many; two
+    sessions of two POST /chat turns each against the unsharded session on
+    the card (turn 2 prefills only its delta); how long a running /generate
+    stream stalls while a chat turn runs in the engine's step; then SIGTERM
+    to the serving rank, which releases its follower: both exit 0."""
     import os
     import signal
+    import threading
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
     from gvl_tpu_torch.serving import ContinuousBatchingEngine
     from gvl_tpu_torch.training.qa_lm_train import load_qa_lm
 
+    four = prompts[:4]
     cfg, state = load_qa_lm(QA_CKPT, device=dev)
     with uncounted():
         want = ContinuousBatchingEngine(cfg, state, eos_token_id=EOS_ID, num_slots=QA_SLOTS,
                                         device=dev).generate_many(four, QA_MAX_NEW)
+        # the sessions' turns, unsharded: (tokens, prefilled, ms) of each
+        want_chat = {}
+        for sid, first in (("s4", prompts[4]), ("s5", prompts[5])):
+            session = Qwen3ChatSession(cfg, state, eos_token_id=EOS_ID, device=dev)
+            session.generate(first[:64], max_new_tokens=2, temperature=0.0)  # warm
+            session.reset()
+            rows, ids = [], first
+            for turn in range(2):
+                if turn:
+                    ids = ids + rows[-1][0] + follow_up("Which event came last?")
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                tokens = session.generate(ids, max_new_tokens=QA_MAX_NEW, temperature=0.0)
+                torch.cuda.synchronize()
+                rows.append((tokens, session.last_ingested,
+                             1e3 * (time.perf_counter() - start)))
+            want_chat[sid] = rows
+            del session
     del state
     torch.cuda.empty_cache()
     pid = deploy.ready(time.time() + MESH_DEPLOY_S)
@@ -5916,6 +6159,52 @@ def mesh_deploy(dev, deploy: Deploy, four) -> None:
         replies = list(pool.map(lambda p: http_json(deploy.port, "POST", "/generate", {
             "prompt_ids": p, "max_new_tokens": QA_MAX_NEW}), four))
     seconds = time.perf_counter() - start
+    # C18: the sessions' turns, in lockstep on both ranks
+    got_chat, chat_ok = {}, True
+    for sid, first in (("s4", prompts[4]), ("s5", prompts[5])):
+        rows, ids = [], first
+        for turn in range(2):
+            if turn:
+                ids = ids + rows[-1][0] + follow_up("Which event came last?")
+            start_turn = time.perf_counter()
+            status, reply = http_json(deploy.port, "POST", "/chat", {
+                "session_id": sid, "prompt_ids": ids, "max_new_tokens": QA_MAX_NEW})
+            ms = 1e3 * (time.perf_counter() - start_turn)
+            if status != 200:
+                raise AssertionError(f"mesh deploy: POST /chat answered {status}: {reply}")
+            rows.append((reply["tokens"], reply["prefilled"], ms))
+        got_chat[sid] = rows
+        delta = len(follow_up("Which event came last?"))
+        chat_ok &= ([r[:2] for r in rows] == [w[:2] for w in want_chat[sid]]
+                    and rows[1][1] == delta)
+    # the price of lockstep: a stream waits while a chat turn runs in the step
+    times, stream_done = [], threading.Event()
+
+    def stream():
+        try:
+            stream_times(deploy.port, {"prompt_ids": prompts[6],
+                                       "max_new_tokens": QA_MAX_NEW}, times)
+        finally:
+            stream_done.set()
+
+    reader = threading.Thread(target=stream)
+    reader.start()
+    # the chat turn once the stream's first token has come (its request is
+    # admitted and decoding)
+    while not times and not stream_done.wait(0.001):
+        pass
+    turn_at = time.perf_counter()
+    status, _ = http_json(deploy.port, "POST", "/chat", {
+        "session_id": "stall", "prompt_ids": prompts[7], "max_new_tokens": QA_MAX_NEW})
+    turn_end = time.perf_counter()
+    reader.join(timeout=300)
+    gaps = [b - a for a, b in zip(times, times[1:])]
+    during = [b - a for a, b in zip(times, times[1:]) if b > turn_at and a < turn_end]
+    typical = sorted(gaps)[len(gaps) // 2] if gaps else None
+    stall = (f"longest gap {1e3 * max(during):.1f} ms while the {1e3 * (turn_end - turn_at):.1f}"
+             f" ms turn ran, median gap {1e3 * typical:.1f} ms over {len(times)} tokens"
+             if during and typical is not None else
+             f"not measured: the stream's {len(times)} tokens ended before the turn ran")
     os.kill(pid, signal.SIGTERM)
     rc = deploy.proc.wait(timeout=60)
     same = sum(r[0] == 200 and r[1].get("tokens") == w for r, w in zip(replies, want))
@@ -5923,8 +6212,17 @@ def mesh_deploy(dev, deploy: Deploy, four) -> None:
     log("mesh", f"deploy_api --tp 2 under torchrun ({described.group(1) if described else '?'})"
         f": 4 concurrent POST /generate in {seconds:.2f} s, tokens equal to the unsharded "
         f"generate_many {same}/4; SIGTERM to rank 0: torchrun exit {rc}")
-    if same != 4 or rc != 0:
-        raise AssertionError(f"mesh deploy: {same}/4 equal, exit {rc} ({deploy.tail()})")
+    for sid, rows in got_chat.items():
+        log("mesh", f"deploy POST /chat session {sid}: prefilled {[r[1] for r in rows]} "
+            f"(unsharded {[w[1] for w in want_chat[sid]]}), tokens equal "
+            f"{[r[0] == w[0] for r, w in zip(rows, want_chat[sid])]}; turn ms (HTTP, TP 2) "
+            f"{[round(r[2], 1) for r in rows]} against the unsharded session's "
+            f"{[round(w[2], 1) for w in want_chat[sid]]}; {nvidia_smi()}")
+    log("mesh", f"deploy: a /generate stream during a POST /chat turn (status {status}): "
+        f"{stall}; {nvidia_smi()}")
+    if same != 4 or rc != 0 or not chat_ok or status != 200:
+        raise AssertionError(f"mesh deploy: {same}/4 equal, chat equal {chat_ok}, exit {rc} "
+                             f"({deploy.tail()})")
 
 
 def run_mesh(dev, prompts):
@@ -5948,7 +6246,7 @@ def run_mesh(dev, prompts):
             add(mesh_nccl(dev))
             ranks = gloo_world(workdir)
             for r, out in enumerate(ranks):
-                for part in ("tp", "qa"):
+                for part in ("tp", "qa", "session"):
                     add(out[part]["launches"])
                 add(out["segmenter"]["launches"])
                 for row in out["siglip"].values():
@@ -5960,7 +6258,16 @@ def run_mesh(dev, prompts):
                     + f"; allocator peak {out['peak_gib']:.2f} GiB; {nvidia_smi()}; gloo "
                     "stages every collective through the host: these times measure the "
                     "sharded code on one card, not a multi-card deployment")
-            mesh_deploy(dev, deploy, prompts[:4])
+                log("mesh", f"(b) rank {r}: the 8B TP 2 session's decode "
+                    f"{out['session']['decode_ms']:.3f} ms/step"
+                    + (f" against {out['session']['alone_decode_ms']:.3f} for the unsharded "
+                       "session" if r == 0 else "")
+                    + f", turns {[round(t, 3) for t in out['session']['turn_ms']]} ms; "
+                    f"{nvidia_smi()}")
+            agreed = [out["failures"] for out in ranks]
+            if agreed[0] != agreed[1]:
+                raise AssertionError(f"mesh failures: the ranks disagree: {agreed}")
+            mesh_deploy(dev, deploy, prompts)
         finally:
             deploy.stop()
     elapsed = time.perf_counter() - start

@@ -31,6 +31,7 @@ from gvl_tpu_torch.models.qwen3 import (
     call_generator,
     load_model,
     sample_logits,
+    tensor_parallel,
 )
 
 DELTA_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -73,10 +74,19 @@ class Qwen3ChatSession:
         self._cached = []
 
     def cache_nbytes(self) -> int:
-        """Device bytes one live session pins (K+V, all layers)."""
+        """Device bytes one live session pins (K+V, all layers; this rank's
+        KV heads under a mesh)."""
         cfg = self.config
-        return (2 * cfg.num_layers * cfg.num_kv_heads * cfg.max_cache_length
+        tp = tensor_parallel(cfg, self.mesh)
+        heads = tp.part(cfg.num_kv_heads, tp.attention)
+        return (2 * cfg.num_layers * heads * cfg.max_cache_length
                 * cfg.head_dim * self.dtype.itemsize)
+
+    def allocate(self) -> None:
+        """Allocate the KV cache now (else the first turn does), empty."""
+        self.cache = KVCache.zeros(self.config, 1, dtype=self.dtype, device=self.device,
+                                   mesh=self.mesh)
+        self._cached = []
 
     def release(self) -> None:
         """Drop the KV cache's tensors now (the server's eviction path), so
@@ -102,9 +112,7 @@ class Qwen3ChatSession:
             raise ValueError("prompt + max_new_tokens exceeds cache")
 
         if self.cache is None:
-            self.cache = KVCache.zeros(cfg, 1, dtype=self.dtype, device=self.device,
-                                       mesh=self.mesh)
-            self._cached = []
+            self.allocate()
         elif ids[:len(self._cached)] != self._cached:
             # not an extension of the cached transcript: start over (stale
             # rows past the length are masked and overwritten)

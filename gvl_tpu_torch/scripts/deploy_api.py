@@ -19,7 +19,11 @@ An HF directory without a tokenizer serves ``prompt_ids`` only.
 
 Rank 0 serves HTTP; the other ranks follow the batching engine's steps
 (:meth:`~gvl_tpu_torch.serving.batch_engine.ContinuousBatchingEngine.follow`)
-until rank 0 stops (SIGTERM or SIGINT to rank 0 ends every rank).  The
+until rank 0 stops (SIGTERM or SIGINT to rank 0 ends every rank).  A
+``POST /chat`` turn runs in the engine's step on every rank, each on its
+shard of the weights; a failed prefill fails its request alone, and a
+failed step fails the live requests and rebuilds the cache, on every rank
+alike.  The
 mesh is fitted to the world's size as JAX fits it to the attached devices;
 the backend follows the layout (NCCL with a card per rank, gloo when ranks
 share a card).  Without a distributed launch, ``--tp`` / ``--dp`` above 1
@@ -67,9 +71,8 @@ def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
     (:func:`~gvl_tpu_torch.models.qwen3.quantize_int8`).  An HF directory's
     tokenizer serves string prompts; without one (a weights-only
     checkpoint) ``/generate`` takes ``prompt_ids`` only, and EOS is 151645.
-    ``mesh``: serve ``/generate`` DP x TP; ``POST /chat`` then has no
-    sessions (they would run on rank 0 alone) and answers 400.  Returns the
-    engine."""
+    ``mesh``: serve DP x TP, ``POST /chat`` through the engine's lockstep
+    turns.  Returns the engine."""
     from gvl_tpu_torch.models.byte_tokenizer import EOS_ID, ByteTokenizer
     from gvl_tpu_torch.models.qwen3 import load_hf_qwen3, quantize_int8
     from gvl_tpu_torch.models.session import Qwen3ChatSession
@@ -101,11 +104,11 @@ def _attach_llm(service: InferenceService, checkpoint: str, num_slots: int,
     if mesh is not None and mesh.rank != 0:
         return engine            # a follower serves no HTTP
 
-    def session_factory():
-        return Qwen3ChatSession(config, state, eos_token_id=eos, device=device)
-
+    # an engine on a mesh runs /chat turns itself, in its step on every rank
+    session_factory = None if mesh is not None else (
+        lambda: Qwen3ChatSession(config, state, eos_token_id=eos, device=device))
     service.attach_engine(EngineServer(engine), tokenizer=tokenizer,
-                          session_factory=session_factory if mesh is None else None)
+                          session_factory=session_factory)
     return engine
 
 

@@ -22,6 +22,8 @@ Endpoints
 - ``POST /chat``              ``{"session_id": str, "prompt_ids": [int]}``
                               -> multi-turn generation with a per-session KV
                               cache; ``prefilled`` reports the delta ingested
+                              (under a mesh the turn runs in the engine's
+                              step, on every rank in lockstep)
 
 The video routes process each video once with the service's preset
 (``config``) on its ``device``.  Concurrent ``/generate`` callers share one
@@ -66,12 +68,26 @@ class InferenceService:
         self._engine_server = None
         self._tokenizer = None
         self._session_factory = None
+        self._lockstep = None           # the engine whose step runs /chat (a mesh)
         self._sessions: dict = {}       # insertion-ordered: LRU via move
         self._session_lock = threading.Lock()
         # Count bound refined to an HBM-bytes bound on first session
         # creation (each session pins a full KV cache on device).
         self.max_sessions = 64
         self._sized_from_hbm = False
+
+    @property
+    def max_sessions(self) -> int:
+        """The bound on live chat sessions (under a mesh, the engine's, by
+        which rank 0 plans every rank's evictions)."""
+        return self._max_sessions if self._lockstep is None else self._lockstep.max_sessions
+
+    @max_sessions.setter
+    def max_sessions(self, value: int) -> None:
+        if self._lockstep is None:
+            self._max_sessions = value
+        else:
+            self._lockstep.max_sessions = value
 
     # ------------------------------------------------ batched LLM serving
 
@@ -83,23 +99,43 @@ class InferenceService:
         enables ``{"prompt": str}`` requests and decoded-text responses.
         ``session_factory`` (zero-arg callable returning a
         :class:`~gvl_tpu_torch.models.session.Qwen3ChatSession`) enables
-        ``POST /chat`` with per-session KV prefix caching.
+        ``POST /chat`` with per-session KV prefix caching.  An engine on a
+        mesh serves ``POST /chat`` itself, through the engine server's
+        :meth:`~gvl_tpu_torch.serving.EngineServer.chat` (every rank runs
+        each turn in the engine's step); a ``session_factory`` then raises,
+        as its sessions would run on rank 0 alone.
         """
+        engine = getattr(engine_server, "engine", None)
+        meshed = getattr(engine, "mesh", None) is not None
+        if meshed and session_factory is not None:
+            raise ValueError("an engine on a mesh runs /chat turns on every rank; "
+                             "a session_factory's sessions would run on rank 0 alone")
+        bound = self.max_sessions
         self._engine_server = engine_server
         self._tokenizer = tokenizer
         self._session_factory = session_factory
+        self._lockstep = engine if meshed else None
+        self.max_sessions = bound
 
     def chat(self, body: dict) -> dict:
         """Multi-turn generation: each session keeps its KV cache, so a
         turn prefills only the transcript delta (sessions are device-
-        stateful, hence serialized under one lock)."""
-        if self._session_factory is None:
+        stateful, hence serialized under one lock, or run in the engine's
+        step under a mesh)."""
+        if self._session_factory is None and self._lockstep is None:
             raise ValueError(
                 "no chat sessions attached (see attach_engine"
                 "(session_factory=...))")
         session_id = str(body.get("session_id", "default"))
         prompt_ids = self._prompt_ids(body)
         max_new = _max_new_tokens(body)
+        temperature = float(body.get("temperature", 0.0))
+        if self._lockstep is not None:
+            tokens, prefilled = self._engine_server.chat(
+                session_id, prompt_ids, max_new, temperature=temperature)
+            # rank 0's sessions size the bound of every rank's table
+            self._size_session_bound(self._lockstep.sessions.get(session_id))
+            return self._chat_result(session_id, tokens, prefilled)
         with self._session_lock:
             session = self._sessions.pop(session_id, None)
             if session is None:
@@ -113,9 +149,11 @@ class InferenceService:
                 self._size_session_bound(session)
             self._sessions[session_id] = session  # re-insert = most recent
             tokens = session.generate(prompt_ids, max_new_tokens=max_new,
-                                      temperature=float(
-                                          body.get("temperature", 0.0)))
+                                      temperature=temperature)
             prefilled = session.last_ingested
+        return self._chat_result(session_id, tokens, prefilled)
+
+    def _chat_result(self, session_id: str, tokens: list[int], prefilled: int) -> dict:
         result = {"session_id": session_id, "tokens": tokens,
                   "num_tokens": len(tokens), "prefilled": prefilled}
         if self._tokenizer is not None:
@@ -156,7 +194,8 @@ class InferenceService:
         session/video occupancy (``GET /metrics``)."""
         out: dict = {
             "videos_loaded": len(self._videos),
-            "chat_sessions": len(self._sessions),
+            "chat_sessions": len(self._sessions if self._lockstep is None
+                                 else self._lockstep.sessions),
             "max_sessions": self.max_sessions,
         }
         if self._engine_server is not None:

@@ -26,6 +26,26 @@ Every rank draws every slot's random numbers from its own copy of the
 engine's generator and keeps its own slots' samples, so sampled streams
 are the unsharded engine's.  Ranks other than 0 run :meth:`follow` until
 rank 0 calls :meth:`release_followers`.
+
+Chat turns (``POST /chat`` under a mesh, :meth:`submit_turn`) ride the same
+broadcast: every rank runs the step's turns at its start, each through its
+own :class:`~gvl_tpu_torch.models.session.Qwen3ChatSession` on its shard of
+the weights, from a table of sessions that rank 0 alone keys and evicts at
+``max_sessions`` (the eviction travels with the turn).  A new session's
+cache is allocated before its turn runs, and the ranks agree that every
+one of them could, so a rank short of memory fails the turn on all.  Under
+DP every replica computes a session's batch of one, as JAX's session cache
+is replicated over ``data``.
+
+The ranks agree on a failure before they act on it.  A failed prefill
+fails its request alone on every rank: the slot's replica sends
+:data:`FAILED` in its token's place in the gather that follows each
+admission.  A failed step (:meth:`fail_live`) fails every live request and
+rebuilds the cache, on rank 0 (the engine server's stepping thread) and in
+:meth:`follow` alike; it keeps the ranks in step when every rank fails at
+the same point.  A fault on one rank of a ``model`` group only, after the
+forward's first collective, leaves the others inside that collective: it
+cannot be agreed on without timeouts.
 """
 
 from __future__ import annotations
@@ -46,10 +66,16 @@ from gvl_tpu_torch.models.qwen3 import (
     load_model,
     sample_logits,
 )
-from gvl_tpu_torch.parallel.collectives import all_gather_cat, broadcast_objects
+from gvl_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    all_reduce_sum,
+    broadcast_objects,
+)
 from gvl_tpu_torch.parallel.mesh import as_mesh
 
 logger = logging.getLogger(__name__)
+
+FAILED = -2   # a replica's token in the admission gather when its prefill failed
 
 
 @dataclass
@@ -63,6 +89,25 @@ class Request:
     session_key: Optional[str] = None
     prefilled: int = 0           # tokens actually prefilled at admission
     error: Optional[str] = None  # set when this request's prefill failed
+
+
+@dataclass
+class ChatTurn:
+    """One ``POST /chat`` turn, run at the start of a step (on every rank
+    under a mesh).  ``evict`` is rank 0's decision: the idle sessions
+    dropped before a new one opens (least recently used, at the engine's
+    ``max_sessions``)."""
+
+    turn_id: int
+    session_id: str
+    prompt_ids: list[int]
+    max_new_tokens: int
+    temperature: float
+    evict: list[str] = field(default_factory=list)
+    tokens: list[int] = field(default_factory=list)
+    prefilled: int = 0
+    error: Optional[str] = None
+    done: bool = False
 
 
 class ContinuousBatchingEngine:
@@ -115,6 +160,12 @@ class ContinuousBatchingEngine:
             dataclasses.replace(config, chunk_verify=True),
             self.model.state_dict(), self.device, mesh)
         self._submitted: list[Request] = []   # since the last step (lockstep)
+        self._turns: list[ChatTurn] = []      # chat turns queued since the last step
+        self._turn_ids = itertools.count()
+        # chat sessions by id, least recently used first (the same on every
+        # rank), and their bound, which rank 0 plans by (the HTTP service sets it)
+        self.sessions: dict[str, object] = {}
+        self.max_sessions = 64
 
         self.reset_cache()   # the cache and the per-slot state
         self._queue: list[Request] = []
@@ -149,40 +200,153 @@ class ContinuousBatchingEngine:
         self._submitted.append(request)
         return request.request_id
 
+    def submit_turn(self, session_id: str, prompt_ids: list[int],
+                    max_new_tokens: int = 128, temperature: float = 0.0) -> ChatTurn:
+        """Queue a chat turn of session ``session_id`` for the next step
+        (rank 0 under a mesh); the returned turn holds ``tokens``,
+        ``prefilled`` and ``error`` once ``done``.  Raises ValueError when
+        prompt + decode budget cannot fit a session's cache, as the session
+        does."""
+        ids = [int(t) for t in prompt_ids]
+        if len(ids) + max_new_tokens > self.config.max_cache_length:
+            raise ValueError("prompt + max_new_tokens exceeds cache")
+        turn = ChatTurn(next(self._turn_ids), str(session_id), ids, max_new_tokens,
+                        float(temperature))
+        self._turns.append(turn)
+        return turn
+
     # ------------------------------------------------------------ lockstep
 
-    def _sync(self, stop: bool = False) -> bool:
-        """Rank 0's submissions since the last step on every rank (a
-        rank's own submissions, when every rank submitted alike, are the
-        same requests under the same ids).  Returns False once rank 0 has
-        released the followers."""
+    def _sync(self, stop: bool = False) -> Optional[list[ChatTurn]]:
+        """Rank 0's submissions and chat turns since the last step on every
+        rank (a rank's own submissions, when every rank submitted alike, are
+        the same requests under the same ids).  Returns the turns to run in
+        this step, or None once rank 0 has released the followers."""
+        turns, self._turns = self._turns, []
         if not self._lockstep:
-            return True
+            self._plan(turns)
+            return turns
         import torch.distributed as dist
 
+        leader = dist.get_rank() == 0
+        if leader:
+            self._plan(turns)
         sent = [dataclasses.replace(r, tokens=[]) for r in self._submitted]
-        stop, sent = broadcast_objects((stop, sent))
+        stop, sent, shared = broadcast_objects((stop, sent, turns))
         self._submitted = []
-        if dist.get_rank() != 0:
+        if not leader:
+            turns = shared
             for request in sent:
                 if request.request_id not in self._requests:
                     self._requests[request.request_id] = request
                     self._queue.append(request)
             ids = [r.request_id for r in self._requests.values()]
             self._ids = itertools.count(max(ids, default=-1) + 1)
-        return not stop
+        return None if stop else turns
 
     def follow(self) -> None:
         """A rank other than 0: run every step rank 0 runs, until it calls
-        :meth:`release_followers`."""
-        while self._tick():
-            pass
+        :meth:`release_followers`.  A step that fails here fails the live
+        requests and rebuilds the cache, as rank 0's engine server does."""
+        while True:
+            turns = self._sync()
+            if turns is None:
+                return
+            try:
+                self._advance(turns)
+            except Exception as exc:  # noqa: BLE001 — the follower must live
+                logger.exception("engine step failed; failing the live requests")
+                self.fail_live(f"engine step failed: {exc!r}")
 
     def release_followers(self) -> None:
         """Rank 0: end the followers' :meth:`follow` (call once no step
         can run any more)."""
         if self._lockstep:
             self._sync(stop=True)
+
+    def fail_live(self, reason: str) -> None:
+        """The recovery after a failed step, on every rank alike: every
+        request not yet done fails with ``reason``, and the KV cache and slot
+        state are rebuilt (the slots' sessions lose their prefixes and
+        re-prefill; chat sessions keep their own caches)."""
+        for request in self._requests.values():
+            if not request.done:
+                request.error, request.done, request.slot = reason, True, None
+        self._queue.clear()
+        self.reset_cache()
+
+    # ---------------------------------------------------------- chat turns
+
+    def _plan(self, turns: list[ChatTurn]) -> None:
+        """Rank 0: each turn's ``evict``, in the order the turns run, from
+        the table as it stands (least recently used first)."""
+        order = list(self.sessions)
+        for turn in turns:
+            if turn.session_id in order:
+                order.remove(turn.session_id)
+            else:
+                while len(order) >= self.max_sessions:
+                    turn.evict.append(order.pop(0))
+            order.append(turn.session_id)
+
+    def _new_session(self):
+        """A chat session on this rank's shard of the engine's weights
+        (shared, not copied), its cache allocated."""
+        from gvl_tpu_torch.models.session import Qwen3ChatSession
+
+        session = Qwen3ChatSession(self.config, self.model.state_dict(),
+                                   eos_token_id=self.eos_token_id, dtype=self.dtype,
+                                   device=self.device, mesh=self.mesh)
+        session.allocate()
+        return session
+
+    def _agree(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank (one all-reduce over the world
+        in lockstep)."""
+        if not self._lockstep:
+            return ok
+        import torch.distributed as dist
+
+        failed = torch.tensor([0 if ok else 1], device=self.device)
+        return int(all_reduce_sum(failed, dist.group.WORLD)[0]) == 0
+
+    def _open(self, turn: ChatTurn):
+        """The turn's session, after rank 0's evictions, as the table's most
+        recently used.  A new one (the table is the same on every rank)
+        opens on every rank or on none."""
+        for session_id in turn.evict:
+            self.sessions.pop(session_id).release()
+            logger.info("evicted chat session %r", session_id)
+        session = self.sessions.pop(turn.session_id, None)
+        if session is None:
+            error = None
+            try:
+                session = self._new_session()
+            except Exception as exc:  # noqa: BLE001 — agreed on below
+                error = exc
+            if not self._agree(error is None):
+                raise error or RuntimeError("another rank could not open the session")
+        self.sessions[turn.session_id] = session
+        return session
+
+    def _run_turns(self, turns: list[ChatTurn]) -> None:
+        """Each turn through its session, as rank 0 decided.  A turn that
+        fails fails alone, on every rank alike: its session leaves the table
+        (it starts over at its next turn)."""
+        for turn in turns:
+            try:
+                session = self._open(turn)
+                turn.tokens = session.generate(turn.prompt_ids,
+                                               max_new_tokens=turn.max_new_tokens,
+                                               temperature=turn.temperature)
+                turn.prefilled = session.last_ingested
+            except Exception as exc:  # noqa: BLE001 — attribute to the turn
+                logger.exception("chat turn %d failed", turn.turn_id)
+                turn.error = f"chat turn failed: {exc!r}"
+                self.sessions.pop(turn.session_id, None)
+            turn.done = True
+
+    # --------------------------------------------------------------- slots
 
     def _gather_tokens(self, local: list[int]) -> list[int]:
         """Every replica's tokens, in slot order, on every rank."""
@@ -218,16 +382,10 @@ class ContinuousBatchingEngine:
     def _prefill(self, slot: int, delta: list[int]) -> int:
         """The delta as one padded chunk at the slot's offset; returns the
         first sampled token (the one read back of an admission).  Under a
-        mesh only the slot's replica runs the chunk; every rank draws the
-        sample's random numbers."""
-        offset = self._lengths[slot]
-        temperature, top_p, top_k = self._sampling
+        mesh only the slot's replica runs the chunk (the others return -1)."""
         if not self._owns(slot):
-            # the same draws as the owner's, on a stand-in row
-            sample_logits(torch.zeros(1, self.config.vocab_size, device=self.device),
-                          self._generator, temperature, top_p, top_k)
-            self._lengths[slot] = offset + len(delta)
             return -1
+        offset = self._lengths[slot]
         cache = self.cache.slot(slot - self._lo)   # views: writes land in self.cache
         cache.lengths = [offset]
         size = self._bucket(len(delta))
@@ -236,9 +394,14 @@ class ContinuousBatchingEngine:
         positions = torch.arange(offset, offset + size, device=self.device)
         logits, _ = self._chunk_model(tokens, positions=positions, cache=cache)
         token = sample_logits(logits[:, len(delta) - 1], self._generator,
-                              temperature, top_p, top_k)
-        self._lengths[slot] = offset + len(delta)
+                              *self._sampling)
         return int(token[0])
+
+    def _stand_in_sample(self) -> None:
+        """The random numbers of the owner's sample after an admission, on a
+        stand-in row (a replica that does not own the slot)."""
+        sample_logits(torch.zeros(1, self.config.vocab_size, device=self.device),
+                      self._generator, *self._sampling)
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots (the delta when the slot
@@ -277,26 +440,35 @@ class ContinuousBatchingEngine:
                 delta = prompt[-1:]
                 cached = cached[:-1]
                 self._lengths[slot] = len(cached)
+            error = None
             try:
                 token = self._prefill(slot, delta)
             except Exception as exc:  # noqa: BLE001 — attribute to request
-                if self._lockstep:
-                    raise    # the other replicas cannot tell: no rank goes on alone
+                logger.exception("prefill failed for request %d",
+                                 request.request_id)
+                error, token = f"prefill failed: {exc!r}", FAILED
+            if self._lockstep:
+                # the owner's outcome, from its replica's entry: every rank
+                # fails the request, or every rank keeps the owner's token
+                local = self.num_slots // self.mesh.shape["data"]
+                token = self._gather_tokens([token])[slot // local]
+                if token == FAILED:
+                    error = error or f"prefill failed on data replica {slot // local}"
+                else:
+                    error = None    # a non-owner's own fault touches no state
+                    if not self._owns(slot):
+                        self._stand_in_sample()
+            if error is not None:
                 # the failure belongs to this request; the other slots'
                 # prefixes are untouched (the chunk writes only rows past
                 # this slot's offset), so only this slot's reservation goes
-                logger.exception("prefill failed for request %d",
-                                 request.request_id)
-                request.error = f"prefill failed: {exc!r}"
+                request.error = error
                 request.done = True
                 self._lengths[slot] = 0
                 self._slot_session[slot] = None
                 self._slot_cached[slot] = []
                 continue
-            if self._lockstep:
-                # the owner's token, from its replica's entry
-                local = self.num_slots // self.mesh.shape["data"]
-                token = self._gather_tokens([token])[slot // local]
+            self._lengths[slot] += len(delta)
             request.prefilled = len(delta)
             request.slot = slot
             self._slot_req[slot] = request
@@ -340,17 +512,24 @@ class ContinuousBatchingEngine:
         self._tick(produced)
         return produced
 
-    @torch.inference_mode()
     def _tick(self, produced: Optional[dict] = None) -> bool:
-        """One step (a follower's too); False when rank 0 has released the
-        followers."""
-        if not self._sync():
+        """One step; False when rank 0 has released the followers."""
+        turns = self._sync()
+        if turns is None:
             return False
+        self._advance(turns, produced)
+        return True
+
+    @torch.inference_mode()
+    def _advance(self, turns: list[ChatTurn], produced: Optional[dict] = None) -> None:
+        """A step past its synchronisation: the chat turns, the admissions,
+        one batched decode step."""
+        self._run_turns(turns)
         produced = {} if produced is None else produced
         self._admit()
         active = [r is not None for r in self._slot_req]
         if not any(active):
-            return True
+            return
         # the token fed this step enters each active slot's cache
         for slot, request in enumerate(self._slot_req):
             if request is not None:
@@ -384,11 +563,11 @@ class ContinuousBatchingEngine:
                 continue
             produced[request.request_id] = nxt[slot]
             self._record_token(request, nxt[slot])
-        return True
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queue) or any(r is not None for r in self._slot_req)
+        return (bool(self._queue) or bool(self._turns)
+                or any(r is not None for r in self._slot_req))
 
     def run(self) -> dict[int, list[int]]:
         """Drive to completion; returns generated tokens per request."""

@@ -6,7 +6,11 @@ token streams while one driver thread steps the shared
 :class:`~gvl_tpu_torch.serving.batch_engine.ContinuousBatchingEngine`:
 every decode step advances all live requests at once.  A prefill failure
 fails only its own request; a failed decode step fails the live streams,
-rebuilds the engine's cache and keeps the driver running.
+rebuilds the engine's cache (``engine.fail_live``) and keeps stepping.
+:meth:`EngineServer.chat` runs a chat turn in the engine's next
+step, the path of ``POST /chat`` under a mesh, where every rank runs the
+turn in lockstep (without a mesh the HTTP service runs its sessions on its
+own thread).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ class EngineServer:
         self.engine = engine
         self._lock = threading.Lock()
         self._streams: dict[int, queue.Queue] = {}
+        self._turns: dict[int, tuple] = {}     # turn id -> (turn, its event)
         self._poll_interval = poll_interval
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -150,10 +155,43 @@ class EngineServer:
             tokens.append(item)
         return tokens, self.engine._requests[request_id].prefilled
 
+    def chat(self, session_id: str, prompt_ids: list[int], max_new_tokens: int = 128,
+             temperature: float = 0.0) -> tuple[list[int], int]:
+        """One turn of chat session ``session_id``, run by the stepping thread
+        at the start of its next step (``engine.submit_turn``); returns the
+        tokens and how many prompt tokens were prefilled.  A failed turn
+        raises :class:`EngineError` for this turn alone."""
+        done = threading.Event()
+        with self._lock:
+            turn = self.engine.submit_turn(session_id, prompt_ids, max_new_tokens,
+                                           temperature=temperature)
+            self._turns[turn.turn_id] = (turn, done)
+        self._wake.set()
+        done.wait()
+        if turn.error is not None:
+            raise EngineError(turn.error)
+        return turn.tokens, turn.prefilled
+
     def shutdown(self) -> None:
         self._stop.set()
         self._wake.set()
         self._driver.join(timeout=5)
+        with self._lock:     # turns no step will run
+            for turn, done in self._turns.values():
+                turn.error = turn.error or "engine server shut down"
+                done.set()
+            self._turns.clear()
+
+    def _finish_turns(self, failure: Optional[str] = None) -> None:
+        """Wake the callers whose turns have run (under ``_lock``); after a
+        failed step (``failure``) also those whose turns it did not reach
+        (every queued turn belonged to that step)."""
+        for turn_id, (turn, done) in list(self._turns.items()):
+            if failure is not None and not turn.done:
+                turn.error, turn.done = failure, True
+            if turn.done:
+                del self._turns[turn_id]
+                done.set()
 
     # -------------------------------------------------------------- driver
 
@@ -186,20 +224,17 @@ class EngineServer:
                         sent.pop(request_id, None)
                         self._failed += 1
                         self._submit_time.pop(request_id, None)
-                        request = self.engine._requests.get(request_id)
-                        if request is not None:
-                            request.done = True
-                            if request.slot is not None:
-                                self.engine._slot_req[request.slot] = None
-                                request.slot = None
                     # a step that failed part way may have left the cache
-                    # half written: rebuild it (sessions lose their
-                    # prefixes and re-prefill)
+                    # half written: the engine fails its live requests and
+                    # rebuilds it, as every follower does (sessions of the
+                    # slots lose their prefixes and re-prefill)
                     try:
-                        self.engine.reset_cache()
+                        self.engine.fail_live(failure.message)
                     except Exception:
                         logger.exception("engine cache rebuild failed")
+                    self._finish_turns(failure.message)
                     continue
+                self._finish_turns()
                 self._steps += 1
                 # flush newly-recorded tokens to each request's stream
                 for request_id in list(self._streams):

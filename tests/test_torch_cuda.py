@@ -1582,3 +1582,50 @@ def test_nccl_one_rank_tensor_parallel_is_bit_equal(dev, tmp_path):
             alone.generate(prompt, max_new_tokens=8, temperature=0.0)
     finally:
         shutdown_distributed()
+
+
+def test_nccl_one_rank_lockstep_session_is_bit_equal(dev, tmp_path):
+    """The batching engine's chat turns (``POST /chat`` under a mesh) in a
+    world of one rank over NCCL: a session's two turns, greedy and sampled
+    (T 0.7), give the tokens and prefilled counts of the session with no
+    mesh, and its cache's live rows bit for bit."""
+    from gvl_tpu_torch.models.session import Qwen3ChatSession
+    from gvl_tpu_torch.parallel.mesh import (
+        MeshManager,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from gvl_tpu_torch.serving import ContinuousBatchingEngine
+
+    init_distributed(init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+                     local_rank=0, local_world_size=1, device="cuda")
+    try:
+        mm = MeshManager(build_mesh(1, 1))
+        assert mm.backend == "nccl"
+        cfg = Qwen3Config.tiny(num_heads=8, num_kv_heads=4, head_dim=128, hidden_size=256,
+                               max_cache_length=256)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        engine = ContinuousBatchingEngine(cfg, params, eos_token_id=-1, num_slots=2,
+                                          device=dev, mesh=mm)
+        prompt = torch.randint(0, cfg.vocab_size, (40,),
+                               generator=torch.Generator().manual_seed(1)).tolist()
+        for temperature in (0.0, 0.7):
+            alone = Qwen3ChatSession(cfg, params, eos_token_id=-1, device=dev)
+            sid, ids = f"s{temperature}", prompt
+            for tail in ([], [3, 4, 5]):
+                ids = ids + tail
+                turn = engine.submit_turn(sid, ids, 8, temperature=temperature)
+                engine.step()
+                want = alone.generate(ids, max_new_tokens=8, temperature=temperature)
+                assert turn.error is None and turn.tokens == want
+                assert turn.prefilled == alone.last_ingested
+                ids = ids + want
+            session = engine.sessions[sid]
+            n = alone.cache.length
+            assert session.cache.length == n
+            for got, ref in zip(session.cache.k + session.cache.v,
+                                alone.cache.k + alone.cache.v):
+                assert torch.equal(got[..., :n, :], ref[..., :n, :])
+    finally:
+        shutdown_distributed()

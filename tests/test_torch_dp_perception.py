@@ -5,20 +5,29 @@ processes with ``mesh=`` (frames padded to a multiple of the data size,
 split over ``data``, results gathered on every rank);
 each is held to its one-rank run on the same weights and to JAX's single
 backend (JAX's own tests, ``tests/test_parallel.py``, hold its
-data-parallel backends to its single ones).
+data-parallel backends to its single ones).  The module's world of two
+also serves the batching engine's chat turns at 1 x 2 (tensor-parallel
+alone; 2 x 2: ``tests/test_torch_multichip.py``).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from gvl_tpu.models import qwen3 as jq
 from gvl_tpu.models.siglip import SigLIPVisionConfig as JaxConfig
 from gvl_tpu.models.siglip import SigLIPVisionTower as JaxTower
 from gvl_tpu.perception import segmenter as jseg
 from gvl_tpu.perception import semantic as jsem
 from gvl_tpu_torch.config import load_preset
-from gvl_tpu_torch.models.convert import sam_params_from_jax, siglip_params_from_jax
+from gvl_tpu_torch.models import qwen3 as tq
+from gvl_tpu_torch.models.convert import (
+    params_to_jax,
+    sam_params_from_jax,
+    siglip_params_from_jax,
+)
 from gvl_tpu_torch.models.sam import SamConfig as PortSamConfig
 from gvl_tpu_torch.models.siglip import SigLIPVisionConfig
 from gvl_tpu_torch.perception import segmenter as tseg
@@ -135,6 +144,26 @@ def test_fused_siglip_dp_matches_one_rank_and_jax(world, tower):
     assert _cos(alone, want).min() >= 0.999
     for got in world.run(cases.siglip, vcfg, state, 2, batch, True):
         assert _cos(got, alone).min() >= 0.99999
+
+
+def test_lockstep_sessions_match_jax_at_1x2(world):
+    """C18 at 1 x 2: chat turns in the engine's step on both ranks give
+    JAX's session tokens and prefilled counts, with one eviction; both
+    ranks keep the same table and transcripts."""
+    from test_torch_multichip import PROMPTS, jax_sessions
+    from test_torch_tensor_parallel import KW
+
+    # Flax's laws drawn by the port (no JAX compile), carried into JAX's tree
+    # as copies: sending the state to the world moves its tensors' storage
+    jcfg, tcfg = jq.Qwen3Config.tiny(**KW), tq.Qwen3Config.tiny(**KW)
+    state = tq.init_jax_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    params = jax.tree.map(np.copy, params_to_jax(state, tcfg))
+    alone, = cases.lockstep_sessions(tcfg, state, 1, 1, PROMPTS, 5)
+    got = [out for out, in world.run(cases.lockstep_sessions, tcfg, state, 1, 2, PROMPTS, 5)]
+    assert got[0]["turns"] == jax_sessions(jcfg, params, PROMPTS, 5) == alone["turns"]
+    assert [o["tables"] for o in got] == [alone["tables"]] * 2
+    assert [o["cached"] for o in got] == [alone["cached"]] * 2
+    assert [o["generated"] for o in got] == [alone["generated"]] * 2
 
 
 def test_perception_stack_builders_take_the_mesh(world):

@@ -174,6 +174,21 @@ def test_prefill_failure_fails_only_its_request(tiny, monkeypatch):
         _single(tcfg, state, p, 4) for p in PROMPTS[:2]]
 
 
+def test_fail_live_restores_serving(tiny):
+    """The recovery after a failed step (the engine server's and every
+    follower's): live and queued requests fail with the reason, and the
+    rebuilt engine serves as before (JAX's ``TestCacheRecovery``)."""
+    _, tcfg, _, state = tiny
+    engine = _engine(tcfg, state)
+    expected = engine.generate_many(PROMPTS[:2], 4)
+    ids = [engine.submit(p, 4) for p in PROMPTS]
+    engine.step()                            # two admitted, one queued
+    engine.fail_live("engine step failed: injected")
+    assert [engine._requests[i].error for i in ids] == ["engine step failed: injected"] * 3
+    assert not engine.has_work and engine._slot_req == [None, None]
+    assert engine.generate_many(PROMPTS[:2], 4) == expected
+
+
 def test_submit_limits_and_unported_mesh(tiny):
     _, tcfg, _, state = tiny
     engine = _engine(tcfg, state, slots=1)
@@ -326,6 +341,97 @@ def test_chat_sessions_evict_least_recently_used(tiny):
     assert list(service._sessions) == ["a", "c"]     # "b" was least recent
     assert made[1].cache is None                      # evicted: tensors dropped
     assert made[0].cache_nbytes() == 2 * 2 * 2 * 64 * 16 * 4
+
+
+def test_chat_turns_in_the_engine_step_answer_as_sessions(tiny, monkeypatch, tmp_path):
+    """``POST /chat``'s lockstep path, which an engine on a mesh takes (here
+    a 1 x 1 mesh in a gloo world of one rank): each turn runs in the engine
+    server's step and answers as the session path does, tokens, prefilled
+    and text, with the same LRU eviction; ``/metrics`` counts the engine's
+    table; a turn whose session fails, or cannot be opened, raises for
+    itself alone while a stream beside it completes, as does a turn whose
+    step failed before it ran; a prompt too long for a session's cache is
+    refused at once; a session factory beside a meshed engine is refused,
+    and the sessions path keeps its own table."""
+    from gvl_tpu_torch.parallel.mesh import (
+        MeshManager,
+        build_mesh,
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    _, tcfg, _, state = tiny
+    sessions = InferenceService()
+    sessions.attach_engine(None, tokenizer=ByteTokenizer(), session_factory=lambda:
+                           Qwen3ChatSession(tcfg, state, eos_token_id=-1, **F32))
+    init_distributed(init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+                     local_rank=0, local_world_size=1, device="cpu")
+    server = None
+    try:
+        engine = ContinuousBatchingEngine(tcfg, state, eos_token_id=-1, num_slots=2,
+                                          temperature=0.0, mesh=MeshManager(build_mesh()),
+                                          **F32)
+        server = EngineServer(engine)
+        lockstep = InferenceService()
+        with pytest.raises(ValueError, match="rank 0 alone"):
+            lockstep.attach_engine(server, session_factory=lambda: None)
+        lockstep.attach_engine(server, tokenizer=ByteTokenizer())
+        for service in (sessions, lockstep):
+            service.max_sessions = 2
+        assert engine.max_sessions == 2
+        turns = [("a", PROMPTS[0]), ("b", PROMPTS[1]), ("a", None), ("c", PROMPTS[2]),
+                 ("b", PROMPTS[1])]
+        replies = {id(sessions): [], id(lockstep): []}
+        for service in (sessions, lockstep):
+            said = {}
+            for sid, prompt in turns:
+                if prompt is None:
+                    prompt = PROMPTS[0] + said[sid]["tokens"] + [40, 41]
+                said[sid] = service.chat({"session_id": sid, "prompt_ids": prompt,
+                                          "max_new_tokens": 4})
+                replies[id(service)].append(said[sid])
+        assert replies[id(lockstep)] == replies[id(sessions)]
+        assert [r["prefilled"] for r in replies[id(lockstep)]] == [3, 4, 2, 3, 4]
+        assert list(engine.sessions) == list(sessions._sessions) == ["c", "b"]
+        assert lockstep.metrics()["chat_sessions"] == 2 and not engine.has_work
+
+        stream = server.submit_stream(PROMPTS[2], max_new_tokens=5)
+
+        def broken(*a, **k):
+            raise RuntimeError("injected turn error")
+
+        # the session's forward fails, then a new session cannot be opened
+        for target, name, sid in ((Qwen3ChatSession, "generate", "b"),
+                                  (engine, "_new_session", "d")):
+            monkeypatch.setattr(target, name, broken)
+            with pytest.raises(EngineError, match="injected turn error"):
+                lockstep.chat({"session_id": sid, "prompt_ids": PROMPTS[1],
+                               "max_new_tokens": 4})
+            monkeypatch.undo()
+        assert list(engine.sessions) == ["c"]      # neither failed session stays
+        assert list(stream) == _single(tcfg, state, PROMPTS[2], 5)
+
+        def step_fails(turns):
+            raise RuntimeError("injected step error")
+
+        # a step that fails before its turns ran fails them, not hangs them
+        monkeypatch.setattr(engine, "_run_turns", step_fails)
+        with pytest.raises(EngineError, match="injected step error"):
+            lockstep.chat({"session_id": "b", "prompt_ids": PROMPTS[1],
+                           "max_new_tokens": 4})
+        monkeypatch.undo()
+        with pytest.raises(ValueError, match="exceeds cache"):
+            lockstep.chat({"session_id": "b", "prompt_ids": list(range(60)),
+                           "max_new_tokens": 8})
+        # the failed turn's session starts over: its whole prompt prefills
+        again = lockstep.chat({"session_id": "b", "prompt_ids": PROMPTS[1],
+                               "max_new_tokens": 4})
+        assert again["prefilled"] == 4 and again["tokens"] == replies[id(sessions)][1]["tokens"]
+        assert not sessions._engine_server and len(sessions._sessions) == 2
+    finally:
+        if server is not None:
+            server.shutdown()
+        shutdown_distributed()
 
 
 # ------------------------------------------------------------ backend routing

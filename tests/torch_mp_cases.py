@@ -135,6 +135,151 @@ def batch_generate(cfg, state, data: int, model: int, prompts, n: int,
             [engine._requests[i].prefilled for i in ids2])
 
 
+def _engine(cfg, state, data: int, model: int, slots: int, temperature: float):
+    from gvl_tpu_torch.serving.batch_engine import ContinuousBatchingEngine
+
+    mesh = _mesh(data, model) if data * model > 1 else None
+    return ContinuousBatchingEngine(cfg, state, eos_token_id=-1, num_slots=slots,
+                                    dtype=torch.float32, temperature=temperature,
+                                    device="cpu", mesh=mesh)
+
+
+def lockstep_sessions(cfg, state, data: int, model: int, prompts, n: int,
+                      temperatures=(0.0,)) -> list[dict]:
+    """For each temperature, chat turns through the engine's step on every
+    rank (rank 0 queues them): session a's two turns, then b's, at
+    ``max_sessions`` 1 (b's first turn evicts a), beside ``generate``
+    requests submitted on every rank.  Rank 0 returns the turns' tokens and
+    prefilled counts; every rank its table of sessions after each step and
+    each session's transcript."""
+    return [_lockstep_sessions(cfg, state, data, model, prompts, n, t)
+            for t in temperatures]
+
+
+def _lockstep_sessions(cfg, state, data, model, prompts, n, temperature) -> dict:
+    engine = _engine(cfg, state, data, model, 2, temperature)
+    engine.max_sessions = 1
+    leader = not dist.is_initialized() or dist.get_rank() == 0
+    out = {"turns": [], "tables": []}
+
+    def step(*turns):
+        queued = [engine.submit_turn(sid, ids, n, temperature=temperature)
+                  for sid, ids in turns] if leader else []
+        engine.step()
+        out["tables"].append(list(engine.sessions))
+        for turn in queued:
+            assert turn.done and turn.error is None, turn.error
+            out["turns"].append((turn.tokens, turn.prefilled))
+        return [t.tokens for t in queued]
+
+    ids = [engine.submit(p, n) for p in prompts]
+    if leader:
+        a1, = step(("a", prompts[0]))
+        _, b1 = step(("a", prompts[0] + a1 + [5, 6]), ("b", prompts[1]))
+        step(("b", prompts[1] + b1 + [7]))
+    else:
+        for _ in range(3):
+            step()
+    out["generated"] = [engine.run()[i] for i in ids]
+    out["cached"] = {sid: s._cached for sid, s in engine.sessions.items()}
+    return out
+
+
+def _trip_prefill(engine, on, nth: int = 1) -> None:
+    """The ``nth`` prefill raises, on the ranks ``on(slot)`` picks (as
+    JAX's ``TestPrefillFailureAttribution`` wraps its prefill)."""
+    real, calls = engine._prefill, []
+
+    def flaky(slot, delta):
+        calls.append(slot)
+        if len(calls) == nth and on(slot):
+            raise RuntimeError("injected prefill error")
+        return real(slot, delta)
+
+    engine._prefill = flaky
+
+
+def prefill_failure(cfg, state, data: int, model: int, prompts, n: int, where: str,
+                    bad: int = 0, temperatures=(0.0,)) -> list[dict]:
+    """For each temperature, two requests on two slots whose ``bad``-th
+    prefill fails, ``where`` "every" rank or on the slot's "owner" replica
+    only; then ``generate_many(prompts)``.  Every request's tokens and
+    whether it failed, then the tokens of the run after."""
+    return [_prefill_failure(cfg, state, data, model, prompts, n, where, bad, t)
+            for t in temperatures]
+
+
+def _prefill_failure(cfg, state, data, model, prompts, n, where, bad, temperature) -> dict:
+    engine = _engine(cfg, state, data, model, 2, temperature)
+    _trip_prefill(engine, (lambda slot: True) if where == "every" else engine._owns,
+                  nth=bad + 1)
+    ids = [engine.submit(p, n) for p in prompts[:2]]
+    results = engine.run()
+    first = [(results[i], engine._requests[i].error is not None) for i in ids]
+    return {"first": first, "after": engine.generate_many(prompts, n)}
+
+
+def decode_failure(cfg, state, data: int, model: int, prompts, n: int) -> dict:
+    """The served path: rank 0's ``EngineServer`` drives, the other ranks
+    :meth:`follow`.  A chat session that rank 1 alone cannot open fails its
+    turn on every rank, and its next turn answers.  The decode step with
+    both slots live raises on every rank: both streams fail, on every rank,
+    and the server then answers ``prompts`` concurrently.  Every rank
+    returns which requests failed and its table of sessions; rank 0 the
+    chat turns' outcomes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gvl_tpu_torch.serving.engine_server import EngineError, EngineServer
+
+    engine = _engine(cfg, state, data, model, 2, 0.0)
+    tripped = []
+
+    def trip(module, args):
+        if not tripped and all(r is not None for r in engine._slot_req):
+            tripped.append(1)
+            raise RuntimeError("injected device error")
+
+    engine.model.register_forward_pre_hook(trip)
+    if dist.get_rank() == 1:
+        real = engine._new_session
+
+        def short_of_memory():
+            engine._new_session = real
+            raise RuntimeError("injected allocation error")
+
+        engine._new_session = short_of_memory
+    out = {}
+    if dist.get_rank() == 0:
+        server = EngineServer(engine)
+
+        def generate(prompt, m=n):
+            try:
+                return server.generate(prompt, m)
+            except EngineError as exc:
+                return str(exc)
+
+        try:
+            out["chat"] = []
+            for _ in range(2):
+                try:
+                    out["chat"].append(server.chat("s", prompts[0], n))
+                except EngineError as exc:
+                    out["chat"].append(str(exc))
+            with ThreadPoolExecutor(2) as pool:
+                out["failed"] = list(pool.map(lambda p: generate(p, 40), prompts[:2]))
+            with ThreadPoolExecutor(len(prompts)) as pool:
+                out["after"] = list(pool.map(generate, prompts))
+        finally:
+            server.shutdown()
+            engine.release_followers()
+    else:
+        engine.follow()
+    out["errors"] = {i: r.error is not None for i, r in engine._requests.items()}
+    out["tripped"] = len(tripped)
+    out["sessions"] = list(engine.sessions)
+    return out
+
+
 def vl_generate(vision_cfg, text_cfg, state, data: int, model: int, ids, patches, grid,
                 n: int, image_token_id: int, mrope_section):
     from gvl_tpu_torch.models.qwen3vl import Qwen3VL
