@@ -227,10 +227,29 @@ Run from the root of the repository, on a machine with one CUDA card and
     stopped by SIGTERM to its serving rank (both exit 0); per rank decode ms
     per step against the unsharded step, collective ms, allocator peak;
     within ``MESH_BUDGET_S``.  Phase 0 also notes which gloo collectives
-    take CUDA tensors in this PyTorch.
+    take CUDA tensors in this PyTorch;
+21. the rest of the public surface (``run_surface``): the decoder-family
+    ``nn.TransformerStack`` (RMSNorm, SwiGLU, causal GQA, rope base 1e6,
+    qk-norm, no biases) at the 8B layer geometry, depth 2, bf16, one
+    sequence of 2048 (``SURFACE_GEOMETRY``), kernel path against the plain
+    path (``nn.layers.plain_attention``) and both against an f32 plain
+    evaluation of the same weights, forward and forward + backward: the
+    output, the input's gradient and the parameters' gradients within
+    twice the plain bf16 path's relative L2 (floor 2^-8, phase 20's rule),
+    B1 2 a forward and 2 more a backward (the blockwise backward's delta),
+    none on the plain path; a cross-attention call and a ``kv_len``-masked
+    block at small shapes; the fused so400m tower with ``int8_attention``
+    (phase 9's seeded weights, 8 frames at 384 px) against its plain path,
+    pooled cosine >= ``COS_KERNEL_PLAIN``, B9 27 a forward in its
+    int8_scores mode, beside the tower without it (cosine and images/s
+    recorded); ``encode_with_context`` equal to its two region calls;
+    ``stage_scope`` by name in a ``torch.profiler`` trace and
+    ``device_memory_stats`` nonzero; within ``SURFACE_BUDGET_S``.  Phase 2
+    also times B1 at the stack's shape (row 1u) and B9 in its int8_scores
+    mode (row 9a).
 
 Kernel launch counts are zeroed just before each served run (the kernel
-path of phases 3 to 20) and read just after it; each run must have launched
+path of phases 3 to 21) and read just after it; each run must have launched
 every kernel of its path, and as many appends as decode attentions (a
 decode step writes each layer's K and V with one launch).
 ``quant_static`` and ``attention_qkv_packed`` lie on no served path (as in
@@ -823,6 +842,27 @@ def check_kernels(dev) -> list[dict]:
     del qt, kt, vt
     torch.cuda.empty_cache()
 
+    # the decoder-family nn.TransformerStack at the 8B layer geometry (phase
+    # 21, PERF.md row 1u): one sequence of 2048, GQA 32/8, causal, bf16
+    shape = "nn decoder stack (phase 21): q [1,32,2048,128], k/v [1,8,2048,128] bf16, causal"
+    qt = randn(1, 32, 2048, 128, dtype=torch.bfloat16)
+    kt, vt = (randn(1, 8, 2048, 128, dtype=torch.bfloat16) for _ in range(2))
+    err = assert_close(f"flash_attention {shape}", flash_attention(qt, kt, vt, causal=True),
+                       attention_reference(qt, kt, vt, causal=True), BF16_TOL)
+    line_bound = bound_ms(sum(t.nbytes for t in (qt, kt, vt)) + qt.nbytes,
+                          4.0 * 32 * 128 * attention_pairs(2048, 2048, True, None),
+                          torch.bfloat16)
+    flash["lines"].append(dict(
+        name="flash_attention", shape=shape, max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(qt, kt, vt, causal=True), 50),
+        device_ms=kernel_device_ms(lambda: flash_attention(qt, kt, vt, causal=True),
+                                   ("flash_attention",)),
+        plain_ms=time_ms(lambda: attention_reference(qt, kt, vt, causal=True), 10),
+        bound_ms=line_bound[0], bound_by=line_bound[1], bound_peak=line_bound[2],
+        library="SDPA, bf16",
+        library_ms=time_ms(lambda: library_flash(qt, kt, vt, True), 50)))
+    del qt, kt, vt
+
     # the two largest attention shapes of the perception trainers (phase 19,
     # PERF.md rows 1s and 1t), f32 as they train: VideoMAE's at its batch of
     # 16 clips and the byte ASR's encoder at its batch of 24 windows
@@ -1283,6 +1323,26 @@ def check_quant_kernels(dev) -> list[dict]:
             plain_ms=time_ms(lambda: plain(buf, **kw, **extra), 5),
             bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2],
             library_ms=time_ms(lambda: library_encoder_attention(buf, 8, 736, 16, dh, mask))))
+    # B9 in its int8_scores mode at the same frames (phase 21's tower with
+    # int8_attention, PERF.md row 9a): both products on s8 tensor cores
+    from gvl_tpu_torch.device_times import kernel_device_ms
+
+    kw8 = dict(kw, dh_pad=128, out_scale_inv=40.0, int8_scores=True)
+    bnd = bound_ms(qkv.nbytes + qkv.nbytes // 6, 4.0 * 128 * pairs, torch.int8)
+    b9 = next(row for row in rows if row["name"] == "attention_fused_qkv")
+    b9["lines"] = [dict(
+        name="attention_fused_qkv", max_abs_err=att[("fused", "frames")],
+        shape="so400m layer, batch 8, int8_scores: bf16 [5888,3x16x128] -> int8",
+        ms=time_ms(lambda: qm.attention_fused_qkv(qkv, **kw8)),
+        device_ms=kernel_device_ms(lambda: qm.attention_fused_qkv(qkv, **kw8),
+                                   ("encoder_attention", "slab_amax")),
+        plain_ms=time_ms(lambda: qm.attention_fused_qkv_reference(qkv, **kw8), 5),
+        bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2], library="SDPA, bf16",
+        library_ms=time_ms(lambda: library_encoder_attention(qkv, 8, 736, 16, 128, mask)))]
+    line = b9["lines"][0]
+    log("kernels", f"attention_fused_qkv int8_scores at so400m frames: kernel "
+        f"{line['ms']:.4f} ms (device {line['device_ms']}), plain {line['plain_ms']:.4f} ms, "
+        f"SDPA {line['library_ms']:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
     for row in rows:
         log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
             f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
@@ -1916,16 +1976,24 @@ def timed_encode(fn, repeats: int = 3) -> tuple:
     return out, (time.perf_counter() - start) / repeats
 
 
-def plain_pooled(backend, batch):
-    """The plain path of the backend's fused tree on the same batch."""
+def fused_pooled(backend, pixels, **kw):
+    """Pooled embeddings of the backend's fused tree on normalised pixels
+    (``kw``: ``siglip_fused_apply``'s ``int8_attention``, ``kernels``)."""
     import torch
 
     from gvl_tpu_torch.models.siglip_fused import siglip_fused_apply
 
     with torch.inference_mode():
-        out = siglip_fused_apply(backend.fused, backend.normalize(batch, torch.bfloat16),
-                                 backend.config, pool=False, kernels=False)
+        out = siglip_fused_apply(backend.fused, pixels, backend.config, pool=False, **kw)
+    torch.cuda.synchronize()
     return backend.pooled(out)
+
+
+def plain_pooled(backend, batch):
+    """The plain path of the backend's fused tree on the same batch."""
+    import torch
+
+    return fused_pooled(backend, backend.normalize(batch, torch.bfloat16), kernels=False)
 
 
 def run_semantic(dev):
@@ -5290,6 +5358,16 @@ MESH_BF16_RATIO = 1.0
 # plain bf16 path's error (relative L2), or 2**-8 where that is smaller
 MESH_RING_RATIO, MESH_RING_FLOOR = 2.0, 2 ** -8
 COS_DP = 0.99999             # data-parallel pooled embeddings against one rank
+# phase 21: the rest of gvl_tpu's public surface.  The decoder-family
+# nn.TransformerStack at the 8B layer geometry the repository serves
+# (__graft_entry__.py: hidden 4096, 32 q / 8 kv heads of 128, FFN 12288,
+# rope base 1e6), depth 2, bf16, one sequence of 2048 tokens
+SURFACE_SEED = 21
+SURFACE_GEOMETRY = dict(dim=4096, num_heads=32, intermediate_dim=12288, num_kv_heads=8,
+                        head_dim=128, norm="rmsnorm", mlp="swiglu", causal=True, rope=True,
+                        rope_base=1e6, qk_norm=True, use_bias=False)
+SURFACE_LAYERS, SURFACE_SEQ = 2, 2048
+SURFACE_BUDGET_S = 90
 
 
 def implied_tp(cfg, steps: int) -> dict[str, int]:
@@ -6277,6 +6355,241 @@ def run_mesh(dev, prompts):
     return {k: launched.get(k, 0) for k in kernel_launches()}
 
 
+def surface_decoder(dev) -> dict:
+    """Phase 21 (a): the decoder-family stack at the 8B layer geometry, kernel
+    path against the plain path (``nn.layers.plain_attention``) and both
+    against an f32 plain evaluation of the same weights: forward, then
+    forward and backward; B1's launches as implied.  Then a cross-attention
+    call and a ``kv_len``-masked block at small shapes."""
+    import torch
+
+    from gvl_tpu_torch.nn.layers import (
+        Attention,
+        TransformerBlock,
+        TransformerStack,
+        init_state,
+        load_module,
+        plain_attention,
+    )
+    from gvl_tpu_torch.ops.attention import flash_attention
+    from gvl_tpu_torch.utils.profiler import stage_scope
+
+    geometry = dict(SURFACE_GEOMETRY)
+    dim = geometry.pop("dim")
+    heads, ffn = geometry.pop("num_heads"), geometry.pop("intermediate_dim")
+
+    def build():
+        with torch.device("meta"):
+            return TransformerStack(SURFACE_LAYERS, dim, heads, ffn, **geometry)
+
+    gen = torch.Generator(device=dev).manual_seed(SURFACE_SEED)
+    model = build()
+    state = init_state(model, gen, dev)
+    f32 = load_module(build(), state, dev)
+    bf16 = load_module(model, {k: v.bfloat16() for k, v in state.items()}, dev)
+    del state
+    x = torch.randn(1, SURFACE_SEQ, dim, generator=gen, device=dev)
+    g = torch.randn(1, SURFACE_SEQ, dim, generator=gen, device=dev)
+
+    def run(net, inp, plain: bool, backward: bool):
+        """(output, [d input, *d parameters]) of one call."""
+        net.zero_grad(set_to_none=True)
+        leaf = inp.clone().requires_grad_(backward)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_attention())
+            if not backward:
+                stack.enter_context(torch.inference_mode())
+            out = net(leaf)
+            if backward:
+                (out.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        grads = ([leaf.grad] + [p.grad for p in net.parameters()]) if backward else []
+        return out.detach(), grads
+
+    def flat(grads):
+        return torch.cat([t.float().flatten() for t in grads])
+
+    result, launches = {}, {}
+    xb = x.bfloat16()
+    for backward in (False, True):
+        what = "forward + backward" if backward else "forward"
+        reset_launches()
+        with stage_scope("decoder_stack"):
+            out_k, grads_k = run(bf16, xb, False, backward)
+        counts = served_launches("surface", ("flash_attention",))
+        want = SURFACE_LAYERS * (2 if backward else 1)   # + the blockwise delta recompute
+        if counts["flash_attention"] != want or sum(counts.values()) != want:
+            raise AssertionError(f"surface: decoder stack {what}: launches {counts}, "
+                                 f"implied flash_attention {want} and nothing else")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        with uncounted():
+            before = flash_attention.launches
+            out_p, grads_p = run(bf16, xb, True, backward)
+            if flash_attention.launches != before:
+                raise AssertionError("surface: the plain path launched B1")
+            out_t, grads_t = run(f32, x, True, backward)
+        pairs = [("out", out_k, out_p, out_t)]
+        if backward:
+            pairs += [("d input", grads_k[0], grads_p[0], grads_t[0]),
+                      ("d parameters", flat(grads_k[1:]), flat(grads_p[1:]),
+                       flat(grads_t[1:]))]
+        for name, kern, plain, truth in pairs:
+            err_k, err_p = rel_l2(kern, truth), rel_l2(plain, truth)
+            limit = max(MESH_RING_RATIO * err_p, MESH_RING_FLOOR)
+            ok = bool(torch.isfinite(kern).all()) and err_k <= limit
+            log("surface", f"decoder stack {what}, {name}: relative L2 against f32, kernel "
+                f"path {err_k:.3e}, plain bf16 path {err_p:.3e} (limit {limit:.3e}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"surface: decoder stack {what} {name}: kernel path "
+                                     f"{err_k} against f32, limit {limit}")
+            result[f"{what} {name}"] = (err_k, err_p)
+        with uncounted():
+            for plain in (False, True):
+                ms = time_ms(lambda: run(bf16, xb, plain, backward), iters=3)
+                result[f"{what} {'plain' if plain else 'kernel'} ms"] = ms
+        log("surface", f"decoder stack {what} ms: kernel path "
+            f"{result[f'{what} kernel ms']:.2f}, plain path {result[f'{what} plain ms']:.2f}; "
+            f"{nvidia_smi()}")
+        del out_k, grads_k, out_p, grads_p, out_t, grads_t
+    with uncounted():   # the stage's name in a profile of one call
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with stage_scope("decoder_stack"):
+                run(bf16, xb, False, False)
+    names = {e.key for e in prof.key_averages()}
+    if "decoder_stack" not in names:
+        raise AssertionError("surface: stage_scope's range is missing from the profile")
+    log("surface", "stage_scope 'decoder_stack' found in a torch.profiler trace of one call")
+    del f32, bf16, x, g
+    torch.cuda.empty_cache()
+
+    # cross-attention (kv given: rope on q alone) and a kv_len-masked block
+    gen = torch.Generator(device=dev).manual_seed(SURFACE_SEED + 1)
+    small = [("cross-attention [1,200,512] over kv [1,300,512], GQA 8/2, rope, qk-norm",
+              Attention(512, 8, num_kv_heads=2, rope=True, qk_norm=True),
+              lambda m, a, b: m(a, b), 1),
+             ("LayerNorm/GELU block [2,192,512], kv_len 150",
+              TransformerBlock(512, 8, 1024),
+              lambda m, a, b: m(a, kv_len=150), 1)]
+    for what, module, call, implied in small:
+        module = load_module(module, {k: v.bfloat16() for k, v in
+                                      init_state(module, gen, dev).items()}, dev)
+        a = torch.randn(2 if "block" in what else 1, 192 if "block" in what else 200, 512,
+                        generator=gen, device=dev).bfloat16()
+        b = torch.randn(1, 300, 512, generator=gen, device=dev).bfloat16()
+        reset_launches()
+        with torch.inference_mode():
+            got = call(module, a, b)
+        torch.cuda.synchronize()
+        counts = served_launches("surface", ("flash_attention",))
+        with uncounted(), plain_attention(), torch.inference_mode():
+            want = call(module, a, b)
+        err = assert_close(f"surface: {what}, kernel vs plain path", got, want, BF16_TOL)
+        if counts["flash_attention"] != implied:
+            raise AssertionError(f"surface: {what}: launches {counts}")
+        launches["flash_attention"] += implied
+        result[what] = err
+    return {"launches": launches, "rows": result}
+
+
+def surface_int8_tower(dev) -> dict:
+    """Phase 21 (b): the so400m fused tower with ``int8_attention`` (B9 in its
+    int8_scores mode) on 8 frames at 384 px, phase 9's seeded weights,
+    against its plain path; beside the tower without it; images/s of both.
+    Then ``encode_with_context`` on the same encoder against two
+    ``encode_masked_regions`` calls."""
+    import numpy as np
+    import torch
+
+    from gvl_tpu_torch.perception.semantic import NaFlexConfig, SigLIPSemanticEncoder
+
+    encoder = SigLIPSemanticEncoder.with_random_tower(NaFlexConfig(quant_fused=True),
+                                                      device=dev, seed=SEMANTIC_SEED)
+    backend = encoder.backend
+    cfg = backend.config
+    frames, frame, masks = semantic_inputs()
+    batch = np.stack([encoder.region_extractor.prepare(f)[0] for f in frames])
+    pixels = backend.normalize(batch, torch.bfloat16)
+    launches = {}
+    reset_launches()
+    got = fused_pooled(backend, pixels, int8_attention=True)
+    counts = served_launches("surface", ("w8a8_matmul", "ln_quant", "attention_fused_qkv"))
+    want_counts = dict(FUSED_LAUNCHES, attention_fused_qkv=cfg.num_layers)
+    if any(counts[k] != v for k, v in want_counts.items()) or counts[
+            "attention_packed_multihead"]:
+        raise AssertionError(f"surface: int8_attention tower launches {counts}, one forward "
+                             f"launches {want_counts}")
+    launches.update({k: v for k, v in counts.items() if v})
+    with uncounted():
+        cos = check_cosine("surface", f"so400m int8_attention tower ({len(frames)} frames): "
+                           "kernel path vs plain path", got,
+                           fused_pooled(backend, pixels, int8_attention=True, kernels=False),
+                           COS_KERNEL_PLAIN)
+        bf16_scores = fused_pooled(backend, pixels)
+        against = cosines(got, bf16_scores)
+        _, s8 = timed_encode(lambda: fused_pooled(backend, pixels, int8_attention=True))
+        _, s = timed_encode(lambda: fused_pooled(backend, pixels))
+    log("surface", f"int8_attention against int8_attention=False, same tree: pooled cosine "
+        f"min {against.min():.6f} mean {against.mean():.6f} (recorded, no limit); "
+        f"images/s {len(frames) / s8:.1f} with int8_attention, {len(frames) / s:.1f} "
+        f"without ({1e3 * s8:.2f} / {1e3 * s:.2f} ms per 8 frames); {nvidia_smi()}")
+
+    entity, mask = masks[0]
+    reset_launches()
+    region, context = encoder.encode_with_context(frame, mask)
+    counts = served_launches("surface", ("w8a8_matmul", "ln_quant", "attention_fused_qkv"))
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    with uncounted():
+        import scipy.ndimage as ndi
+
+        ring = ndi.binary_dilation(mask, iterations=max(1, 50 // 3)) & ~mask
+        want = [encoder.encode_masked_regions(frame, [(name, m)])[0]
+                for name, m in (("region", mask), ("context", ring))]
+    same = all(np.array_equal(a.embedding, b.embedding) and a.original_bbox == b.original_bbox
+               for a, b in zip((region, context), want))
+    log("surface", f"encode_with_context ({entity}): region and context embeddings "
+        f"{'equal to two encode_masked_regions calls: ok' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("surface: encode_with_context differs from its two region calls")
+    del encoder, backend
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cos_plain": cos, "images_per_s": (len(frames) / s8,
+                                                                      len(frames) / s)}
+
+
+def run_surface(dev) -> dict:
+    """Phase 21 (the module docstring): the decoder-family nn blocks on B1,
+    the fused tower's int8 attention on B9, encode_with_context, stage_scope
+    and device_memory_stats; within ``SURFACE_BUDGET_S``."""
+    import torch
+
+    from gvl_tpu_torch.utils.profiler import device_memory_stats
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    decoder = surface_decoder(dev)
+    tower = surface_int8_tower(dev)
+    stats = device_memory_stats()
+    log("surface", f"device_memory_stats {stats}")
+    if not (stats.get("bytes_in_use", 0) > 0 and stats.get("peak_bytes_in_use", 0) > 0
+            and stats.get("bytes_limit", 0) >= stats["peak_bytes_in_use"]):
+        raise AssertionError(f"surface: device_memory_stats {stats}")
+    elapsed = time.perf_counter() - start
+    log("surface", f"phase 21 in {elapsed:.1f} s (budget {SURFACE_BUDGET_S} s)")
+    if elapsed > SURFACE_BUDGET_S:
+        raise AssertionError(f"surface: phase 21 took {elapsed:.1f} s, over its "
+                             f"{SURFACE_BUDGET_S} s")
+    launched = {}
+    for part in (decoder["launches"], tower["launches"]):
+        for k, v in part.items():
+            launched[k] = launched.get(k, 0) + v
+    return {k: launched.get(k, 0) for k in kernel_launches()}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import tempfile
@@ -6348,9 +6661,11 @@ def main() -> int:
     served.append(perception_launches)
     torch.cuda.empty_cache()
     served.append(run_mesh(dev, prompts))
+    torch.cuda.empty_cache()
+    served.append(run_surface(dev))
     trainer_b1 = {row["name"]: row["b1_per_step"] for row in trainer_rows}
     launches = {name: sum(run.get(name, 0) for run in served) for name in served[0]}
-    log("launches", f"served paths (phases 3-20): {launches}")
+    log("launches", f"served paths (phases 3-21): {launches}")
     missing = [name for name, n in launches.items() if n == 0 and name not in UNSERVED]
     if missing:
         raise AssertionError(f"kernels not launched on a served path: {missing}")

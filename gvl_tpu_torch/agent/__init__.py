@@ -1,6 +1,5 @@
 """Agent core: conversation, retrieval, tools, triggers, prompts, reasoning
-(the port's copy of :mod:`gvl_tpu.agent`; the web search is
-:mod:`gvl_tpu_torch.agent.search`).
+(the port's copy of :mod:`gvl_tpu.agent`).
 
 Everything here is host code except the chat backends, which drive the
 port's Qwen3 engines and its Qwen3-VL model on the card."""
@@ -19,9 +18,16 @@ from gvl_tpu_torch.agent.core import (
     ReasoningCore,
     TemplateFakeBackend,
     TimelineGroundedFakeBackend,
+    VisualInputProcessor,
     create_reasoning_core,
 )
 from gvl_tpu_torch.agent.loop import PerceptionReasoningLoop, create_perception_loop
+from gvl_tpu_torch.agent.search import (
+    GameDetector,
+    GameKnowledgeSearcher,
+    SearchCache,
+    create_search_enhanced_system_prompt,
+)
 
 __all__ = [
     "ReasoningCoreConfig",
@@ -41,7 +47,12 @@ __all__ = [
     "ReasoningCore",
     "TemplateFakeBackend",
     "TimelineGroundedFakeBackend",
+    "VisualInputProcessor",
     "create_reasoning_core",
     "PerceptionReasoningLoop",
     "create_perception_loop",
+    "GameKnowledgeSearcher",
+    "GameDetector",
+    "SearchCache",
+    "create_search_enhanced_system_prompt",
 ]

@@ -159,24 +159,41 @@ def map_head_from_jax(head: dict, prefix: str = "head") -> dict[str, torch.Tenso
 
 
 def _attention(node: dict, prefix: str) -> dict:
-    """Four Flax ``Dense`` projections q/k/v/o (``gvl_tpu.nn.layers.
-    Attention``, or Whisper's, whose k_proj has no bias)."""
+    """Four Flax ``Dense`` projections q/k/v/o, with or without biases
+    (``gvl_tpu.nn.layers.Attention``, or Whisper's, whose k_proj has no
+    bias), and the per-head ``q_norm`` / ``k_norm`` scales where the tree
+    has them."""
     out = {}
     for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
         out.update(_dense(node[name], f"{prefix}.{name}"))
+    for name in ("q_norm", "k_norm"):
+        if name in node:
+            out[f"{prefix}.{name}.weight"] = _tensor(node[name]["scale"])
     return out
 
 
 def _mlp(node: dict, prefix: str) -> dict:
-    out = _dense(node["fc1"], f"{prefix}.fc1")
-    out.update(_dense(node["fc2"], f"{prefix}.fc2"))
+    """An ``MlpGelu`` (fc1, fc2) or an ``MlpSwiGLU`` (gate, up, down)."""
+    names = ("gate_proj", "up_proj", "down_proj") if "gate_proj" in node else ("fc1", "fc2")
+    out = {}
+    for name in names:
+        out.update(_dense(node[name], f"{prefix}.{name}"))
     return out
 
 
+def _block_norm(node: dict, name: str, prefix: str) -> dict:
+    """The Flax auto-named norm ``LayerNorm_i`` or ``RMSNorm_i`` (scale
+    only) under ``prefix``."""
+    if f"RMSNorm_{name}" in node:
+        return {f"{prefix}.weight": _tensor(node[f"RMSNorm_{name}"]["scale"])}
+    return _norm(node[f"LayerNorm_{name}"], prefix)
+
+
 def block_from_jax(layer: dict, prefix: str) -> dict:
-    """A Flax LayerNorm/GELU ``TransformerBlock`` → the port's block."""
-    out = _norm(layer["LayerNorm_0"], f"{prefix}.ln1")
-    out.update(_norm(layer["LayerNorm_1"], f"{prefix}.ln2"))
+    """A Flax ``TransformerBlock`` of either family (LayerNorm or RMSNorm,
+    GELU or SwiGLU MLP, biases or none, qk-norm) → the port's block."""
+    out = _block_norm(layer, "0", f"{prefix}.ln1")
+    out.update(_block_norm(layer, "1", f"{prefix}.ln2"))
     out.update(_attention(layer["attention"], f"{prefix}.attention"))
     out.update(_mlp(layer["mlp"], f"{prefix}.mlp"))
     return out
@@ -184,11 +201,13 @@ def block_from_jax(layer: dict, prefix: str) -> dict:
 
 def stack_from_jax(node: dict, prefix: str, num_layers: int) -> dict:
     """A Flax ``TransformerStack`` (blocks ``layers_{i}``, its final norm
-    ``LayerNorm_0``) → the port's ``TransformerStack``."""
+    ``LayerNorm_0`` or ``RMSNorm_0`` when it has one) → the port's
+    ``TransformerStack``."""
     out = {}
     for i in range(num_layers):
         out.update(block_from_jax(node[f"layers_{i}"], f"{prefix}.layers.{i}"))
-    out.update(_norm(node["LayerNorm_0"], f"{prefix}.final_norm"))
+    if "LayerNorm_0" in node or "RMSNorm_0" in node:
+        out.update(_block_norm(node, "0", f"{prefix}.final_norm"))
     return out
 
 

@@ -168,3 +168,14 @@ class ProjectorBank:
                                for p in ("weight", "bias")}
                         for name, state in states.items()}, path)
         logger.info("saved projector weights to %s", path)
+
+
+def create_projector_bank(config: Optional[ReasoningCoreConfig] = None,
+                          weights_path: Optional[str] = None, seed: int = 0,
+                          device: str | torch.device = "cuda") -> ProjectorBank:
+    """A bank drawn from ``seed``, holding the trained weights at
+    ``weights_path`` when that file exists."""
+    bank = ProjectorBank(config, device).init(seed)
+    if weights_path and Path(weights_path).exists():
+        bank.load_weights(weights_path)
+    return bank

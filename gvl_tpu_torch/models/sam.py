@@ -229,6 +229,10 @@ class PromptableSegmenter(nn.Module):
         return {"mask_logits": out["mask_logits"].reshape(f, c, q, side, -1),
                 "scores": out["scores"]}
 
+    def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
+        """The image encoder's features ``[F, tokens, encoder_dim]``."""
+        return self.image_encoder(pixels)
+
 
 def load_segmenter_npz(path) -> dict:
     """The JAX package's flat-npz variables (``{"params": ...}``), numpy."""

@@ -157,7 +157,7 @@ class SigLIPVisionTower(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(config.num_patches, config.hidden_size))
         self.layers = nn.ModuleList(
             TransformerBlock(config.hidden_size, config.num_heads,
-                             config.intermediate_size, eps=config.layer_norm_eps,
+                             config.intermediate_size, norm_eps=config.layer_norm_eps,
                              quant=config.quant_int8,
                              quant_static=config.quant_static_act)
             for _ in range(config.num_layers))
@@ -283,7 +283,7 @@ class SigLIPTextTower(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(config.max_position, config.hidden_size))
         self.layers = nn.ModuleList(
             TransformerBlock(config.hidden_size, config.num_heads,
-                             config.intermediate_size, eps=config.layer_norm_eps)
+                             config.intermediate_size, norm_eps=config.layer_norm_eps)
             for _ in range(config.num_layers))
         self.final_norm = LayerNorm(config.hidden_size, config.layer_norm_eps)
         self.head = nn.Linear(config.hidden_size, config.projection_size)

@@ -19,8 +19,9 @@ convert.fused_from_jax` from a JAX fused tree) is a plain dict: the int8
 matrices ``[N, K]`` (K contiguous, the transpose of the JAX layout), f32
 scale and bias vectors, the inverse quantize scales as Python floats, and
 under ``"bf16"`` the patch embed, position embedding, post-norm and the MAP
-head's state dict.  The JAX package's per-op TPU tile table
-(``BLOCKS``, ``ATTN_BLOCK_Q``) has no counterpart here.
+head's state dict.  The JAX package's per-op TPU tile table (``BLOCKS``)
+has no counterpart here; :data:`ATTN_BLOCK_Q` stays, since it sets the q
+blocks over which ``int8_attention`` quantizes q.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from gvl_tpu_torch.ops import quant_matmul as qm
 
 SEQ_PAD = 32   # per-image row multiple of the residual stream (S 729 → 736)
 DH_PAD = 128   # per-head columns of the padded QKV/attention layout
+ATTN_BLOCK_Q = 1024   # q rows per int8_scores quantize block (clamped to Sp)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -143,8 +145,8 @@ PLAIN_OPS = (qm.ln_quant_reference, qm.w8a8_matmul_reference,
 
 
 def _fused_layer(h: torch.Tensor, lp: dict, config: SigLIPVisionConfig, batch: int,
-                 seq_pad: int, seq: int, packed: bool = False,
-                 ops: tuple = KERNEL_OPS) -> torch.Tensor:
+                 seq_pad: int, seq: int, int8_attention: bool = False,
+                 packed: bool = False, ops: tuple = KERNEL_OPS) -> torch.Tensor:
     """One encoder layer over the ``[B·Sp, D]`` residual stream."""
     ln_quant, w8a8_matmul, attention_fused_qkv, attention_packed_multihead = ops
     d, n_heads = config.hidden_size, config.num_heads
@@ -161,7 +163,8 @@ def _fused_layer(h: torch.Tensor, lp: dict, config: SigLIPVisionConfig, batch: i
     else:
         aq = attention_fused_qkv(
             qkv, batch=batch, seq_pad=seq_pad, kv_len=seq, num_heads=n_heads,
-            dh_pad=DH_PAD, sm_scale=sm_scale, out_scale_inv=lp["attn_inv"])
+            dh_pad=DH_PAD, sm_scale=sm_scale, int8_scores=int8_attention,
+            block_q=ATTN_BLOCK_Q, out_scale_inv=lp["attn_inv"])
     h = w8a8_matmul(aq, lp["w_o"], lp["s_o"], lp["b_o"], epilogue="residual",
                     residual=h)
     yq = ln_quant(h, lp["ln2_g"], lp["ln2_b"], lp["ln2_inv"], eps=eps)
@@ -172,13 +175,16 @@ def _fused_layer(h: torch.Tensor, lp: dict, config: SigLIPVisionConfig, batch: i
 
 
 def siglip_fused_apply(fused: dict, pixels: torch.Tensor, config: SigLIPVisionConfig,
-                       *, pool: bool = True, kernels: bool = True) -> dict[str, torch.Tensor]:
+                       *, pool: bool = True, int8_attention: bool = False,
+                       kernels: bool = True) -> dict[str, torch.Tensor]:
     """Forward pass with the tower's output contract (``last_hidden_state``
     bf16 ``[B, S, D]``, ``pooled`` from the MAP head when ``pool``).
     Pixels ``[B, H, W, 3]``; an off-size canvas resizes the position grid
-    in f32.  ``kernels=False`` runs the plain versions of the fused ops
-    on whatever device the tree is on (the plain path the kernels are
-    held to)."""
+    in f32.  ``int8_attention`` takes the padded-head attention's
+    ``int8_scores`` mode (q, k, p and v in int8); the packed layout ignores
+    it, as the JAX package does.  ``kernels=False`` runs the plain versions
+    of the fused ops on whatever device the tree is on (the plain path the
+    kernels are held to)."""
     cfg = config
     bf = fused["bf16"]
     b = pixels.shape[0]
@@ -197,8 +203,8 @@ def siglip_fused_apply(fused: dict, pixels: torch.Tensor, config: SigLIPVisionCo
     # of 128 they coincide and the padded kernel serves both
     packed = fused["layers"][0]["w_o"].shape[1] != cfg.num_heads * DH_PAD
     for lp in fused["layers"]:
-        h = _fused_layer(h, lp, cfg, b, seq_pad, seq, packed=packed,
-                         ops=KERNEL_OPS if kernels else PLAIN_OPS)
+        h = _fused_layer(h, lp, cfg, b, seq_pad, seq, int8_attention=int8_attention,
+                         packed=packed, ops=KERNEL_OPS if kernels else PLAIN_OPS)
     xf = h.reshape(b, seq_pad, d)[:, :seq].float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu

@@ -221,6 +221,19 @@ class WhisperModel(nn.Module):
     def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         return self.decoder(tokens, self.encoder(mel))
 
+    def encode(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.encoder(mel)
+
+    def decode(self, tokens: torch.Tensor, encoder_states: torch.Tensor) -> torch.Tensor:
+        return self.decoder(tokens, encoder_states)
+
+    def precompute_cross(self, encoder_states: torch.Tensor) -> list:
+        return self.decoder.precompute_cross(encoder_states)
+
+    def decode_step(self, token: torch.Tensor, cross_kv: list, self_caches: list,
+                    pos: int) -> torch.Tensor:
+        return self.decoder.decode_step(token, cross_kv, self_caches, pos)
+
 
 def load_whisper(config: WhisperConfig, params: dict,
                  device: str | torch.device = "cuda") -> WhisperModel:

@@ -146,36 +146,74 @@ def load_module(model: nn.Module, state: dict[str, torch.Tensor],
     return model.to(device).eval()
 
 
+def _make_norm(kind: str, dim: int, eps: float) -> nn.Module:
+    """The block's norm: ``"rmsnorm"`` (scale only) or ``"layernorm"``
+    (Flax's ``LayerNorm``: scale and bias), as ``gvl_tpu.nn.layers._make_norm``."""
+    if kind == "rmsnorm":
+        return RMSNorm(dim, eps)
+    if kind == "layernorm":
+        return LayerNorm(dim, eps)
+    raise ValueError(f"unknown norm kind: {kind}")
+
+
 class Attention(nn.Module):
-    """Multi-head self-attention of the encoder family (bias on every
-    projection, no mask but an optional key length), input and output
-    ``[B, S, D]``; heads go to :func:`gvl_tpu_torch.ops.attention.
-    flash_attention` as ``[B, H, S, dh]`` (``gvl_tpu.nn.layers.Attention``
-    with ``quant`` / ``quant_static``: W8A8 projections)."""
+    """Multi-head attention, optionally grouped-query, cross- and rotary
+    (``gvl_tpu.nn.layers.Attention``): input ``[B, S, dim]``, output
+    ``[B, S, out_dim or dim]``; heads go through :func:`attend` as
+    ``[B, H, S, head_dim]``, so the flash kernel takes the causal and
+    ``kv_len`` masks and the grouped KV heads.
+
+    ``qk_norm`` puts a per-head RMSNorm (eps 1e-6, whatever the block's
+    norm eps) on q and k; ``rope`` rotates q by ``positions`` (default
+    ``arange(seq_q)``) and k as well when there is no ``kv``.  Cross-
+    attention takes ``kv`` of width ``dim``.  ``quant`` / ``quant_static``:
+    W8A8 projections."""
 
     use_flash_kernel = True
 
-    def __init__(self, dim: int, num_heads: int, *, quant: bool = False,
+    def __init__(self, dim: int, num_heads: int, *, num_kv_heads: Optional[int] = None,
+                 head_dim: Optional[int] = None, out_dim: Optional[int] = None,
+                 use_bias: bool = True, causal: bool = False, qk_norm: bool = False,
+                 rope: bool = False, rope_base: float = 10000.0, quant: bool = False,
                  quant_static: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        self.head_dim = dim // num_heads
-        inner = num_heads * self.head_dim
-        self.q_proj = _dense(dim, inner, quant, quant_static)
-        self.k_proj = _dense(dim, inner, quant, quant_static)
-        self.v_proj = _dense(dim, inner, quant, quant_static)
-        self.o_proj = _dense(inner, dim, quant, quant_static)
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = head_dim or dim // num_heads
+        self.causal, self.rope, self.rope_base = causal, rope, rope_base
+        q_width, kv_width = num_heads * self.head_dim, self.num_kv_heads * self.head_dim
+        self.q_proj = _dense(dim, q_width, quant, quant_static, use_bias)
+        self.k_proj = _dense(dim, kv_width, quant, quant_static, use_bias)
+        self.v_proj = _dense(dim, kv_width, quant, quant_static, use_bias)
+        self.o_proj = _dense(q_width, out_dim or dim, quant, quant_static, use_bias)
+        self.q_norm = RMSNorm(self.head_dim) if qk_norm else None
+        self.k_norm = RMSNorm(self.head_dim) if qk_norm else None
 
-    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
+                positions: Optional[torch.Tensor] = None,
                 kv_len: Optional[int] = None) -> torch.Tensor:
         kv_in = x if kv is None else kv
         batch, seq_q, _ = x.shape
 
-        def heads(t):
-            return t.view(batch, -1, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
+        def heads(t, n):   # [B, S, n, dh]
+            return t.view(batch, -1, n, self.head_dim)
 
-        out = attend(self, heads(self.q_proj(x)), heads(self.k_proj(kv_in)),
-                     heads(self.v_proj(kv_in)), kv_len=kv_len)
+        q = heads(self.q_proj(x), self.num_heads)
+        k = heads(self.k_proj(kv_in), self.num_kv_heads)
+        v = heads(self.v_proj(kv_in), self.num_kv_heads)
+        if self.q_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if self.rope:
+            from gvl_tpu_torch.ops.rope import apply_rope, rope_angles
+
+            pos = positions if positions is not None else torch.arange(seq_q, device=x.device)
+            cos, sin = rope_angles(pos, self.head_dim, self.rope_base)
+            q = apply_rope(q, cos, sin)
+            if kv is None:
+                k = apply_rope(k, cos, sin)
+        out = attend(self, q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=self.causal, kv_len=kv_len)
         out = out.transpose(1, 2).reshape(batch, seq_q, self.num_heads * self.head_dim)
         return self.o_proj(out)
 
@@ -186,50 +224,86 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 class MlpGelu(nn.Module):
-    """fc1 → tanh GELU → fc2 (``gvl_tpu.nn.layers.MlpGelu``)."""
+    """fc1 → ``act`` (tanh GELU) → fc2 (``gvl_tpu.nn.layers.MlpGelu``)."""
 
-    def __init__(self, dim: int, intermediate_dim: int, *, quant: bool = False,
-                 quant_static: bool = False):
+    def __init__(self, dim: int, intermediate_dim: int, *, act=gelu_tanh,
+                 use_bias: bool = True, quant: bool = False, quant_static: bool = False):
         super().__init__()
-        self.fc1 = _dense(dim, intermediate_dim, quant, quant_static)
-        self.fc2 = _dense(intermediate_dim, dim, quant, quant_static)
+        self.act = act
+        self.fc1 = _dense(dim, intermediate_dim, quant, quant_static, use_bias)
+        self.fc2 = _dense(intermediate_dim, dim, quant, quant_static, use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_tanh(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class MlpSwiGLU(nn.Module):
+    """gate/up/down SwiGLU MLP of the decoder family
+    (``gvl_tpu.nn.layers.MlpSwiGLU``): ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, dim: int, intermediate_dim: int, *, use_bias: bool = False):
+        super().__init__()
+        self.gate_proj = nn.Linear(dim, intermediate_dim, bias=use_bias)
+        self.up_proj = nn.Linear(dim, intermediate_dim, bias=use_bias)
+        self.down_proj = nn.Linear(intermediate_dim, dim, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm LayerNorm/GELU encoder layer (``gvl_tpu.nn.layers.
-    TransformerBlock`` with ``norm="layernorm"``, ``mlp="gelu"``):
-    ``x + attention(ln1(x))``, then ``x + mlp(ln2(x))``."""
+    """Pre-norm transformer layer of either family (``gvl_tpu.nn.layers.
+    TransformerBlock``): ``x + attention(ln1(x))``, then ``x + mlp(ln2(x))``.
+    ``norm`` is ``"layernorm"`` or ``"rmsnorm"``, ``mlp`` ``"gelu"`` or
+    ``"swiglu"``; the SwiGLU MLP has no biases whatever ``use_bias`` says,
+    as in the JAX block."""
 
     def __init__(self, dim: int, num_heads: int, intermediate_dim: int, *,
-                 eps: float = 1e-6, quant: bool = False, quant_static: bool = False):
+                 num_kv_heads: Optional[int] = None, head_dim: Optional[int] = None,
+                 norm: str = "layernorm", mlp: str = "gelu", causal: bool = False,
+                 rope: bool = False, rope_base: float = 10000.0, qk_norm: bool = False,
+                 use_bias: bool = True, norm_eps: float = 1e-6, quant: bool = False,
+                 quant_static: bool = False):
         super().__init__()
-        self.ln1 = LayerNorm(dim, eps)
-        self.attention = Attention(dim, num_heads, quant=quant, quant_static=quant_static)
-        self.ln2 = LayerNorm(dim, eps)
-        self.mlp = MlpGelu(dim, intermediate_dim, quant=quant, quant_static=quant_static)
+        self.ln1 = _make_norm(norm, dim, norm_eps)
+        self.attention = Attention(
+            dim, num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
+            use_bias=use_bias, causal=causal, qk_norm=qk_norm, rope=rope,
+            rope_base=rope_base, quant=quant, quant_static=quant_static)
+        self.ln2 = _make_norm(norm, dim, norm_eps)
+        if mlp == "swiglu":
+            self.mlp = MlpSwiGLU(dim, intermediate_dim)
+        else:
+            self.mlp = MlpGelu(dim, intermediate_dim, use_bias=use_bias, quant=quant,
+                               quant_static=quant_static)
 
-    def forward(self, x: torch.Tensor, kv_len: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attention(self.ln1(x), kv_len=kv_len)
+    def forward(self, x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+                kv_len: Optional[int] = None) -> torch.Tensor:
+        x = x + self.attention(self.ln1(x), positions=positions, kv_len=kv_len)
         return x + self.mlp(self.ln2(x))
 
 
 class TransformerStack(nn.Module):
-    """``num_layers`` :class:`TransformerBlock` layers, then a LayerNorm
-    (``gvl_tpu.nn.layers.TransformerStack`` with its default LayerNorm/GELU
-    blocks and final norm)."""
+    """``num_layers`` :class:`TransformerBlock` layers, then the block's norm
+    when ``final_norm`` (``gvl_tpu.nn.layers.TransformerStack``; its blocks
+    take no ``quant``, as the JAX stack passes none)."""
 
-    def __init__(self, num_layers: int, dim: int, num_heads: int,
-                 intermediate_dim: int, *, eps: float = 1e-6):
+    def __init__(self, num_layers: int, dim: int, num_heads: int, intermediate_dim: int, *,
+                 num_kv_heads: Optional[int] = None, head_dim: Optional[int] = None,
+                 norm: str = "layernorm", mlp: str = "gelu", causal: bool = False,
+                 rope: bool = False, rope_base: float = 10000.0, qk_norm: bool = False,
+                 use_bias: bool = True, norm_eps: float = 1e-6, final_norm: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerBlock(dim, num_heads, intermediate_dim, eps=eps)
+            TransformerBlock(dim, num_heads, intermediate_dim, num_kv_heads=num_kv_heads,
+                             head_dim=head_dim, norm=norm, mlp=mlp, causal=causal,
+                             rope=rope, rope_base=rope_base, qk_norm=qk_norm,
+                             use_bias=use_bias, norm_eps=norm_eps)
             for _ in range(num_layers))
-        self.final_norm = LayerNorm(dim, eps)
+        self.final_norm = _make_norm(norm, dim, norm_eps) if final_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
+                kv_len: Optional[int] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
-        return self.final_norm(x)
+            x = layer(x, positions=positions, kv_len=kv_len)
+        return x if self.final_norm is None else self.final_norm(x)

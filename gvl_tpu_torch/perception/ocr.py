@@ -3,17 +3,18 @@ copy of :mod:`gvl_tpu.perception.ocr`.
 
 Host-side pipeline with pluggable engines: the port's det/rec engine
 (:class:`~gvl_tpu_torch.perception.ocr_model.TorchOCREngine`, backend
-"jax" or "native" as in the JAX package, or "torch") on the card, or
+"jax" or "native" as in the JAX package, or "torch") on the card; the
+``tesseract`` engine (:class:`TesseractOCR`) for "auto" and "tesseract"
+when the binary and ``pytesseract`` are installed; else
 :class:`DeterministicFakeOCR`, which makes stable HUD-style detections
-from the frame's content.  The JAX package's tesseract engine is not
-ported: "auto" and "tesseract" take the fake engine, which is what the
-JAX package takes wherever the tesseract binary is missing.
+from the frame's content.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import shutil
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -138,6 +139,33 @@ class DeterministicFakeOCR:
         return out
 
 
+class TesseractOCR:
+    """pytesseract/tesseract-binary engine (host-side)."""
+
+    def __init__(self, lang: str = "eng"):
+        self.lang = lang
+
+    def __call__(self, frame: np.ndarray) -> list[tuple[str, float, tuple]]:
+        import pytesseract
+        from PIL import Image
+
+        data = pytesseract.image_to_data(
+            Image.fromarray(frame), lang=self.lang,
+            output_type=pytesseract.Output.DICT,
+        )
+        out = []
+        for text, conf, x, y, w, h in zip(
+            data["text"], data["conf"], data["left"], data["top"],
+            data["width"], data["height"],
+        ):
+            text = text.strip()
+            if not text or float(conf) < 0:
+                continue
+            out.append((text, float(conf) / 100.0,
+                        (float(x), float(y), float(x + w), float(y + h))))
+        return out
+
+
 def _resolve_engine(config: OCRConfig, device: str | torch.device = "cuda") -> Callable:
     if config.backend == "fake":
         return DeterministicFakeOCR()
@@ -155,8 +183,16 @@ def _resolve_engine(config: OCRConfig, device: str | torch.device = "cuda") -> C
         from gvl_tpu_torch.perception.ocr_model import TorchOCREngine
 
         return TorchOCREngine(checkpoint=checkpoint, device=device)
+    wants_tesseract = config.backend in ("auto", "tesseract")
+    if wants_tesseract and shutil.which("tesseract") is not None:
+        try:
+            import pytesseract  # noqa: F401
+
+            return TesseractOCR("eng" if config.lang == "en" else config.lang)
+        except ImportError:
+            pass
     if config.backend == "tesseract":
-        logger.warning("tesseract is not ported; using fake OCR")
+        logger.warning("tesseract requested but unavailable; using fake OCR")
     return DeterministicFakeOCR()
 
 

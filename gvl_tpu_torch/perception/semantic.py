@@ -34,6 +34,7 @@ from gvl_tpu_torch.models.siglip_fused import prepare_fused_siglip, siglip_fused
 from gvl_tpu_torch.ops.quant_matmul import true_div
 from gvl_tpu_torch.parallel.collectives import gather_batch, split_batch
 from gvl_tpu_torch.runtime.native import resize_image
+from gvl_tpu_torch.runtime.resize import pil_bilinear
 
 PATCH = 14
 
@@ -87,6 +88,18 @@ class AspectPreservingResizer:
         target_h = (target_h // PATCH) * PATCH
         target_w = (target_w // PATCH) * PATCH
         return max(PATCH, target_h), max(PATCH, target_w)
+
+    def resize_with_aspect_ratio(self, image) -> tuple[np.ndarray, float]:
+        """Resize to :meth:`compute_optimal_size` (multiples of 14, bounded,
+        aspect kept), without canvas padding: Pillow's bilinear resize, byte
+        for byte (:func:`~gvl_tpu_torch.runtime.resize.pil_bilinear`).
+        Returns (resized uint8 image, width / height of the input)."""
+        arr = np.asarray(image)
+        target_h, target_w = self.compute_optimal_size(*arr.shape[:2])
+        resized = pil_bilinear(arr if arr.ndim == 3 else arr[..., None], (target_w, target_h))
+        if arr.ndim != 3:
+            resized = resized[..., 0]
+        return resized, arr.shape[1] / max(arr.shape[0], 1)
 
     def resize_to_canvas(self, image: np.ndarray, canvas: int) -> tuple[np.ndarray, float]:
         """Resize into a canvas x canvas frame (aspect preserved, zero pad):
@@ -470,6 +483,20 @@ class SigLIPSemanticEncoder:
         prepared = [self.region_extractor.prepare(np.asarray(img))[0] for img in images]
         return np.concatenate([emb for _, _, emb in self._batches(prepared)], axis=0)
 
+    def encode_with_context(self, frame: np.ndarray, mask: np.ndarray,
+                            context_radius: int = 50
+                            ) -> tuple[SemanticEmbedding, SemanticEmbedding]:
+        """The region and its surroundings (the mask dilated by
+        ``context_radius // 3`` steps, at least one, minus the mask), each
+        encoded on its own."""
+        import scipy.ndimage as ndi
+
+        region = self.encode_masked_regions(frame, [("region", mask)])[0]
+        dilated = ndi.binary_dilation(mask, iterations=max(1, context_radius // 3))
+        context_mask = dilated & ~mask.astype(bool)
+        context = self.encode_masked_regions(frame, [("context", context_mask)])[0]
+        return region, context
+
     @staticmethod
     def compute_similarity(emb1: SemanticEmbedding, emb2: SemanticEmbedding) -> float:
         a = emb1.embedding.astype(np.float64)
@@ -482,3 +509,18 @@ class SigLIPSemanticEncoder:
         scored = [(c, self.compute_similarity(query, c)) for c in candidates]
         scored.sort(key=lambda t: t[1], reverse=True)
         return scored[:top_k]
+
+
+def create_siglip_encoder(model_name: str = "google/siglip2-so400m-patch14-384",
+                          preserve_aspect_ratio: bool = True,
+                          checkpoint_path: Optional[str] = None,
+                          device: str | torch.device = "cuda") -> SigLIPSemanticEncoder:
+    """The HF checkpoint's tower on ``device`` when ``checkpoint_path`` is
+    given, else the fake backend.  ``model_name`` and
+    ``preserve_aspect_ratio`` are the JAX factory's arguments, which its
+    config records and nothing in either package reads; the port's
+    :class:`NaFlexConfig` has no such fields."""
+    del model_name, preserve_aspect_ratio
+    if checkpoint_path:
+        return SigLIPSemanticEncoder.from_hf_checkpoint(checkpoint_path, NaFlexConfig(), device)
+    return SigLIPSemanticEncoder(NaFlexConfig())

@@ -102,6 +102,16 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def native_available() -> bool:
+    """Whether the runtime builds and loads here (:func:`library` raises the
+    reason when it does not)."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _info(fn, handle) -> tuple[int, int, float]:
     w, h, fps = ctypes.c_int(), ctypes.c_int(), ctypes.c_double()
     fn(handle, ctypes.byref(w), ctypes.byref(h), ctypes.byref(fps))

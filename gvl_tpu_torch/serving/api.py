@@ -424,3 +424,13 @@ def create_server(
     server.service = service  # type: ignore[attr-defined]
     return server
 
+
+def serve(host: str = "127.0.0.1", port: int = 8080, config=None,
+          device: str | torch.device = "cuda") -> None:
+    """Serve forever.  The default bind is loopback: the API has no
+    authentication and ``/process`` reads local file paths, so exposing it
+    beyond localhost needs a reverse proxy with auth in front."""
+    server = create_server(host, port, InferenceService(config, device))
+    logger.info("serving on %s:%d", host, port)
+    server.serve_forever()
+

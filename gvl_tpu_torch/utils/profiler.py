@@ -1,10 +1,12 @@
 """Stage profiler: wall-clock stage timings (the port's copy of
-``gvl_tpu.utils.profiler.StageTimer``), :class:`PromptLog`, which
-records the prompts a QA engine is handed, and :class:`MessageLog`, which
-records the messages a chat backend is handed.
+``gvl_tpu.utils.profiler.StageTimer``), :func:`stage_scope`,
+:func:`device_memory_stats`, :class:`PromptLog`, which records the
+prompts a QA engine is handed, and :class:`MessageLog`, which records the
+messages a chat backend is handed.
 
-Every stage is a ``torch.profiler.record_function`` range, so stages show
-up in a profile of the run.  A stage's clock stops when its body returns:
+Every stage is a :func:`stage_scope`: a ``torch.profiler.record_function``
+range, and an NVTX range where there is a card, so stages show up in a
+profile of the run.  A stage's clock stops when its body returns:
 the pipeline's stages end in host data, which waits for the card.
 """
 
@@ -35,7 +37,7 @@ class StageTimer:
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with stage_scope(name):
                 yield
         finally:
             self.record(name, time.perf_counter() - t0)
@@ -61,6 +63,34 @@ class StageTimer:
         lines.append("-" * (width + 24))
         lines.append(f"{'TOTAL':<{width}}  {self.total:8.2f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def stage_scope(name: str) -> Iterator[None]:
+    """A named range in a ``torch.profiler`` trace, and an NVTX range when
+    a card is present (``gvl_tpu.utils.profiler.stage_scope``'s trace
+    annotation)."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_available():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
+
+
+def device_memory_stats() -> dict[str, int]:
+    """The current card's allocator bytes under the JAX package's names
+    (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``: the card's
+    total); empty without a card, as JAX's CPU backend gives."""
+    if not torch.cuda.is_available():
+        return {}
+    stats = torch.cuda.memory_stats()
+    return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(torch.cuda.mem_get_info()[1])}
 
 
 class PromptLog:

@@ -720,6 +720,68 @@ def test_tiny_fused_tower_kernel_path_matches_plain_path(dev):
         assert cos.min().item() >= 0.9995, cos
 
 
+def test_tiny_fused_tower_int8_attention_kernel_path_matches_plain_path(dev):
+    """``int8_attention``: B9 in its int8_scores mode, once per layer, on the
+    padded layout; the packed layout ignores the flag (B10, no B9)."""
+    from gvl_tpu_torch.models.siglip import SigLIPVisionConfig, init_tower_params
+    from gvl_tpu_torch.models.siglip_fused import prepare_fused_siglip, siglip_fused_apply
+    from gvl_tpu_torch.ops.quant_matmul import attention_fused_qkv
+
+    cfg = SigLIPVisionConfig(hidden_size=128, intermediate_size=192, num_layers=2,
+                             num_heads=4, image_size=56)
+    state = init_tower_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    pix = _randn(dev, 3, 56, 56, 3, seed=15) * 0.5
+    for packed in (False, True):
+        fused = prepare_fused_siglip(state, cfg, pix, packed_attention=packed)
+        before = attention_fused_qkv.launches
+        got = siglip_fused_apply(fused, pix, cfg, int8_attention=True)["pooled"].float()
+        torch.cuda.synchronize()
+        assert attention_fused_qkv.launches - before == (0 if packed else cfg.num_layers)
+        want = siglip_fused_apply(fused, pix, cfg, int8_attention=True,
+                                  kernels=False)["pooled"].float()
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+        assert cos.min().item() >= 0.9995, cos
+        if packed:
+            assert torch.equal(got, siglip_fused_apply(fused, pix, cfg)["pooled"].float())
+
+
+def test_generic_decoder_stack_kernel_path_matches_plain_path(dev):
+    """``nn.TransformerStack`` of the decoder family (RMSNorm, SwiGLU, causal
+    GQA, rope, qk-norm, no biases) in bf16 under autograd: B1 once per layer
+    forward and once per layer for the blockwise backward's delta (1100
+    positions), none on the plain path; output and gradients alike."""
+    from gvl_tpu_torch.nn.layers import TransformerStack, plain_attention
+
+    torch.manual_seed(0)
+    model = TransformerStack(2, 256, 4, 512, num_kv_heads=2, head_dim=64, norm="rmsnorm",
+                             mlp="swiglu", causal=True, rope=True, rope_base=1e6,
+                             qk_norm=True, use_bias=False).to(dev, torch.bfloat16)
+    x = _randn(dev, 1, 1100, 256, dtype=torch.bfloat16, seed=5)
+    g = _randn(dev, 1, 1100, 256, seed=6)
+    results = []
+    for plain in (False, True):
+        model.zero_grad()
+        leaf = x.clone().requires_grad_()
+        before = flash_attention.launches
+        if plain:
+            with plain_attention():
+                out = model(leaf)
+                (out.float() * g).sum().backward()
+        else:
+            out = model(leaf)
+            (out.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        grads = [leaf.grad] + [p.grad.clone() for p in model.parameters()]
+        results.append((out, grads, flash_attention.launches - before))
+    (out_k, grads_k, n_k), (out_p, grads_p, n_p) = results
+    assert (n_k, n_p) == (4, 0)
+    torch.testing.assert_close(out_k, out_p, **BF16_TOL)
+    for a, b in zip(grads_k, grads_p):
+        rel = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-12)).item()
+        assert rel <= 2e-2, rel
+
+
 # --------------------------------------------------------------------------
 # edges of the tensor-core tiling: 64-row query tiles, 64-key K/V tiles
 # --------------------------------------------------------------------------

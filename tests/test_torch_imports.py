@@ -127,20 +127,32 @@ def test_forbidden_calls_absent_from_package(needle):
     function that needs it, as in the JAX package: the HUD text of
     synthetic clips (``SyntheticVideo._with_hud_text``, for a clip with
     ``text=``), the still images of the single-frame runner
-    (``BenchmarkModelRunner._load_frame``, for a sample with an image) and
-    the OCR trainers' text renderers (``render_line``, ``discover_fonts``):
-    those functions' own source is left out of the scan for the PIL
-    needles."""
+    (``BenchmarkModelRunner._load_frame``, for a sample with an image), the
+    OCR trainers' text renderers (``render_line``, ``discover_fonts``) and
+    the tesseract engine's call (``TesseractOCR.__call__``, taken only where
+    the binary and ``pytesseract`` are installed): those functions' own
+    source is left out of the scan for the PIL needles."""
     lazy_pil = {PACKAGE / "io" / "video.py": ("_with_hud_text",),
                 PACKAGE / "eval" / "model_inference.py": ("_load_frame",),
-                PACKAGE / "perception" / "ocr_model.py": ("render_line", "discover_fonts")}
+                PACKAGE / "perception" / "ocr_model.py": ("render_line", "discover_fonts"),
+                PACKAGE / "perception" / "ocr.py": ("TesseractOCR.__call__",)}
+
+    def functions(tree):
+        """(name, node) of every function, methods also as ``Class.name``."""
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef):
+                yield node.name, node
+            elif isinstance(node, ast.ClassDef):
+                for item in node.body:
+                    if isinstance(item, ast.FunctionDef):
+                        yield f"{node.name}.{item.name}", item
 
     def text(path):
         source = path.read_text()
         if "PIL" in needle and path in lazy_pil:
             segments = [ast.get_source_segment(source, node)
-                        for node in ast.walk(ast.parse(source))
-                        if isinstance(node, ast.FunctionDef) and node.name in lazy_pil[path]]
+                        for name, node in functions(ast.parse(source))
+                        if name in lazy_pil[path]]
             assert len(segments) == len(lazy_pil[path])
             for segment in segments:
                 source = source.replace(segment, "")

@@ -12,6 +12,7 @@ same fused tree (int8 requantize boundaries may fall one step apart).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ import torch
 from gvl_tpu.models import siglip as jsig
 from gvl_tpu.models import siglip_fused as jfused
 from gvl_tpu.nn.quant import W8A8Dense as JaxW8A8Dense
+from gvl_tpu.ops import quant_matmul as jquant
 from gvl_tpu.nn.quant import quantize_kernels_int8 as jax_quantize
 from gvl_tpu_torch.models import siglip as tsig
 from gvl_tpu_torch.models import siglip_fused as tfused
@@ -136,20 +138,37 @@ def test_static_w8a8_tower_matches_jax(towers, calibrated):
     assert _cos(got["pooled"].numpy(), want["pooled"]).min() >= 0.9999
 
 
-@pytest.mark.parametrize("packed", [False, True])
-def test_fused_tower_matches_jax_on_the_same_tree(towers, calibrated, packed):
+@pytest.mark.parametrize("packed,int8_attention", [
+    pytest.param(False, False, id="False"), pytest.param(True, False, id="True"),
+    pytest.param(False, True, id="int8_attention"),
+    pytest.param(True, True, id="packed-int8_attention")])
+def test_fused_tower_matches_jax_on_the_same_tree(towers, calibrated, packed, int8_attention,
+                                                  monkeypatch):
+    """With ``int8_attention`` JAX's padded attention runs its Pallas body in
+    interpret mode (its XLA reference, which the CPU takes, has no
+    int8_scores)."""
     jcfg, tcfg, _, _, pixels = towers
     jq, _ = calibrated
+    if int8_attention:
+        monkeypatch.setattr(jfused, "attention_fused_qkv", functools.partial(
+            jquant.attention_fused_qkv_pallas, interpret=True))
     jtree = jfused.fuse_siglip_int8(jq, jcfg, packed_attention=packed)
-    want = jfused.siglip_fused_apply(jtree, jnp.asarray(pixels), jcfg)
-    got = tfused.siglip_fused_apply(fused_from_jax(_np_tree(jtree)),
-                                    torch.from_numpy(pixels), tcfg)
+    want = jfused.siglip_fused_apply(jtree, jnp.asarray(pixels), jcfg,
+                                     int8_attention=int8_attention)
+    tree = fused_from_jax(_np_tree(jtree))
+    got = tfused.siglip_fused_apply(tree, torch.from_numpy(pixels), tcfg,
+                                    int8_attention=int8_attention)
     assert got["last_hidden_state"].dtype == torch.bfloat16
     assert _cos(got["pooled"].float().numpy(),
                 np.asarray(want["pooled"], np.float32)).min() >= 0.999
     g = got["last_hidden_state"].float().numpy()
     w = np.asarray(want["last_hidden_state"], np.float32)
     assert _cos(g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])).min() >= 0.999
+    if int8_attention:
+        # the packed layout ignores the flag (as JAX's does); the padded one
+        # takes B9's int8_scores mode, which moves the output
+        plain = tfused.siglip_fused_apply(tree, torch.from_numpy(pixels), tcfg)
+        assert torch.equal(got["last_hidden_state"], plain["last_hidden_state"]) == packed
 
 
 def test_port_fuse_step_matches_jax(towers, calibrated):
