@@ -246,7 +246,8 @@ Run from the root of the repository, on a machine with one CUDA card and
     ``stage_scope`` by name in a ``torch.profiler`` trace and
     ``device_memory_stats`` nonzero; within ``SURFACE_BUDGET_S``.  Phase 2
     also times B1 at the stack's shape (row 1u) and B9 in its int8_scores
-    mode (row 9a).
+    mode (row 9a: events, and device ms of its quantize pre-pass and its
+    ``wgmma`` body apart), after ``cuobjdump`` shows that body on IGMMA.
 
 Kernel launch counts are zeroed just before each served run (the kernel
 path of phases 3 to 21) and read just after it; each run must have launched
@@ -306,6 +307,9 @@ BF16_ERR_RATIO = 1.5
 # int8 outputs: at most one step apart, on at most this share of elements
 # (exp2, rsqrt and f32 sums in another order move values across a boundary)
 INT8_FLIP_SHARE = 1e-3
+# the kernels of B9's int8_scores mode, by name in a profile: the quantize
+# pre-pass and the wgmma body (csrc/encoder_attention_int8.cu)
+INT8_PREPASS, INT8_BODY = ("quantize_slabs_kernel",), ("encoder_attention_int8_kernel",)
 SEMANTIC_SEED, SEMANTIC_FRAMES, SEMANTIC_MASKS = 0, 8, 16
 REGION_SEEDS = (1, 2, 3)    # more frames and mask layouts, fused vs bf16
 # pooled cosine: kernel path against the plain path of the same fused
@@ -1324,25 +1328,29 @@ def check_quant_kernels(dev) -> list[dict]:
             bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2],
             library_ms=time_ms(lambda: library_encoder_attention(buf, 8, 736, 16, dh, mask))))
     # B9 in its int8_scores mode at the same frames (phase 21's tower with
-    # int8_attention, PERF.md row 9a): both products on s8 tensor cores
+    # int8_attention, PERF.md row 9a): a quantize pre-pass, then both
+    # products on wgmma s8 fed by TMA (csrc/encoder_attention_int8.cu)
     from gvl_tpu_torch.device_times import kernel_device_ms
 
     kw8 = dict(kw, dh_pad=128, out_scale_inv=40.0, int8_scores=True)
     bnd = bound_ms(qkv.nbytes + qkv.nbytes // 6, 4.0 * 128 * pairs, torch.int8)
     b9 = next(row for row in rows if row["name"] == "attention_fused_qkv")
+    int8_call = lambda: qm.attention_fused_qkv(qkv, **kw8)   # noqa: E731
+    pre, body = kernel_device_ms(int8_call, INT8_PREPASS), kernel_device_ms(int8_call, INT8_BODY)
     b9["lines"] = [dict(
-        name="attention_fused_qkv", max_abs_err=att[("fused", "frames")],
+        name="attention_fused_qkv", route="cuda",
+        source="gvl_tpu_torch/csrc/encoder_attention_int8.cu", max_abs_err=att[("fused", "frames")],
         shape="so400m layer, batch 8, int8_scores: bf16 [5888,3x16x128] -> int8",
-        ms=time_ms(lambda: qm.attention_fused_qkv(qkv, **kw8)),
-        device_ms=kernel_device_ms(lambda: qm.attention_fused_qkv(qkv, **kw8),
-                                   ("encoder_attention", "slab_amax")),
+        ms=time_ms(int8_call), device_ms=kernel_device_ms(int8_call, INT8_PREPASS + INT8_BODY),
+        prepass_device_ms=pre, body_device_ms=body,
         plain_ms=time_ms(lambda: qm.attention_fused_qkv_reference(qkv, **kw8), 5),
         bound_ms=bnd[0], bound_by=bnd[1], bound_peak=bnd[2], library="SDPA, bf16",
         library_ms=time_ms(lambda: library_encoder_attention(qkv, 8, 736, 16, 128, mask)))]
     line = b9["lines"][0]
     log("kernels", f"attention_fused_qkv int8_scores at so400m frames: kernel "
-        f"{line['ms']:.4f} ms (device {line['device_ms']}), plain {line['plain_ms']:.4f} ms, "
-        f"SDPA {line['library_ms']:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+        f"{line['ms']:.4f} ms (device {line['device_ms']}: pre-pass {pre}, body {body}), "
+        f"plain {line['plain_ms']:.4f} ms, SDPA {line['library_ms']:.4f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
     for row in rows:
         log("kernels", f"{row['name']} at {row['shape']}: kernel {row['ms']:.4f} ms,"
             f" plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms,"
@@ -1356,25 +1364,26 @@ def check_quant_kernels(dev) -> list[dict]:
 
 
 def check_wgmma_sass() -> None:
-    """The built library's w8a8_matmul kernels issue warpgroup int8
-    products (IGMMA in the SASS) and no mma.sync ones (IMMA), read with
-    cuobjdump where the toolkit has it."""
+    """The built library's w8a8_matmul kernels and int8_scores attention
+    bodies issue warpgroup int8 products (IGMMA in the SASS) and no
+    mma.sync ones (IMMA), read with cuobjdump where the toolkit has it."""
     from gvl_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.is_file():
-        log("kernels", f"SASS of w8a8_matmul not checked: no {tool}")
+        log("kernels", f"SASS of the wgmma kernels not checked: no {tool}")
         return
     sass = subprocess.run([str(tool), "--dump-sass", str(_build.build().path)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    kernels = [part for part in sass.split("Function : ")[1:]
-               if "w8a8_matmul_kernel" in part.split("\n", 1)[0]]
-    igmma = [part.count("IGMMA") for part in kernels]
-    imma = sum(len(re.findall(r"\bIMMA\b", part)) for part in kernels)
-    log("kernels", f"SASS: {len(kernels)} w8a8_matmul kernels, IGMMA per kernel "
-        f"{sorted(set(igmma))}, IMMA {imma}")
-    if not kernels or min(igmma) == 0 or imma:
-        raise AssertionError("w8a8_matmul: the built kernels are not on wgmma")
+    for name in ("w8a8_matmul_kernel", "encoder_attention_int8_kernel"):
+        kernels = [part for part in sass.split("Function : ")[1:]
+                   if name in part.split("\n", 1)[0]]
+        igmma = [part.count("IGMMA") for part in kernels]
+        imma = sum(len(re.findall(r"\bIMMA\b", part)) for part in kernels)
+        log("kernels", f"SASS: {len(kernels)} {name}s, IGMMA per kernel "
+            f"{sorted(set(igmma))}, IMMA {imma}")
+        if not kernels or min(igmma) == 0 or imma:
+            raise AssertionError(f"{name}: the built kernels are not on wgmma")
 
 
 # --------------------------------------------------------------------------

@@ -7,22 +7,16 @@
 // Replaces three TPU kernels of gvl_tpu/ops/quant_matmul.py, one body:
 // - attention_fused_qkv_pallas (Pallas body _padded_attn_kernel): heads
 //   padded to dh 128 (the pad columns are data here: all 128 are computed),
-//   softmax in exp2 form (the scale carries log2 e), optional requantize,
-//   optional int8_scores;
+//   softmax in exp2 form (the scale carries log2 e), optional requantize
+//   (its int8_scores option is csrc/encoder_attention_int8.cu);
 // - attention_packed_multihead_pallas (_packed_mh_attn_kernel): the same
 //   math on unpadded heads (dh 72 in so400m);
 // - attention_qkv_packed_pallas (_packed_attn_kernel): unpadded heads,
 //   softmax with exp, output in qkv's type.
-// With int8_scores (the padded kernel's option) q is quantized per q block
-// of block_q rows, k and v over their whole [Sp, dh] slab (padded rows
-// included), each by its own max |x| / 127 (slab_amax_kernel writes those
-// maxima first); the score is the exact integer q8 . k8 times the scales,
-// and p is quantized as round(p * 127) against the exact row maximum, so
-// that P V is an exact integer sum as in the TPU kernel.
 //
 // Semantics that fix the design.  p is formed against each row's exact
-// maximum and rounded to v's type (bf16, or int8 with int8_scores) before
-// P V, and the denominator sums the unrounded p, as the TPU body does.  An
+// maximum and rounded to v's type before P V, and the denominator sums the
+// unrounded p, as the TPU body does.  An
 // online softmax would round p against running maxima and flip int8
 // requantized outputs, so there are two passes over the keys: the first
 // computes q k^T for the row maxima only, the second recomputes it (the
@@ -50,13 +44,6 @@
 // - f32 qkv (on no served path): every operand is split into bf16 hi + lo
 //   and each product is hi.hi + hi.lo + lo.hi (f32-level error; lo.lo is
 //   ~2^-16 relative), so one body serves both types; one m-tile per warp.
-// - int8_scores: m16n8k32 s8 products with exact s32 sums for q8 k8^T and
-//   p8 v8.  K8 tiles are stored key-major, V8 transposed; p8 leaves the
-//   score fragments with its keys permuted within each 32-key step (the
-//   accumulator holds keys 2t, 2t + 1 of each 8-key tile, the s8 A fragment
-//   wants 4t .. 4t + 3), and the V8 fragment is gathered in the same order,
-//   so the integer sum is unchanged.  Tiles are quantized on load (no
-//   cp.async); this path serves tests and the chip check only.
 // Pass 1 keeps the largest unscaled dot (times the scale's sign) and
 // scales it once; pass 2 scales every score, subtracts that maximum and
 // takes exp2 as one MUFU.EX2 (exp2f's fast path) or expf, the choice made
@@ -85,8 +72,6 @@ constexpr int kRows = 16 * kWarps;  // rows of one 16-row m-tile per warp
 constexpr int kBK = 64;             // keys per shared-memory tile
 constexpr int D = 128;              // widest head
 static_assert(kRows == kBK, "a Q tile and a K/V tile share one size");
-constexpr int kLd8 = D + 16;        // bytes per int8 row (q8, k8)
-constexpr int kLdT8 = kBK + 16;     // bytes per transposed v8 row
 
 // bf16 per shared row of a head kD wide (88 or 136: an odd number of
 // 16-byte units), and per tile
@@ -125,23 +110,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, __nv_bfloat16* dst
       *reinterpret_cast<uint4*>(dst + r * kLd + c) = *reinterpret_cast<const uint4*>(hi);
       *reinterpret_cast<uint4*>(dst_lo + r * kLd + c) = *reinterpret_cast<const uint4*>(lo);
     }
-  }
-}
-
-// columns col, col + 1 of one output row
-template <typename T, bool kQuantOut>
-__device__ __forceinline__ void store_pair(void* __restrict__ out, size_t idx, float a,
-                                           float b, float out_inv) {
-  if constexpr (kQuantOut) {
-    char2 v;
-    v.x = quant_int8(a, out_inv);
-    v.y = quant_int8(b, out_inv);
-    *reinterpret_cast<char2*>(static_cast<signed char*>(out) + idx) = v;
-  } else if constexpr (sizeof(T) == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<T*>(out) + idx) =
-        __floats2bfloat162_rn(a, b);
-  } else {
-    *reinterpret_cast<float2*>(static_cast<T*>(out) + idx) = make_float2(a, b);
   }
 }
 
@@ -393,231 +361,6 @@ encoder_attention_mma_kernel(const T* __restrict__ qkv, void* __restrict__ out,
   }
 }
 
-// 8 elements of a row quantized by inv to int8
-template <typename T>
-__device__ __forceinline__ void load_quant8(const T* __restrict__ src, bool valid,
-                                            float inv, signed char (&q)[8]) {
-  float x[8];
-  if (valid) {
-    load_f32<T, 8>(src, x);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) q[e] = quant_int8(x[e], inv);
-}
-
-// int8_scores: exact integer q8 k8^T and p8 v8 on the s8 tensor cores
-template <typename T, bool kQuantOut>
-__global__ void __launch_bounds__(kThreads)
-encoder_attention_int8_kernel(const T* __restrict__ qkv, void* __restrict__ out,
-                              const float* __restrict__ amax, int heads, int seq_pad,
-                              int kv_len, int dh, float scale, int use_exp2,
-                              float out_inv, int block_q, int n_qblocks) {
-  __shared__ __align__(16) signed char q8s[kRows][kLd8];
-  __shared__ __align__(16) signed char k8s[2][kBK][kLd8];
-  __shared__ __align__(16) signed char v8t[2][D][kLdT8];  // [column][key]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * kRows;
-  const int width = 3 * heads * dh;
-  const T* base = qkv + (size_t)b * seq_pad * width;
-  const int qcol = h * dh, kcol = (heads + h) * dh, vcol = (2 * heads + h) * dh;
-  const int dk = (dh + 31) & ~31;  // depth of q8 k8^T, zero-filled past dh
-  const int n_vt = dh / 8;
-  const int n_tiles = (kv_len + kBK - 1) / kBK;
-
-  const float* am = amax + ((size_t)b * heads + h) * (n_qblocks + 2);
-  const float ak = am[n_qblocks], av = am[n_qblocks + 1];
-  const float inv_k = __fdiv_rn(127.f, ak), inv_v = __fdiv_rn(127.f, av);
-  const float v_scale = __fdiv_rn(__fdiv_rn(av, 127.f), 127.f);
-  float s_scale[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = min(q0 + warp * 16 + g + r * 8, seq_pad - 1);
-    const float aq = am[row / block_q];
-    s_scale[r] = __fmul_rn(__fmul_rn(__fdiv_rn(aq, 127.f), __fdiv_rn(ak, 127.f)), scale);
-  }
-
-  for (int i = threadIdx.x; i < kRows * (dk / 8); i += kThreads) {
-    const int r = i / (dk / 8), c = (i % (dk / 8)) * 8;
-    const int row = min(q0 + r, seq_pad - 1);
-    const bool valid = q0 + r < seq_pad && c < dh;
-    signed char q[8];
-    load_quant8<T>(base + (size_t)row * width + qcol + (valid ? c : 0), valid,
-                   __fdiv_rn(127.f, am[row / block_q]), q);
-    *reinterpret_cast<uint2*>(&q8s[r][c]) = *reinterpret_cast<const uint2*>(q);
-  }
-  auto load = [&](int it, int stage) {
-    const bool second = it >= n_tiles;
-    const int k0 = (second ? it - n_tiles : it) * kBK;
-    for (int i = threadIdx.x; i < kBK * (dk / 8); i += kThreads) {
-      const int j = i / (dk / 8), c = (i % (dk / 8)) * 8;
-      const bool valid = k0 + j < kv_len && c < dh;
-      const size_t row = (size_t)(valid ? k0 + j : 0) * width + (valid ? c : 0);
-      signed char q[8];
-      load_quant8<T>(base + row + kcol, valid, inv_k, q);
-      *reinterpret_cast<uint2*>(&k8s[stage][j][c]) = *reinterpret_cast<const uint2*>(q);
-      if (second && c < dh) {
-        load_quant8<T>(base + row + vcol, valid, inv_v, q);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v8t[stage][c + e][j] = q[e];
-      }
-    }
-  };
-  load(0, 0);
-
-  int o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0;
-  unsigned qa[D / 32][4];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  for (int it = 0; it < 2 * n_tiles; ++it) {
-    const int stage = it & 1;
-    const bool second = it >= n_tiles;
-    const int k0 = (second ? it - n_tiles : it) * kBK;
-    __syncthreads();  // tile it is in shared memory
-    if (it == 0) {
-      const int r = warp * 16 + g;
-#pragma unroll
-      for (int ks = 0; ks < D / 32; ++ks) {
-        if (ks * 32 >= dk) continue;
-        qa[ks][0] = *reinterpret_cast<const unsigned*>(&q8s[r][ks * 32 + 4 * t]);
-        qa[ks][1] = *reinterpret_cast<const unsigned*>(&q8s[r + 8][ks * 32 + 4 * t]);
-        qa[ks][2] = *reinterpret_cast<const unsigned*>(&q8s[r][ks * 32 + 16 + 4 * t]);
-        qa[ks][3] = *reinterpret_cast<const unsigned*>(&q8s[r + 8][ks * 32 + 16 + 4 * t]);
-      }
-    }
-    if (it + 1 < 2 * n_tiles) load(it + 1, stage ^ 1);  // the other stage
-
-    int si[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) si[n][e] = 0;
-#pragma unroll
-    for (int ks = 0; ks < D / 32; ++ks) {
-      if (ks * 32 >= dk) continue;
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const unsigned kb[2] = {
-            *reinterpret_cast<const unsigned*>(&k8s[stage][n * 8 + g][ks * 32 + 4 * t]),
-            *reinterpret_cast<const unsigned*>(&k8s[stage][n * 8 + g][ks * 32 + 16 + 4 * t])};
-        mma_s8(si[n], qa[ks], kb);
-      }
-    }
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = k0 + n * 8 + 2 * t + (e & 1) < kv_len
-                      ? __fmul_rn(__int2float_rn(si[n][e]), s_scale[e >> 1])
-                      : kNegInf;
-
-    if (!second) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
-    } else {
-      if (it == n_tiles) {
-        m[0] = quad_max(m[0]);
-        m[1] = quad_max(m[1]);
-      }
-      int p8[kBK / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float arg = __fsub_rn(s[n][e], m[e >> 1]);
-          const float p = use_exp2 ? exp2f(arg) : expf(arg);
-          l[e >> 1] += p;
-          p8[n][e] = __float2int_rn(__fmul_rn(p, 127.f));
-        }
-      // 32 keys per product; A byte 4t + i holds key 2t, 2t + 1, 2t + 8,
-      // 2t + 9 (+16 for a2, a3), and the V8 fragment follows that order
-#pragma unroll
-      for (int j = 0; j < kBK / 32; ++j) {
-        const int n = 4 * j;
-        const unsigned pa[4] = {
-            pack_s8x4(p8[n][0], p8[n][1], p8[n + 1][0], p8[n + 1][1]),
-            pack_s8x4(p8[n][2], p8[n][3], p8[n + 1][2], p8[n + 1][3]),
-            pack_s8x4(p8[n + 2][0], p8[n + 2][1], p8[n + 3][0], p8[n + 3][1]),
-            pack_s8x4(p8[n + 2][2], p8[n + 2][3], p8[n + 3][2], p8[n + 3][3])};
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt) {
-          if (nt >= n_vt) continue;
-          const unsigned short* vrow =
-              reinterpret_cast<const unsigned short*>(&v8t[stage][nt * 8 + g][0]);
-          const int key = 32 * j + 2 * t;
-          const unsigned vb[2] = {
-              vrow[key / 2] | (static_cast<unsigned>(vrow[key / 2 + 4]) << 16),
-              vrow[key / 2 + 8] | (static_cast<unsigned>(vrow[key / 2 + 12]) << 16)};
-          mma_s8(o[nt], pa, vb);
-        }
-      }
-    }
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-
-  float denom[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) denom[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (n >= n_vt) continue;
-    const int col = n * 8 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + g + r * 8;
-      if (row >= seq_pad) continue;
-      const size_t idx = ((size_t)b * seq_pad + row) * heads * dh + (size_t)h * dh + col;
-      const float a = __fmul_rn(__int2float_rn(o[n][2 * r]), v_scale);
-      const float c = __fmul_rn(__int2float_rn(o[n][2 * r + 1]), v_scale);
-      store_pair<T, kQuantOut>(out, idx, __fdiv_rn(a, denom[r]), __fdiv_rn(c, denom[r]),
-                               out_inv);
-    }
-  }
-}
-
-// max |x| of each q block and of the whole K and V slab of every
-// (image, head), at least 1e-8: amax [B, H, n_qblocks + 2]
-template <typename T>
-__global__ void slab_amax_kernel(const T* __restrict__ qkv, float* __restrict__ amax,
-                                 int heads, int seq_pad, int dh, int block_q,
-                                 int n_qblocks) {
-  __shared__ float warp_max[32];
-  const int slot = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int width = 3 * heads * dh;
-  int row0 = 0, rows = seq_pad, col0;
-  if (slot < n_qblocks) {
-    row0 = slot * block_q;
-    rows = block_q;
-    col0 = h * dh;
-  } else {
-    col0 = (slot == n_qblocks ? heads + h : 2 * heads + h) * dh;
-  }
-  const T* base = qkv + ((size_t)b * seq_pad + row0) * width + col0;
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < rows * dh; i += blockDim.x)
-    mx = fmaxf(mx, fabsf(to_float(base[(size_t)(i / dh) * width + i % dh])));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = mx;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < blockDim.x / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-    amax[((size_t)b * heads + h) * (n_qblocks + 2) + slot] = fmaxf(mx, 1e-8f);
-  }
-}
-
 // bf16 takes two m-tiles per warp (128-row blocks); f32, whose hi and lo
 // tiles double the registers and shared memory, one
 template <typename T, bool kQuantOut, int kD>
@@ -638,22 +381,8 @@ int launch_mma(int batch, const void* qkv, void* out, int heads, int seq_pad, in
 }
 
 template <typename T, bool kQuantOut>
-int launch(const void* qkv, void* out, const void* amax, int batch, int heads,
-           int seq_pad, int kv_len, int dh, float scale, int use_exp2, float out_inv,
-           int int8_scores, int block_q, cudaStream_t stream) {
-  if (int8_scores) {
-    const dim3 grid((seq_pad + kRows - 1) / kRows, heads, batch);
-    const int n_qblocks = seq_pad / block_q;
-    slab_amax_kernel<T><<<dim3(n_qblocks + 2, heads, batch), 256, 0, stream>>>(
-        static_cast<const T*>(qkv), static_cast<float*>(const_cast<void*>(amax)),
-        heads, seq_pad, dh, block_q, n_qblocks);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    encoder_attention_int8_kernel<T, kQuantOut><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(qkv), out, static_cast<const float*>(amax), heads,
-        seq_pad, kv_len, dh, scale, use_exp2, out_inv, block_q, n_qblocks);
-    return (int)cudaGetLastError();
-  }
+int launch(const void* qkv, void* out, int batch, int heads, int seq_pad, int kv_len, int dh,
+           float scale, int use_exp2, float out_inv, cudaStream_t stream) {
   if (dh <= 80)
     return launch_mma<T, kQuantOut, 80>(batch, qkv, out, heads, seq_pad, kv_len, dh, scale,
                                         use_exp2, out_inv, stream);
@@ -662,39 +391,34 @@ int launch(const void* qkv, void* out, const void* amax, int batch, int heads,
 }
 
 template <typename T>
-int dispatch(int quant_out, int int8_scores, const void* qkv, void* out,
-             const void* amax, int batch, int heads, int seq_pad, int kv_len,
-             int dh, float scale, int use_exp2, float out_inv, int block_q,
-             cudaStream_t s) {
+int dispatch(int quant_out, const void* qkv, void* out, int batch, int heads, int seq_pad,
+             int kv_len, int dh, float scale, int use_exp2, float out_inv, cudaStream_t s) {
   if (quant_out)
-    return launch<T, true>(qkv, out, amax, batch, heads, seq_pad, kv_len, dh, scale,
-                           use_exp2, out_inv, int8_scores, block_q, s);
-  return launch<T, false>(qkv, out, amax, batch, heads, seq_pad, kv_len, dh, scale,
-                          use_exp2, out_inv, int8_scores, block_q, s);
+    return launch<T, true>(qkv, out, batch, heads, seq_pad, kv_len, dh, scale, use_exp2,
+                           out_inv, s);
+  return launch<T, false>(qkv, out, batch, heads, seq_pad, kv_len, dh, scale, use_exp2,
+                          out_inv, s);
 }
 
 }  // namespace
 }  // namespace gvl
 
 // qkv [B * Sp, 3 * H * dh] (in_dtype: 0 f32, 1 bf16), out [B * Sp, H * dh]
-// int8 when quant_out else qkv's type; amax [B, H, Sp / block_q + 2] f32
-// scratch, used when int8_scores (block_q divides Sp).  dh <= 128 and a
-// multiple of 8; 1 <= kv_len <= Sp.  scale multiplies q . k (it carries
-// log2 e when use_exp2).  Returns a cudaError_t.
-extern "C" int gvl_encoder_attention(const void* qkv, void* out, void* amax,
-                                     int batch, int heads, int seq_pad,
-                                     int kv_len, int dh, float scale,
-                                     int use_exp2, int quant_out, float out_inv,
-                                     int int8_scores, int block_q, int in_dtype,
+// int8 when quant_out else qkv's type.  dh <= 128 and a multiple of 8;
+// 1 <= kv_len <= Sp.  scale multiplies q . k (it carries log2 e when
+// use_exp2).  Returns a cudaError_t.
+extern "C" int gvl_encoder_attention(const void* qkv, void* out, int batch, int heads,
+                                     int seq_pad, int kv_len, int dh, float scale,
+                                     int use_exp2, int quant_out, float out_inv, int in_dtype,
                                      void* stream) {
   using namespace gvl;
   if (batch <= 0 || heads <= 0 || seq_pad <= 0 || kv_len <= 0 || kv_len > seq_pad ||
-      dh <= 0 || dh > D || dh % 8 || (int8_scores && (block_q <= 0 || seq_pad % block_q)))
+      dh <= 0 || dh > D || dh % 8)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kF32)
-    return dispatch<float>(quant_out, int8_scores, qkv, out, amax, batch, heads, seq_pad, kv_len, dh, scale, use_exp2, out_inv, block_q, s);
+    return dispatch<float>(quant_out, qkv, out, batch, heads, seq_pad, kv_len, dh, scale, use_exp2, out_inv, s);
   if (in_dtype == kBF16)
-    return dispatch<__nv_bfloat16>(quant_out, int8_scores, qkv, out, amax, batch, heads, seq_pad, kv_len, dh, scale, use_exp2, out_inv, block_q, s);
+    return dispatch<__nv_bfloat16>(quant_out, qkv, out, batch, heads, seq_pad, kv_len, dh, scale, use_exp2, out_inv, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
-// Accelerator: 2-D tile loads by TMA into shared memory, the mbarriers that
-// report their arrival and the release of a stage, warpgroup matrix products
-// (wgmma) of s8 operands with exact s32 sums read straight from shared
-// memory, and register rebalancing between warpgroups (setmaxnreg).
+// Accelerator: 2-D tile loads by TMA into shared memory and the host-side
+// tensor maps that describe them, the mbarriers that report their arrival
+// and the release of a stage, warpgroup matrix products (wgmma) of s8
+// operands with exact s32 sums (B read from shared memory, A from shared
+// memory or registers), and register rebalancing between warpgroups
+// (setmaxnreg).
 //
 // Layout contract between TMA and wgmma.  A tile of R rows of 128 bytes
 // (K-major: K contiguous, as both operands of an 8-bit wgmma must be)
@@ -18,6 +20,10 @@
 // layout for accumulator D"): thread 32 w + 4 g + t of the warpgroup holds,
 // for every 8-column group j, d[4 j + 0..1] = (row 16 w + g, cols 8 j + 2 t,
 // 8 j + 2 t + 1) and d[4 j + 2..3] = (row 16 w + g + 8, the same cols).
+// A from registers (m64nNk32, 8-bit): the same thread holds a[0] = (row
+// 16 w + g, k 4 t .. 4 t + 3), a[1] = (row + 8, the same k), a[2] = (row,
+// k 16 + 4 t ..), a[3] = (row + 8, k 16 + 4 t ..), the lower k in the lower
+// byte: mma.m16n8k32's A fragment, one per warp.
 #pragma once
 
 #include <cuda.h>
@@ -67,6 +73,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// one consumer warpgroup's barrier (ids 1, 2; 0 is __syncthreads')
+__device__ __forceinline__ void warpgroup_sync(int half) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + half) : "memory");
+}
+
+// orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (a TMA load into the same bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------- TMA
@@ -128,19 +145,23 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses to the accumulators across an
 // asynchronous product
-template <int R>
-__device__ __forceinline__ void wgmma_fence_regs(int (&d)[R]) {
+// (or, for A fragments, across the product that reads them: a register the
+// compiler thinks free may not be rewritten before wgmma_wait)
+template <typename T, int R>
+__device__ __forceinline__ void wgmma_fence_regs(T (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x N, s32) += A (64 x 32 s8, descriptor a) B^T (N x 32 s8,
-// descriptor b), asynchronously; N = 128, 144 or 256
+// descriptor b), asynchronously; N = 128, 144 or 256.  With kScaleD = 0
+// the product overwrites d (no instruction has to zero it first)
 template <int N>
 struct WgmmaS8;
 
 template <>
 struct WgmmaS8<128> {
+  template <int kScaleD = 1>
   __device__ static __forceinline__ void mma(int (&d)[64], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -158,12 +179,13 @@ struct WgmmaS8<128> {
           "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
           "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
           "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "n"(kScaleD));
   }
 };
 
 template <>
 struct WgmmaS8<144> {
+  template <int kScaleD = 1>
   __device__ static __forceinline__ void mma(int (&d)[72], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
@@ -183,12 +205,13 @@ struct WgmmaS8<144> {
           "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
           "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
           "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "n"(kScaleD));
   }
 };
 
 template <>
 struct WgmmaS8<256> {
+  template <int kScaleD = 1>
   __device__ static __forceinline__ void mma(int (&d)[128], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -218,9 +241,90 @@ struct WgmmaS8<256> {
           "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
           "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
           "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "n"(kScaleD));
   }
 };
 
+// d (64 x 128, s32) += A (64 x 32 s8, in registers, the layout above) B^T
+// (128 x 32 s8, descriptor b), asynchronously
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64], const unsigned (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------- tensor maps (host)
+
+// the C entries' error code for a tensor map the driver did not encode
+// (csrc/errors.cu spells it out); the CUresult is added to it
+constexpr int kErrTensorMap = 0x10000;
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (no -lcuda on the link line)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major byte matrix [rows, k] as boxes of box_rows x 128 bytes with
+// the 128-byte swizzle (k a multiple of 16); 0 or an error code
+inline int encode_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kErrTensorMap;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)k};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+// the SMs of the current device (0 when it cannot be read), read once
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 0;
+  }
+  return count;
+}
 
 }  // namespace gvl

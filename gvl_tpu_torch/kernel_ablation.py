@@ -1,19 +1,20 @@
 """Ablations of the redesigned kernels, on the card.
 
-    python -m gvl_tpu_torch.kernel_ablation
+    python -m gvl_tpu_torch.kernel_ablation [--only SOURCE ...]
 
 Run from the repository root on a machine with one CUDA card and ``nvcc``.
 For each redesigned source (the tensor-core attention kernels
 ``csrc/encoder_attention.cu``, ``chunk_attention.cu``,
-``decode_attention.cu``, ``flash_attention.cu``; the ``wgmma`` int8 product
+``decode_attention.cu``, ``flash_attention.cu``; B9's ``int8_scores`` mode
+``encoder_attention_int8.cu``; the ``wgmma`` int8 product
 ``w8a8_matmul.cu``; the streaming LayerNorm-quantize ``ln_quant.cu``) it
 builds the committed source and copies of it with one design choice undone
 (a text edit, :data:`VARIANTS`), each into its own library under
 ``gvl_tpu_torch/_build/ablation/`` (one nvcc per library, all started
 together), then calls their C entry points in turns (every variant, then
 every variant again in reverse order; the lower time is kept) with CUDA
-events around back-to-back calls, at the so400m frames shape (B9, B10; 8
-frames, Sp 736), the chunk, decode and prefill shapes of the served QA
+events around back-to-back calls, at the so400m frames shape (B9 in both
+modes, B10; 8 frames, Sp 736), the chunk, decode and prefill shapes of the served QA
 model and 8B geometry, the bf16 so400m tower's attention, and the fused
 tower's int8 products (each at two tile widths) and LayerNorm-quantize.
 Each output is held against the plain version: int8 outputs by their
@@ -23,6 +24,7 @@ largest absolute difference.  Prints one JSON object as its last line.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -52,6 +54,28 @@ VARIANTS = {
             ("            mma_bf16(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);\n          }",
              "            if (2 * np + 1 < n_vt) mma_bf16(o[mt][2 * np + 1], pa[mt], vb[2], vb[3]);"
              "\n          }")],
+    },
+    "encoder_attention_int8.cu": {
+        "__fdiv_rn in the epilogue (its slow path at every zero numerator)": [
+            ("      return y == 0.f ? y : __fmaf_rn(__fmaf_rn(-d[r], q, y), rd[r], q);",
+             "      return __fdiv_rn(y, d[r]);")],
+        "p v and the next q k^T waited for apart": [
+            ("      wgmma_commit();\n      if (i > 0) issue_qk(i - 1);",
+             "      wgmma_commit();\n      wait_all();\n      if (i > 0) issue_qk(i - 1);")],
+        "int8 out by 2-byte stores (no staging)": [
+            ("    if constexpr (kQuantOut) {\n      // the int8 rows go through",
+             "    if constexpr (false) {\n      // the int8 rows go through"),
+            ("            store_pair<T, false>(", "            store_pair<T, kQuantOut>("),
+            ("      if (!kQuantOut && i == 0 && lane == 0)",
+             "      if (i == 0 && lane == 0)")],
+        "a block per query tile (each loads its head's K8)": [
+            ("  const int split = max(1, min(n_qt, sms / (batch * heads)));",
+             "  const int split = n_qt;")],
+        "2 V stages": [("constexpr int kVStages = 3;", "constexpr int kVStages = 2;")],
+        "pre-pass: 4 blocks a slab": [("constexpr int kPrepSplit = 8; ", "constexpr int kPrepSplit = 4; ")],
+        "body launched after the pre-pass (no programmatic dependent launch)": [
+            ("  serial[0].val.programmaticStreamSerializationAllowed = 1;",
+             "  serial[0].val.programmaticStreamSerializationAllowed = 0;")],
     },
     "chunk_attention.cu": {
         "one key group (4 warps, 4-stage ring)": [
@@ -178,9 +202,8 @@ def encoder_cases(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def run(lib, qkv=qkv, out=out, dh=dh):
-            err = lib.gvl_encoder_attention(qkv.data_ptr(), out.data_ptr(), None, 8, 16, 736,
-                                            729, dh, 72 ** -0.5 * qm.LOG2E, 1, 1, 40.0, 0,
-                                            1024, 1, stream)
+            err = lib.gvl_encoder_attention(qkv.data_ptr(), out.data_ptr(), 8, 16, 736, 729,
+                                            dh, 72 ** -0.5 * qm.LOG2E, 1, 1, 40.0, 1, stream)
             if err:
                 raise RuntimeError(f"gvl_encoder_attention returned {err}")
 
@@ -190,6 +213,34 @@ def encoder_cases(dev):
 
         cases[label] = (run, check)
     return cases
+
+
+def int8_cases(dev):
+    from gvl_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(5888, 48 * 128, generator=gen, device=dev).to(torch.bfloat16)
+    qkv.view(5888, 48, 128)[..., 72:] = 0      # heads padded as served
+    want = qm.attention_fused_qkv_reference(
+        qkv, batch=8, seq_pad=736, kv_len=729, num_heads=16, dh_pad=128, sm_scale=72 ** -0.5,
+        int8_scores=True, out_scale_inv=40.0)
+    out = torch.empty_like(want)
+    scratch = torch.empty(3 * 8 * 16 * 768 * 128, dtype=torch.int8, device=dev)
+    amax = torch.empty(8, 16, 3, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib):
+        err = lib.gvl_encoder_attention_int8(qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                             amax.data_ptr(), 8, 16, 736, 729, 128,
+                                             72 ** -0.5 * qm.LOG2E, 1, 40.0, 736, 1, stream)
+        if err:
+            raise RuntimeError(f"gvl_encoder_attention_int8 returned {err}")
+
+    def check():
+        diff = (out.int() - want.int()).abs()
+        return f"int8 max step {diff.max().item()}, share {(diff > 0).float().mean().item():.1e}"
+
+    return {"B9 int8_scores frames [5888,3x16x128] -> int8": (run, check)}
 
 
 def chunk_cases(dev):
@@ -374,12 +425,14 @@ def ln_quant_cases(dev):
     return cases
 
 
-CASES = {"encoder_attention.cu": encoder_cases, "chunk_attention.cu": chunk_cases,
+CASES = {"encoder_attention.cu": encoder_cases, "encoder_attention_int8.cu": int8_cases,
+         "chunk_attention.cu": chunk_cases,
          "decode_attention.cu": decode_cases, "flash_attention.cu": flash_cases,
          "w8a8_matmul.cu": w8a8_cases, "ln_quant.cu": ln_quant_cases}
 
 
-def main() -> dict:
+def main(only: tuple[str, ...] = ()) -> dict:
+    """Every source's variants, or those of the sources in ``only``."""
     dev = torch.device("cuda", 0)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ablation: no CUDA device; it runs on the card only")
@@ -387,13 +440,14 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     result = {"device": smi}
-    builds = [(source, name, edits) for source in CASES
+    sources = [source for source in CASES if not only or source in only]
+    builds = [(source, name, edits) for source in sources
               for name, edits in [(BASE, [])] + list(VARIANTS[source].items())]
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         built = list(pool.map(lambda b: build_variant(*b), builds))
     libraries = {(source, name): lib for (source, name, _), lib in zip(builds, built)}
-    for source, make_cases in CASES.items():
-        cases = make_cases(dev)
+    for source in sources:
+        cases = CASES[source](dev)
         libs = {name: lib for (src, name), lib in libraries.items() if src == source}
         table = {}
         for label, (run, check) in cases.items():
@@ -415,4 +469,7 @@ def main() -> dict:
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", nargs="+", default=(), choices=sorted(CASES),
+                        help="ablate these sources only")
+    print(json.dumps(main(tuple(parser.parse_args().only))))

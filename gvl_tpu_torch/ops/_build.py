@@ -52,8 +52,10 @@ _SIGNATURES = {
     "gvl_w8a8_matmul": [_VOID_P] * 6 + [_INT] * 4 + [_FLOAT, _INT, _INT, _VOID_P],
     "gvl_ln_quant": [_VOID_P] * 4 + [_INT] * 2 + [_FLOAT] * 2 + [_INT, _VOID_P],
     "gvl_quant_static": [_VOID_P] * 2 + [ctypes.c_long, _FLOAT, _INT, _VOID_P],
-    "gvl_encoder_attention": [_VOID_P] * 3 + [_INT] * 5 + [_FLOAT, _INT, _INT, _FLOAT]
-                             + [_INT] * 3 + [_VOID_P],
+    "gvl_encoder_attention": [_VOID_P] * 2 + [_INT] * 5 + [_FLOAT, _INT, _INT, _FLOAT, _INT,
+                                                            _VOID_P],
+    "gvl_encoder_attention_int8": [_VOID_P] * 4 + [_INT] * 5 + [_FLOAT, _INT, _FLOAT, _INT,
+                                                                 _INT, _VOID_P],
 }
 
 

@@ -13,7 +13,8 @@ runs its plain version on CPU tensors:
   LayerNorm in f32, then a static int8 quantize.
 - :func:`quant_static` (same source, own entry point) replaces
   ``quant_static_pallas``.
-- :func:`attention_fused_qkv` (``csrc/encoder_attention.cu``) replaces
+- :func:`attention_fused_qkv` (``csrc/encoder_attention.cu``; with
+  ``int8_scores`` ``csrc/encoder_attention_int8.cu``) replaces
   ``attention_fused_qkv_pallas``: attention straight out of the packed
   ``[B·Sp, 3·H·dh_pad]`` projection, heads padded to 128, softmax in exp2
   form, optional int8 requantize and ``int8_scores``.
@@ -41,6 +42,7 @@ LOG2E = 1.4426950408889634
 EPILOGUES = {"none": 0, "residual": 1, "gelu_quant": 2, "quant": 3}
 MAX_HEAD_DIM = 128   # the attention kernel's compute width
 INT8_SCORES_MAX_SEQ = 1024   # int8 P V sums stay exact in f32 up to here
+INT8_KEY_TILE = 128          # the int8_scores kernel pads its int8 slabs to whole tiles
 
 
 def gelu_exp2(y: torch.Tensor) -> torch.Tensor:
@@ -380,7 +382,11 @@ def attention_qkv_packed_reference(qkv, *, batch, seq_pad, kv_len, num_heads,
 def _encoder_attention(name: str, qkv, *, batch, seq_pad, kv_len, num_heads,
                        head_dim, scale, exp2, out_scale_inv, int8_scores=False,
                        block_q=1024):
-    """Launch ``csrc/encoder_attention.cu`` (shared by B9, B10 and B12)."""
+    """Launch ``csrc/encoder_attention.cu`` (shared by B9, B10 and B12) or,
+    with ``int8_scores`` (B9 only, exp2), ``csrc/encoder_attention_int8.cu``:
+    its quantize pre-pass writes q8, k8 and v8ᵀ into int8 scratch padded to
+    whole 128-key tiles (:data:`INT8_KEY_TILE`) and the block maxima into
+    ``amax``, then its body reads them by TMA."""
     index = _build.require_cuda(name, qkv)
     _split_heads(qkv, batch, seq_pad, num_heads, head_dim)   # raises on a bad shape
     if (qkv.dtype not in _build.DTYPE_CODES or head_dim > MAX_HEAD_DIM
@@ -388,20 +394,28 @@ def _encoder_attention(name: str, qkv, *, batch, seq_pad, kv_len, num_heads,
         raise ValueError(f"{name}: needs f32/bf16 qkv (16-byte aligned), head_dim "
                          f"a multiple of 8 up to {MAX_HEAD_DIM} and 1 <= kv_len <= "
                          f"Sp; got {qkv.dtype}, head_dim {head_dim}, kv_len {kv_len}")
-    bq = _q_block(seq_pad, block_q)
     if int8_scores and seq_pad > INT8_SCORES_MAX_SEQ:
         raise ValueError(f"{name}: int8_scores takes Sp <= {INT8_SCORES_MAX_SEQ}")
     quant_out = out_scale_inv is not None
     out = torch.empty(batch * seq_pad, num_heads * head_dim,
                       dtype=torch.int8 if quant_out else qkv.dtype, device=qkv.device)
-    amax = (torch.empty(batch, num_heads, seq_pad // bq + 2, dtype=torch.float32,
-                        device=qkv.device) if int8_scores else None)
-    err = _build.entry("gvl_encoder_attention")(
-        qkv.data_ptr(), out.data_ptr(), None if amax is None else amax.data_ptr(),
-        batch, num_heads, seq_pad, int(kv_len), head_dim, float(scale), int(exp2),
-        int(quant_out), float(out_scale_inv) if quant_out else 0.0,
-        int(int8_scores), bq, _build.DTYPE_CODES[qkv.dtype],
-        _build.stream_handle(index))
+    inv = float(out_scale_inv) if quant_out else 0.0
+    dtype, stream = _build.DTYPE_CODES[qkv.dtype], _build.stream_handle(index)
+    if int8_scores:
+        bq = _q_block(seq_pad, block_q)
+        seq_t = -(-seq_pad // INT8_KEY_TILE) * INT8_KEY_TILE
+        scratch = torch.empty(3 * batch * num_heads * seq_t * MAX_HEAD_DIM, dtype=torch.int8,
+                              device=qkv.device)
+        amax = torch.empty(batch, num_heads, seq_pad // bq + 2, dtype=torch.float32,
+                           device=qkv.device)
+        err = _build.entry("gvl_encoder_attention_int8")(
+            qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), amax.data_ptr(), batch,
+            num_heads, seq_pad, int(kv_len), head_dim, float(scale), int(quant_out), inv, bq,
+            dtype, stream)
+    else:
+        err = _build.entry("gvl_encoder_attention")(
+            qkv.data_ptr(), out.data_ptr(), batch, num_heads, seq_pad, int(kv_len), head_dim,
+            float(scale), int(exp2), int(quant_out), inv, dtype, stream)
     _build.check(err, name)
     return out
 

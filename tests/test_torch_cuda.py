@@ -636,20 +636,37 @@ def test_ln_quant_and_quant_static_reject_misaligned_rows(dev):
         quant_static(x, 20.0)
 
 
+def _fused_qkv(dev, b, sp, kv_len, h, dh, dtype, seed, pad_max=False):
+    """A head-padded projection as served (columns 72 .. 127 of each head
+    zero at dh 128); with ``pad_max`` the rows at or past kv_len are scaled
+    by 4, so that they hold the largest |x| of every K and V slab."""
+    qkv = _randn(dev, b * sp, 3 * h * dh, seed=seed, dtype=dtype)
+    if dh == 128:
+        qkv.view(b * sp, 3 * h, 128)[..., 72:] = 0
+    if pad_max:
+        qkv.view(b, sp, -1)[:, kv_len:] *= 4
+    return qkv
+
+
 @pytest.mark.parametrize("int8_scores", [False, True])
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("b,sp,kv_len,h,block_q", [(2, 64, 57, 4, 1024), (1, 96, 81, 2, 32),
-                                                   (2, 736, 729, 16, 1024)])
+@pytest.mark.parametrize("b,sp,kv_len,h,block_q,dh,dtype,pad_max", [
+    (2, 64, 57, 4, 1024, 128, torch.bfloat16, False),
+    (1, 96, 81, 2, 32, 128, torch.bfloat16, False),
+    (2, 736, 729, 16, 1024, 128, torch.bfloat16, False),
+    (1, 1024, 1000, 4, 1024, 128, torch.bfloat16, False),   # the largest Sp of int8_scores
+    (2, 96, 81, 4, 1024, 128, torch.float32, False),
+    (2, 736, 729, 4, 1024, 72, torch.bfloat16, False),      # dh 72, unpadded
+    (2, 736, 729, 4, 1024, 128, torch.bfloat16, True)])     # an amax that skips rows fails
 def test_attention_fused_qkv_matches_plain(dev, int8_scores, quant, b, sp, kv_len, h,
-                                           block_q):
+                                           block_q, dh, dtype, pad_max):
     from gvl_tpu_torch.ops.quant_matmul import (
         attention_fused_qkv,
         attention_fused_qkv_reference,
     )
 
-    qkv = _randn(dev, b * sp, 3 * h * 128, seed=11, dtype=torch.bfloat16)
-    qkv.view(b * sp, 3 * h, 128)[..., 72:] = 0      # padded heads, as served
-    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=128,
+    qkv = _fused_qkv(dev, b, sp, kv_len, h, dh, dtype, seed=11, pad_max=pad_max)
+    kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=dh,
               sm_scale=1.0 / 72 ** 0.5, int8_scores=int8_scores, block_q=block_q,
               out_scale_inv=40.0 if quant else None)
     before = attention_fused_qkv.launches
@@ -660,7 +677,8 @@ def test_attention_fused_qkv_matches_plain(dev, int8_scores, quant, b, sp, kv_le
     if quant:
         _int8_close(got, want)
     else:
-        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(F32_TOL if dtype == torch.float32 else BF16_TOL))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -825,17 +843,18 @@ def test_encoder_attention_key_tile_edges(dev, dtype, dh, sp, kv_len):
 
 
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("b,sp,kv_len,h", [(1, 96, 65, 2), (2, 736, 729, 4)])
+@pytest.mark.parametrize("b,sp,kv_len,h", [(1, 96, 65, 2), (2, 736, 729, 4),
+                                           (1, 1024, 1000, 4)])
 def test_attention_fused_qkv_int8_scores_block_q_32(dev, quant, b, sp, kv_len, h):
-    """int8_scores with q quantized per 32-row block: two q blocks, two scales,
-    in every 64-row query tile."""
+    """int8_scores with q quantized per 32-row block: several q blocks, and
+    several scales in every 64-row half of a 128-row query tile (32 blocks
+    at Sp 1024)."""
     from gvl_tpu_torch.ops.quant_matmul import (
         attention_fused_qkv,
         attention_fused_qkv_reference,
     )
 
-    qkv = _randn(dev, b * sp, 3 * h * 128, seed=31, dtype=torch.bfloat16)
-    qkv.view(b * sp, 3 * h, 128)[..., 72:] = 0
+    qkv = _fused_qkv(dev, b, sp, kv_len, h, 128, torch.bfloat16, seed=31)
     kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=128,
               sm_scale=1.0 / 72 ** 0.5, int8_scores=True, block_q=32,
               out_scale_inv=40.0 if quant else None)

@@ -211,22 +211,30 @@ def test_quant_static_plain_matches_jax(shape, inv):
 
 # ----------------------------------------------------------- B9, B10, B12
 
-def _qkv(b, sp, h, dh, seed):
-    return _bf16(np.random.default_rng(seed).normal(size=(b * sp, 3 * h * dh))
-                 .astype(np.float32))
+def _qkv(b, sp, h, dh, seed, pad_max_from=None):
+    """bf16 qkv on both sides; with ``pad_max_from`` the rows from there on
+    are scaled by 4, so that they hold the largest |x| of every slab."""
+    x = np.random.default_rng(seed).normal(size=(b * sp, 3 * h * dh)).astype(np.float32)
+    if pad_max_from is not None:
+        x.reshape(b, sp, -1)[:, pad_max_from:] *= 4
+    return _bf16(x)
 
 
 @pytest.mark.parametrize("int8_scores", [False, True])
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("b,sp,kv_len,h,block_q", [(2, 64, 57, 4, 1024),
-                                                   (1, 96, 81, 2, 32)])
+@pytest.mark.parametrize("b,sp,kv_len,h,block_q,pad_max", [
+    pytest.param(2, 64, 57, 4, 1024, False, id="2-64-57-4-1024"),
+    pytest.param(1, 96, 81, 2, 32, False, id="1-96-81-2-32"),
+    pytest.param(1, 96, 81, 2, 1024, True, id="1-96-81-2-1024-pad_max")])
 def test_attention_fused_qkv_plain_matches_pallas(int8_scores, quant, b, sp, kv_len,
-                                                  h, block_q):
+                                                  h, block_q, pad_max):
     """Padded heads (dh_pad 128): the plain version against the Pallas body
     in interpret mode, both int8_scores settings (JAX's XLA reference has
     no int8_scores), the kv_len mask, the fused requantize, one q block or
-    three."""
-    qkv_j, qkv_t = _qkv(b, sp, h, 128, seed=sp + h)
+    three.  ``pad_max``: the rows at or past kv_len hold each slab's largest
+    |x|, and int8_scores' k and v maxima must count them, as the TPU body's
+    do (the kernel is held to that on the card)."""
+    qkv_j, qkv_t = _qkv(b, sp, h, 128, seed=sp + h, pad_max_from=kv_len if pad_max else None)
     kw = dict(batch=b, seq_pad=sp, kv_len=kv_len, num_heads=h, dh_pad=128,
               sm_scale=1.0 / np.sqrt(72.0), int8_scores=int8_scores, block_q=block_q)
     inv = 40.0 if quant else None
